@@ -1,0 +1,108 @@
+"""Plain PyTorch versions of the two CUDA kernels, with their signatures.
+
+They serve the CPU (a wrapper in ``pq_scan.py`` takes them only for a
+tensor on the CPU) and hold the kernels on the card in
+``chip_smoke.py``.  The ADC sum runs over **ascending m** in f32, one
+add at a time, exactly as each kernel thread does, so kernel and plain
+version agree bitwise on the same device.
+"""
+from __future__ import annotations
+
+import torch
+
+from .topk import PAD_POS
+
+
+def _tile_codes(block_codes: torch.Tensor, tile_idx: torch.Tensor,
+                packed: bool) -> torch.Tensor:
+    """Gathered code tiles (T, S, BLK, M) uint8, nibbles unpacked."""
+    raw = block_codes[tile_idx.long()]                   # (T, S, BLK, MB)
+    if not packed:
+        return raw
+    t, s, blk, mb = raw.shape
+    return torch.stack([raw & 15, raw >> 4], dim=-1).reshape(t, s, blk, 2 * mb)
+
+
+def pq_scan_tiled_ref(lut: torch.Tensor, block_codes: torch.Tensor,
+                      tile_idx: torch.Tensor, *, query_tile: int = 8,
+                      packed: bool = False) -> torch.Tensor:
+    """Plain K1: lut (B, M, K) f32, block_codes (TB, BLK, MB) uint8,
+    tile_idx (B // QT, S) -> (B, S, BLK) f32 with
+    ``out[b, s, i] = sum_m lut[b, m, codes[tile_idx[b // QT, s], i, m]]``
+    summed over ascending m.  ``packed``: MB = M / 2 and each byte holds
+    the codes of subquantizers 2j (lo nibble) and 2j+1 (hi nibble)."""
+    b, m, k = lut.shape
+    t, s = tile_idx.shape
+    if b != t * query_tile:
+        raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
+    codes = _tile_codes(block_codes, tile_idx, packed)   # (T, S, BLK, M)
+    if codes.shape[-1] != m:
+        raise ValueError(f"code width {codes.shape[-1]} != lut M {m}")
+    blk = codes.shape[2]
+    lut_t = lut.reshape(t, query_tile, m, k)
+    acc = torch.zeros((t, query_tile, s * blk), dtype=torch.float32,
+                      device=lut.device)
+    for j in range(m):
+        idx = codes[..., j].long().reshape(t, 1, s * blk).expand(
+            t, query_tile, s * blk)
+        acc = acc + torch.gather(lut_t[:, :, j, :], 2, idx)
+    return acc.reshape(b, s, blk)
+
+
+def pq_scan_paged_ref(lut: torch.Tensor, block_codes: torch.Tensor,
+                      block_idx: torch.Tensor, *,
+                      packed: bool = False) -> torch.Tensor:
+    """Per-query paging: plain K1 at query_tile = 1."""
+    return pq_scan_tiled_ref(lut, block_codes, block_idx, query_tile=1,
+                             packed=packed)
+
+
+def pq_scan_topk_ref(lut, block_codes, block_ids, block_other, tile_idx,
+                     rank_of, slot_of, rank_u, dead=None, *,
+                     query_tile: int = 8, fetch: int = 64,
+                     packed: bool = False):
+    """Plain K3: plain K1, then the keep mask, then a stable top-``fetch``.
+
+    Keep mask per (query b, scan position s, lane i) of block
+    ``blk = tile_idx[b // QT, s]``: ``block_ids[blk, i] >= 0`` and
+    ``slot_of[b, s] >= 0`` (``item_ok``, counted into the DCO), not a
+    misc duplicate (``rank_of[b, other] < rank_u[b, s]`` with
+    ``other = block_other[blk, i] >= 0``), and not dead when the
+    ``(TB, BLK)`` tombstone tile is given.  Kept candidates are ranked
+    by ``(d, pos = slot * BLK + lane)``; the result is padded with
+    ``(+inf, PAD_POS, -1)``.  Returns ``(acc_d, acc_pos, acc_id, dco)``:
+    (B, fetch) f32 / int32 / int32 and (B,) int32.
+    """
+    b = lut.shape[0]
+    t, s = tile_idx.shape
+    blk = block_codes.shape[1]
+    d = pq_scan_tiled_ref(lut, block_codes, tile_idx, query_tile=query_tile,
+                          packed=packed)                     # (B, S, BLK)
+    tiles = tile_idx.long().repeat_interleave(query_tile, dim=0)  # (B, S)
+    ids = block_ids[tiles]                                   # (B, S, BLK)
+    other = block_other[tiles]
+    orank = torch.gather(rank_of, 1, other.clamp_min(0).reshape(b, -1).long()
+                         ).reshape(other.shape)
+    dup = (other >= 0) & (orank < rank_u[:, :, None])
+    item_ok = (ids >= 0) & (slot_of >= 0)[:, :, None]
+    keep = item_ok & ~dup
+    if dead is not None:
+        keep &= dead[tiles] == 0
+    dco = item_ok.sum(dim=(1, 2)).to(torch.int32)
+    lane = torch.arange(blk, dtype=torch.int32, device=lut.device)
+    pos = slot_of[:, :, None] * blk + lane
+    cd = torch.where(keep, d, torch.inf).reshape(b, -1)
+    cp = torch.where(keep, pos, PAD_POS).reshape(b, -1)
+    ci = torch.where(keep, ids, -1).reshape(b, -1)
+    # lexicographic (d, pos): stable sort by pos, then stable by d
+    o1 = torch.sort(cp, dim=1, stable=True).indices
+    o2 = torch.sort(torch.gather(cd, 1, o1), dim=1, stable=True).indices
+    order = torch.gather(o1, 1, o2)[:, :fetch]
+    out = [torch.gather(x, 1, order) for x in (cd, cp, ci)]
+    short = fetch - order.shape[1]
+    if short > 0:
+        pads = (torch.inf, PAD_POS, -1)
+        out = [torch.cat([x, torch.full((b, short), p, dtype=x.dtype,
+                                        device=x.device)], dim=1)
+               for x, p in zip(out, pads)]
+    return out[0], out[1], out[2], dco
