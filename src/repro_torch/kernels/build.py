@@ -19,19 +19,23 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pq_scan.cu", "pq_scan_topk.cu")
+HEADERS = ("adc.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
-# argtypes of each library's launch entry point (pointers and the stream
-# are c_void_p, or ctypes would pass them as 32-bit ints)
+# (argtypes, restype) of each library's entry points (pointers and the
+# stream are c_void_p, or ctypes would pass them as 32-bit ints)
 _SIGNATURES = {
-    "pq_scan": ("pq_scan_tiled_launch",
-                [_VOID] * 4 + [_INT] * 9 + [_VOID]),
-    "pq_scan_topk": ("pq_scan_topk_launch",
-                     [_VOID] * 13 + [_INT] * 11 + [_VOID]),
+    "pq_scan": {
+        "pq_scan_tiled_launch": ([_VOID] * 4 + [_INT] * 9 + [_VOID], _INT),
+    },
+    "pq_scan_topk": {
+        "pq_scan_topk_launch": ([_VOID] * 13 + [_INT] * 11 + [_VOID], _INT),
+        "pq_scan_topk_smem_bytes": ([_INT] * 4, ctypes.c_size_t),
+    },
 }
 
 
@@ -45,7 +49,7 @@ def _nvcc() -> str:
 
 def _build_dir() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -91,10 +95,10 @@ def build_all() -> Dict[str, Path]:
 def load(stem: str) -> ctypes.CDLL:
     """The built library ``stem`` with its argtypes declared."""
     lib = ctypes.CDLL(str(build_all()[stem]))
-    fn_name, argtypes = _SIGNATURES[stem]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = _INT
+    for fn_name, (argtypes, restype) in _SIGNATURES[stem].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     lib.repro_cuda_error_string.argtypes = [_INT]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

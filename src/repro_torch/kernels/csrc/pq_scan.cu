@@ -12,9 +12,9 @@
 // shared memory (8 KB per query at M = 64, K = 16), then each thread scores
 // one item: it reads the item's code row (16-byte loads when the row width
 // allows), unpacks nibbles in registers when `packed`, and sums
-// lut[m][code] over ascending m in f32, one add at a time.  The plain
-// PyTorch version (kernels/ref.py) sums in the same order, so the two agree
-// bitwise.
+// lut[m][code] over ascending m in f32, one add at a time (adc.cuh).  The
+// plain PyTorch version (kernels/ref.py) sums in the same order, so the two
+// agree bitwise.
 //
 // Bound on this card: bytes.  Each item costs M table lookups from shared
 // memory and M f32 adds for M / 2 (packed) or M bytes of codes and 4 bytes
@@ -26,39 +26,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "adc.cuh"
+
 namespace {
-
-template <bool PACKED>
-__device__ __forceinline__ float add_byte(float acc, const float* ql, int K,
-                                          uint32_t byte, int c) {
-  if (PACKED) {
-    acc = acc + ql[(2 * c) * K + (byte & 15u)];
-    acc = acc + ql[(2 * c + 1) * K + (byte >> 4)];
-  } else {
-    acc = acc + ql[c * K + byte];
-  }
-  return acc;
-}
-
-template <bool PACKED>
-__device__ __forceinline__ float score_row(const uint8_t* __restrict__ row,
-                                           const float* ql, int K, int MB,
-                                           bool vec16) {
-  float acc = 0.f;
-  if (vec16) {
-    for (int c = 0; c < MB; c += 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row + c);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        acc = add_byte<PACKED>(acc, ql, K, (w[j >> 2] >> (8 * (j & 3))) & 255u,
-                               c + j);
-    }
-  } else {
-    for (int c = 0; c < MB; ++c) acc = add_byte<PACKED>(acc, ql, K, row[c], c);
-  }
-  return acc;
-}
 
 template <bool PACKED>
 __global__ void pq_scan_tiled(const float* __restrict__ lut,

@@ -17,7 +17,8 @@
 //   * a candidate is scored only when it is kept: block_ids >= 0 and
 //     slot_of >= 0 (item_ok, counted into the DCO), not a misc duplicate
 //     (rank_of[b, other] < rank_u[b, s]) and not dead.  Its distance is the
-//     same ascending-m f32 sum as K1, so the two kernels agree bitwise;
+//     same ascending-m f32 sum as K1 (adc.cuh), so the two kernels agree
+//     bitwise;
 //   * when some candidate of the round beats the current FW-th key of its
 //     query (__syncthreads_or), one bitonic sort of each query's 2 * FW
 //     buffer leaves the top FW in the first half; otherwise the round is
@@ -36,41 +37,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "adc.cuh"
+
 namespace {
 
 constexpr int PAD_POS = 1 << 30;
-
-template <bool PACKED>
-__device__ __forceinline__ float add_byte(float acc, const float* ql, int K,
-                                          uint32_t byte, int c) {
-  if (PACKED) {
-    acc = acc + ql[(2 * c) * K + (byte & 15u)];
-    acc = acc + ql[(2 * c + 1) * K + (byte >> 4)];
-  } else {
-    acc = acc + ql[c * K + byte];
-  }
-  return acc;
-}
-
-template <bool PACKED>
-__device__ __forceinline__ float score_row(const uint8_t* __restrict__ row,
-                                           const float* ql, int K, int MB,
-                                           bool vec16) {
-  float acc = 0.f;
-  if (vec16) {
-    for (int c = 0; c < MB; c += 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row + c);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        acc = add_byte<PACKED>(acc, ql, K, (w[j >> 2] >> (8 * (j & 3))) & 255u,
-                               c + j);
-    }
-  } else {
-    for (int c = 0; c < MB; ++c) acc = add_byte<PACKED>(acc, ql, K, row[c], c);
-  }
-  return acc;
-}
 
 __device__ __forceinline__ bool lex_less(float ad, int ap, float bd, int bp) {
   return ad < bd || (ad == bd && ap < bp);
@@ -194,6 +165,8 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Dynamic shared memory of one CTA: the layout at the top of pq_scan_topk.
+// The wrapper checks it against the card's limit before it launches.
 size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW) {
   return sizeof(float) * ((size_t)QT * M * K + 3 * (size_t)QT * 2 * FW + QT);
 }

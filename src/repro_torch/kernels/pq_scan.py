@@ -148,7 +148,8 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     if rank_of.shape[0] != b:
         raise ValueError(f"rank_of must have {b} rows")
     fw = topk_width(fetch, blk)
-    smem = 4 * (query_tile * m * k + 3 * query_tile * 2 * fw + query_tile)
+    lib = build.load("pq_scan_topk")
+    smem = lib.pq_scan_topk_smem_bytes(m, k, query_tile, fw)
     if smem > SMEM_LIMIT:
         raise ValueError(f"pq_scan_topk needs {smem} B of shared memory "
                          f"(limit {SMEM_LIMIT}); lower query_tile or fetch")
@@ -156,7 +157,6 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     acc_pos = torch.empty((b, fetch), dtype=torch.int32, device=dev)
     acc_id = torch.empty((b, fetch), dtype=torch.int32, device=dev)
     dco = torch.empty((b,), dtype=torch.int32, device=dev)
-    lib = build.load("pq_scan_topk")
     err = lib.pq_scan_topk_launch(
         lut.data_ptr(), block_codes.data_ptr(), block_ids.data_ptr(),
         block_other.data_ptr(), tile_idx.data_ptr(), rank_of.data_ptr(),

@@ -6,7 +6,9 @@ ascending; ``pos`` is unique among real candidates and padding carries
 ``(+inf, PAD_POS, -1)``, so the key is a total order and the network
 needs no stability of its own.  The CUDA kernel
 (``csrc/pq_scan_topk.cu``) runs the same compare-exchange schedule in
-shared memory; this module is its reference on the CPU.
+shared memory.  No path of the port calls the network: the plain K3
+(``ref.py``) selects with a stable ``torch.sort``, which gives the same
+answer.  Only the tests run it, against a numpy lexsort.
 """
 from __future__ import annotations
 
