@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. device   — card name, and name + power limit from nvidia-smi;
   2. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc;
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                bitwise, over a sweep of shapes and layouts; K2's
-                tile-row check;
+                bitwise, over a sweep of shapes and layouts (K3 also
+                split over the grid: few tiles, long S, sparse plans);
+                K3's merge on random sorted lists; K2's tile-row check;
   4. main     — a SIFT1M-shaped corpus (n x 128, made on the card from
                 --seed), a RAIRS index built on the card (IVF4096,
                 PQ64x4, block 32, rair + SEIL), exact top-10 ground
@@ -20,8 +21,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   5. timing   — each kernel, bitwise against its plain version at the
                 shapes of each exec mode's first main-path batch, then
                 both timed (CUDA events) beside the kernel's bound on
-                this card; the device time of each search stage for one
-                batch.
+                this card (K3's merge also alone where K3 splits); the
+                device time of each search stage for one batch of each
+                exec mode, fused off and on.
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -38,6 +40,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+INDEX = dict(nlist=4096, m_pq=64, nbits=4, block=32, strategy="rair",
+             seil=True)                              # the main path's index
 SEARCH = dict(k=10, nprobe=32, k_factor=10)          # the main path's params
 # its searches: exec mode and batch size (grouped's unfused scan holds
 # (B, U, BLK) f32 with U up to B * S, hence the smaller batch)
@@ -77,10 +81,12 @@ def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions on synthetic inputs
 # ---------------------------------------------------------------------------
-def synth_plan(torch, g, dev, *, b, s, tb, blk, m, k, nlist, nid, ints):
+def synth_plan(torch, g, dev, *, b, s, tb, blk, m, k, nlist, nid, ints,
+               p_valid=0.85):
     """A consistent (store, plan, lut, rank_of, sel, live): duplicate ids,
     invalid items, misc co-assignments; ``ints`` makes integer LUTs so
-    exact distance ties are everywhere."""
+    exact distance ties are everywhere; ``p_valid`` of the plan slots
+    are valid."""
     from repro_torch.core.engine import BlockStore, QueryPlan
 
     def ri(lo, hi, shape):
@@ -93,7 +99,7 @@ def synth_plan(torch, g, dev, *, b, s, tb, blk, m, k, nlist, nid, ints):
     blocks = torch.stack([torch.randperm(tb, generator=g, device=dev)[:s]
                           for _ in range(b)]).int()
     ranks = torch.sort(ri(0, nlist, (b, s)), dim=1).values.int()
-    valid = torch.rand(b, s, generator=g, device=dev) < 0.85
+    valid = torch.rand(b, s, generator=g, device=dev) < p_valid
     rank_of = torch.where(torch.rand(b, nlist, generator=g, device=dev) < 0.5,
                           ri(0, nlist, (b, nlist)),
                           torch.full((b, nlist), 2 ** 30, device=dev)).int()
@@ -107,10 +113,9 @@ def synth_plan(torch, g, dev, *, b, s, tb, blk, m, k, nlist, nid, ints):
 
 def check_kernels(torch, dev, seed):
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import (pq_scan_paged_kernel,
-                                             pq_scan_tiled_kernel,
-                                             pq_scan_topk_kernel)
-    from repro_torch.core.engine import fused_scan_args
+    from repro_torch.kernels.pq_scan import (merge_topk_kernel,
+                                             pq_scan_paged_kernel,
+                                             pq_scan_tiled_kernel)
     from repro_torch.quant import pack_nibbles
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -158,44 +163,129 @@ def check_kernels(torch, dev, seed):
           "K2 shared rows disagree with the plain version")
     log("kernels: K2 raises ValueError on disagreeing tile rows")
     # K3: layouts x unpacked / packed (odd Mc) x dead tile x fetch x
-    # (tie-heavy ints | random f32)
+    # (tie-heavy ints | random f32); one split each (S = 12)
     n_k3 = 0
     for mode in ("paged", "grouped", "clustered"):
         for packed in (False, True):
             for ints in (True, False):
-                store, plan, lut, rank_of, sel, live = synth_plan(
-                    torch, g, dev, b=16, s=12, tb=40, blk=32,
-                    m=15 if packed else 16, k=16, nlist=10, nid=300,
-                    ints=ints)
-                if packed:
-                    store = store._replace(block_codes=torch.from_numpy(
-                        pack_nibbles(store.block_codes.cpu().numpy())).to(dev))
-                lut_x, tiles, rank_x, slot_of, rank_u, qt, _ = \
-                    fused_scan_args(store, plan, lut, rank_of, exec_mode=mode,
-                                    query_tile=4, sel=sel)
-                lut_a, codes_a = ops.align(lut_x, store.block_codes, packed)
                 for with_dead in (False, True):
-                    dead = None
-                    if with_dead:
-                        ids = store.block_ids
-                        dead = ((ids >= 0) & ~live[ids.clamp_min(0).long()]
-                                ).to(torch.uint8)
                     for fetch in (100, 200):
-                        args = (lut_a, codes_a, store.block_ids,
-                                store.block_other, tiles.contiguous(), rank_x,
-                                slot_of, rank_u, dead)
-                        kw = dict(query_tile=qt, fetch=fetch, packed=packed)
-                        got = pq_scan_topk_kernel(*args, **kw)
-                        want = ref.pq_scan_topk_ref(*args, **kw)
-                        torch.cuda.synchronize()
-                        for name, x, y in zip(("acc_d", "acc_pos", "acc_id",
-                                               "dco"), got, want):
-                            check(torch.equal(x, y),
-                                  f"K3 {mode} packed={packed} ints={ints} "
-                                  f"dead={with_dead} fetch={fetch}: {name} "
-                                  "differs")
+                        k3_case(torch, g, dev, mode=mode, packed=packed,
+                                ints=ints, with_dead=with_dead, fetch=fetch,
+                                qt=4, s=12, tb=40)
                         n_k3 += 1
     log(f"kernels: K3 bitwise equal to plain version in {n_k3} cases")
+    # K3 split over the grid: few tiles, long S (uneven last split), plan
+    # slots valid at 85% or 5% (splits that keep fewer than fetch items)
+    n_split = 0
+    for mode in ("paged", "grouped", "clustered"):
+        for qt in (4, 8):
+            for packed, ints, with_dead in ((False, True, False),
+                                            (True, True, True),
+                                            (False, False, True),
+                                            (True, False, False)):
+                for p_valid in (0.85, 0.05):
+                    splits, short = k3_case(
+                        torch, g, dev, mode=mode, packed=packed, ints=ints,
+                        with_dead=with_dead, fetch=100, qt=qt, s=300, tb=400,
+                        p_valid=p_valid)
+                    check(splits > 1, f"K3 split case {mode} qt={qt} ran "
+                          "one split")
+                    check(short or p_valid > 0.5, f"K3 split case {mode} "
+                          f"qt={qt} p_valid={p_valid}: every split kept "
+                          "fetch items")
+                    n_split += 1
+    log(f"kernels: K3 split over the grid bitwise equal to plain version "
+        f"in {n_split} cases")
+    # the merge alone: random ascending lists, tie-heavy, with pads
+    n_merge = 0
+    for b, splits, fetch in ((1, 2, 1), (7, 5, 100), (64, 66, 100),
+                             (1024, 5, 100), (16, 3, 200), (3, 300, 37)):
+        parts = sorted_lists(torch, g, dev, b, splits, fetch)
+        got = merge_topk_kernel(*parts)
+        want = ref.merge_topk_ref(*parts)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("acc_d", "acc_pos", "acc_id"), got, want):
+            check(torch.equal(x, y), f"merge b={b} splits={splits} "
+                  f"fetch={fetch}: {name} differs")
+        n_merge += 1
+    log(f"kernels: K3 merge bitwise equal to plain version in {n_merge} "
+        "cases")
+
+
+def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
+            tb, p_valid=0.85):
+    """K3 on one synthetic plan in ``mode``, bitwise against its plain
+    version.  Returns (splits, whether some split keeps < fetch items)."""
+    from repro_torch.core.engine import fused_scan_args
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.pq_scan import pq_scan_topk_kernel, topk_splits
+    from repro_torch.kernels.topk import PAD_POS
+    from repro_torch.quant import pack_nibbles
+    store, plan, lut, rank_of, sel, live = synth_plan(
+        torch, g, dev, b=16, s=s, tb=tb, blk=32, m=15 if packed else 16,
+        k=16, nlist=10, nid=300, ints=ints, p_valid=p_valid)
+    if packed:
+        store = store._replace(block_codes=torch.from_numpy(
+            pack_nibbles(store.block_codes.cpu().numpy())).to(dev))
+    lut_x, tiles, rank_x, slot_of, rank_u, qt, _ = fused_scan_args(
+        store, plan, lut, rank_of, exec_mode=mode, query_tile=qt, sel=sel)
+    lut_a, codes_a = ops.align(lut_x, store.block_codes, packed)
+    dead = None
+    if with_dead:
+        ids = store.block_ids
+        dead = ((ids >= 0) & ~live[ids.clamp_min(0).long()]).to(torch.uint8)
+    args = (lut_a, codes_a, store.block_ids, store.block_other,
+            tiles.contiguous(), rank_x.contiguous(), slot_of.contiguous(),
+            rank_u.contiguous(), dead)
+    kw = dict(query_tile=qt, fetch=fetch, packed=packed)
+    got = pq_scan_topk_kernel(*args, **kw)
+    want = ref.pq_scan_topk_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("acc_d", "acc_pos", "acc_id", "dco"), got, want):
+        check(torch.equal(x, y), f"K3 {mode} qt={qt} S={tiles.shape[1]} "
+              f"packed={packed} ints={ints} dead={with_dead} fetch={fetch} "
+              f"p_valid={p_valid}: {name} differs")
+    splits, s_per = topk_splits(*tiles.shape, codes_a.shape[1])
+    short = splits > 1 and any(
+        bool((p[1] == PAD_POS).any())
+        for p in split_parts(torch, args, kw, splits, s_per))
+    return splits, short
+
+
+def split_parts(torch, args, kw, splits, s_per):
+    """The plain K3 of each of the kernel's ranges of scan positions,
+    stacked to (B, splits, fetch): what the merge kernel takes."""
+    from repro_torch.kernels import ref
+    lut, codes, ids, other, tiles, rank_of, slot_of, rank_u, dead = args
+    s = tiles.shape[1]
+    parts = []
+    for y in range(splits):
+        lo, hi = y * s_per, min(s, (y + 1) * s_per)
+        parts.append(ref.pq_scan_topk_ref(
+            lut, codes, ids, other, tiles[:, lo:hi].contiguous(), rank_of,
+            slot_of[:, lo:hi].contiguous(), rank_u[:, lo:hi].contiguous(),
+            dead, **kw))
+    return tuple(torch.stack([p[i] for p in parts], dim=1).contiguous()
+                 for i in range(3))
+
+
+def sorted_lists(torch, g, dev, b, splits, fetch):
+    """(B, splits, fetch) (d, pos, id) lists, each ascending by (d, pos)
+    with pads last: integer distances, pos unique in a row, 30% pads."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.topk import PAD_POS
+    n = splits * fetch
+    d = torch.randint(0, 4, (b, n), generator=g, device=dev).float()
+    pos = torch.rand(b, 4 * n, generator=g, device=dev).argsort(dim=1)[:, :n]
+    idx = torch.randint(-1, 50, (b, n), generator=g, device=dev)
+    pad = torch.rand(b, n, generator=g, device=dev) < 0.3
+    d = torch.where(pad, torch.inf, d)
+    pos = torch.where(pad, PAD_POS, pos).int()
+    idx = torch.where(pad, -1, idx).int()
+    lists = ref.merge_topk_ref(*(x.reshape(b * splits, 1, fetch)
+                                 for x in (d, pos, idx)))
+    return tuple(x.reshape(b, splits, fetch).contiguous() for x in lists)
 
 
 # ---------------------------------------------------------------------------
@@ -281,21 +371,23 @@ def batch_inputs(index, queries):
 
 def stage_breakdown(torch, index, queries):
     """Median CUDA-event time of each seil_search stage for one batch,
-    per exec mode, fused off and on: where a batch's device time goes."""
+    per exec mode at its main-path batch size, fused off and on: where a
+    batch's device time goes."""
     from repro_torch.core.engine import (finalize_candidates, plan_blocks,
                                          scan_blocks, scan_blocks_topk,
                                          select_lists)
     from repro_torch.core.pq import pq_lut
-    p, fetch, tables, store, sel, plan, lut = batch_inputs(index, queries)
-    base = {
-        "select": cuda_ms(torch, lambda: select_lists(
-            queries, index.centroids, nprobe=p.nprobe), reps=5, warm=1),
-        "plan": cuda_ms(torch, lambda: plan_blocks(
-            tables, sel, max_scan=p.max_scan), reps=5, warm=1),
-        "lut": cuda_ms(torch, lambda: pq_lut(index.codebook, queries),
-                       reps=5, warm=1),
-    }
-    for mode in ("paged", "clustered"):
+    for mode, bsz in RUNS:
+        q = queries[:bsz].contiguous()
+        p, fetch, tables, store, sel, plan, lut = batch_inputs(index, q)
+        base = {
+            "select": cuda_ms(torch, lambda: select_lists(
+                q, index.centroids, nprobe=p.nprobe), reps=5, warm=1),
+            "plan": cuda_ms(torch, lambda: plan_blocks(
+                tables, sel, max_scan=p.max_scan), reps=5, warm=1),
+            "lut": cuda_ms(torch, lambda: pq_lut(index.codebook, q),
+                           reps=5, warm=1),
+        }
         for fused in (False, True):
             if fused:
                 def scan():
@@ -313,40 +405,63 @@ def stage_breakdown(torch, index, queries):
             times["scan"] = cuda_ms(torch, scan, reps=5, warm=1)
             times["finalize"] = cuda_ms(torch, lambda: finalize_candidates(
                 out.flat_d, out.flat_i, bigk=p.bigk, k=p.k,
-                vectors=index.vectors, queries=queries, metric="l2",
+                vectors=index.vectors, queries=q, metric="l2",
                 dedup_results=index.needs_result_dedup,
                 oversample=index.result_oversample), reps=5, warm=1)
+            del out
             total = sum(times.values())
-            log(f"stages: {mode:9s} fused={int(fused)} B={queries.shape[0]} "
+            log(f"stages: {mode:9s} fused={int(fused)} B={bsz} "
                 f"total {total:.4f} ms: " + ", ".join(
                     f"{k} {v:.4f} ms ({100 * v / total:.1f}%)"
                     for k, v in times.items()))
 
 
-def time_kernels(torch, index, queries, launches):
+def mode_inputs(index, queries, mode):
+    """K1's and K3's inputs at one batch of ``mode`` as the main path
+    makes them: ``(k1_args, k3_args, query_tile, fetch)``.  K1's inputs
+    in each mode are K3's: per-tile scan lists in scan order
+    (scan_blocks and scan_blocks_topk build the same ones)."""
+    from repro_torch.core.engine import fused_scan_args
+    p, fetch, _, store, sel, plan, lut = batch_inputs(index, queries)
+    lx, tiles, rx, slot_of, rank_u, qt, _ = fused_scan_args(
+        store, plan, lut, sel.rank_of, exec_mode=mode,
+        query_tile=p.query_tile, sel=sel.sel)
+    lx, tiles, codes = lx.contiguous(), tiles.contiguous(), store.block_codes
+    fetch = min(fetch, plan.blocks.shape[1] * codes.shape[1])
+    k3 = (lx, codes, store.block_ids, store.block_other, tiles,
+          rx.contiguous(), slot_of.contiguous(), rank_u.contiguous(), None)
+    return (lx, codes, tiles), k3, qt, fetch
+
+
+def lookup_rate(torch) -> float:
+    """Table lookups a second if every SM serves one 4-byte shared-memory
+    read per lane (32) per clock at its maximum clock: the floor of a
+    scan whose work is its lookups."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"timing: lookup floor at 32 lookups a clock on each of {sms} SMs "
+        f"at {mhz} MHz")
+    return 32 * sms * float(mhz) * 1e6
+
+
+def time_kernels(torch, index, queries, launches, lookups_per_s):
     """K1 and K3 at the shapes of the first main-path batch of each exec
     mode (grouped on its first 64 queries): bitwise against the plain
-    version there, then timed beside the plain version and the bound."""
-    from repro_torch.core.engine import fused_scan_args
+    version there, then timed beside the plain version and the bound.
+    K3's time covers its merge where it splits; the merge is also held
+    and timed alone."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
-                                             pq_scan_topk_kernel)
+    from repro_torch.kernels.pq_scan import (merge_topk_kernel,
+                                             pq_scan_tiled_kernel,
+                                             pq_scan_topk_kernel, topk_splits)
     rows = {}
     for mode, bsz in RUNS:
-        p, fetch, _, store, sel, plan, lut = batch_inputs(
-            index, queries[:bsz].contiguous())
-        # K1's inputs in each mode are K3's: per-tile scan lists in scan
-        # order (scan_blocks and scan_blocks_topk build the same ones)
-        lx, tiles, rx, slot_of, rank_u, qt, _ = fused_scan_args(
-            store, plan, lut, sel.rank_of, exec_mode=mode,
-            query_tile=p.query_tile, sel=sel.sel)
-        lx, tiles, codes = lx.contiguous(), tiles.contiguous(), \
-            store.block_codes
-        fetch = min(fetch, plan.blocks.shape[1] * codes.shape[1])
-        k1 = (lx, codes, tiles)
-        k3 = (lx, codes, store.block_ids, store.block_other, tiles,
-              rx.contiguous(), slot_of.contiguous(), rank_u.contiguous(),
-              None)
+        k1, k3, qt, fetch = mode_inputs(index, queries[:bsz].contiguous(),
+                                        mode)
+        lx, codes, tiles = k1
         for kid, fn, plain, args, kw, (nbytes, ops) in (
                 ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
                  dict(query_tile=qt), k1_bound(torch, k1)),
@@ -361,6 +476,8 @@ def time_kernels(torch, index, queries, launches):
                       "shape differs from its plain version")
             fin = torch.isfinite(want[0])
             err = (got[0][fin] - want[0][fin]).abs().max().item()
+            if kid == "K3":
+                k3_want = want[:3]
             del got, want
             ms = cuda_ms(torch, lambda: fn(*args, **kw))
             pms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1)
@@ -371,7 +488,26 @@ def time_kernels(torch, index, queries, launches):
             log(f"timing: {kid} {mode} B={lx.shape[0]} S={tiles.shape[1]} "
                 f"QT={qt}" + (f" fetch={fetch}" if kid == "K3" else "")
                 + f": {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-                f"({by}; {total} B = {json.dumps(nbytes)}; {ops} adds)")
+                f"({by}; {total} B = {json.dumps(nbytes)}; {ops} adds); "
+                f"{ops} lookups, lookup floor "
+                f"{ops / lookups_per_s * 1e3:.4f} ms")
+        # K3's merge at this shape: the plain top-fetch of each of the
+        # kernel's ranges, merged by the kernel
+        splits, s_per = topk_splits(*tiles.shape, codes.shape[1])
+        if splits > 1:
+            parts = split_parts(torch, k3, dict(query_tile=qt, fetch=fetch),
+                                splits, s_per)
+            got = merge_topk_kernel(*parts)
+            for x, y, z in zip(got, ref.merge_topk_ref(*parts), k3_want):
+                check(torch.equal(x, y) and torch.equal(x, z),
+                      f"K3 merge at the main path's {mode} shape differs "
+                      "from merge_topk_ref or from the unsplit plain K3")
+            del got, k3_want
+            mms = cuda_ms(torch, lambda: merge_topk_kernel(*parts))
+            log(f"timing: K3 merge {mode} splits={splits} s_per={s_per}: "
+                f"{mms:.4f} ms of K3's {rows[('K3', mode)]['ms']:.4f} ms "
+                "(bitwise equal to merge_topk_ref and to the unsplit plain "
+                "K3)")
     src = "src/repro_torch/kernels/csrc/"
     out = []
     for kid, name, source, replaces in (
@@ -403,8 +539,7 @@ def main_path(torch, dev, args):
     torch.cuda.synchronize()
     log(f"main: data sift1m-shaped n={x.shape[0]} d={x.shape[1]} "
         f"queries={q.shape[0]} in {time.perf_counter() - t0:.2f} s")
-    cfg = IndexConfig(nlist=4096, m_pq=64, nbits=4, block=32,
-                      strategy="rair", seil=True)
+    cfg = IndexConfig(**INDEX)
     t0 = time.perf_counter()
     index = build_index(x, cfg, generator=torch.Generator().manual_seed(
         args.seed), device=dev)
@@ -556,7 +691,8 @@ def main() -> int:
 
     check_kernels(torch, dev, args.seed)
     index, q, launches = main_path(torch, dev, args)
-    kernels = time_kernels(torch, index, q[:1024].contiguous(), launches)
+    kernels = time_kernels(torch, index, q[:1024].contiguous(), launches,
+                           lookup_rate(torch))
     stage_breakdown(torch, index, q[:1024].contiguous())
     del index
     torch.cuda.empty_cache()

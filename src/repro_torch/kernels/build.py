@@ -33,8 +33,9 @@ _SIGNATURES = {
         "pq_scan_tiled_launch": ([_VOID] * 4 + [_INT] * 9 + [_VOID], _INT),
     },
     "pq_scan_topk": {
-        "pq_scan_topk_launch": ([_VOID] * 13 + [_INT] * 11 + [_VOID], _INT),
-        "pq_scan_topk_smem_bytes": ([_INT] * 4, ctypes.c_size_t),
+        "pq_scan_topk_launch": ([_VOID] * 13 + [_INT] * 13 + [_VOID], _INT),
+        "topk_merge_launch": ([_VOID] * 6 + [_INT] * 4 + [_VOID], _INT),
+        "pq_scan_topk_smem_bytes": ([_INT] * 5, ctypes.c_size_t),
     },
 }
 

@@ -1,4 +1,5 @@
-"""Wrappers of the CUDA scan kernels (K1, K3) and the paged entry (K2).
+"""Wrappers of the CUDA scan kernels (K1, K3 and its merge) and the paged
+entry (K2).
 
 Each wrapper takes its plain version (``ref.py``) only for tensors on
 the CPU.  For CUDA tensors it checks dtype, shape and contiguity,
@@ -11,12 +12,15 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .ref import pq_scan_tiled_ref, pq_scan_topk_ref
+from .ref import merge_topk_ref, pq_scan_tiled_ref, pq_scan_topk_ref
 from .topk import pow2_ceil
 
 SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 _TARGET_CTAS = 4 * 132     # enough CTAs in flight for the H100's 132 SMs
 _MAX_GRID_Y = 65535
+TOPK_THREADS = 256         # threads of a K3 scan CTA (NT in pq_scan_topk.cu)
+_MIN_ROUNDS = 4            # rounds of TOPK_THREADS items a K3 split scans
+MAX_QUERY_TILE = 64        # K3 keeps a tile's queries in 64-bit masks
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -98,10 +102,58 @@ def pq_scan_paged_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
                                 query_tile=query_tile, packed=packed)
 
 
-def topk_width(fetch: int, blk: int) -> int:
-    """K3's per-query accumulator width FW: a power of two >= both the
-    selection width F = pow2_ceil(fetch) and the block size."""
-    return max(pow2_ceil(max(fetch, 1)), blk)
+def topk_width(fetch: int) -> int:
+    """K3's per-query accumulator and queue width FW: a power of two
+    >= fetch, and at least a warp."""
+    return max(pow2_ceil(max(fetch, 1)), 32)
+
+
+def topk_splits(t: int, s: int, blk: int) -> tuple:
+    """How K3 splits a tile's S scan positions over the grid's second
+    dimension, from the shape alone: ``(splits, s_per)``.  Enough CTAs
+    for about ``_TARGET_CTAS`` in flight, but at least ``_MIN_ROUNDS``
+    rounds of ``TOPK_THREADS`` items each.  Split ``y`` scans positions
+    ``[y * s_per, min(s, (y + 1) * s_per))``; the ranges cover ``[0, s)``
+    exactly and none is empty (one empty range when s is 0)."""
+    per_round = max(1, TOPK_THREADS // blk)       # positions in a round
+    splits = max(1, min(-(-_TARGET_CTAS // max(t, 1)),
+                        s // (_MIN_ROUNDS * per_round), _MAX_GRID_Y))
+    s_per = max(1, -(-s // splits))
+    return max(1, -(-s // s_per)), s_per
+
+
+def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
+                      part_id: torch.Tensor):
+    """K3's merge.  (B, splits, F) lists, each ascending by (d, pos)
+    with pads ``(+inf, PAD_POS, -1)`` last -> their top-F
+    ``(acc_d, acc_pos, acc_id)``, (B, F) ascending by (d, pos)."""
+    if part_d.device.type == "cpu":
+        return merge_topk_ref(part_d, part_pos, part_id)
+    b, splits, fetch = part_d.shape
+    dev = part_d.device
+    _require(part_d, "part_d", torch.float32, 3, dev)
+    for name, x in (("part_pos", part_pos), ("part_id", part_id)):
+        _require(x, name, torch.int32, 3, dev)
+        if x.shape != part_d.shape:
+            raise ValueError(f"{name} {tuple(x.shape)} != part_d "
+                             f"{tuple(part_d.shape)}")
+    if splits < 1 or fetch < 1:
+        raise ValueError(f"merge_topk_kernel needs splits, fetch >= 1, got "
+                         f"{tuple(part_d.shape)}")
+    out = (torch.empty((b, fetch), dtype=torch.float32, device=dev),
+           torch.empty((b, fetch), dtype=torch.int32, device=dev),
+           torch.empty((b, fetch), dtype=torch.int32, device=dev))
+    lib = build.load("pq_scan_topk")
+    err = lib.topk_merge_launch(
+        part_d.data_ptr(), part_pos.data_ptr(), part_id.data_ptr(),
+        *(x.data_ptr() for x in out), b, splits, fetch, topk_width(fetch),
+        _stream(dev))
+    build.check(lib, err, "merge_topk_kernel")
+    merge_topk_kernel.launches += 1
+    return out
+
+
+merge_topk_kernel.launches = 0
 
 
 def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
@@ -111,7 +163,9 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     """K3.  Fused scan -> keep mask -> top-``fetch`` per query (see
     ``ref.pq_scan_topk_ref`` for the contract).  Returns
     ``(acc_d, acc_pos, acc_id, dco)``: (B, fetch) f32 / int32 / int32
-    ascending by (d, pos), and the (B,) int32 logical DCO."""
+    ascending by (d, pos), and the (B,) int32 logical DCO.  The scan
+    runs over ``topk_splits`` ranges of positions; with more than one,
+    ``merge_topk_kernel`` merges their lists."""
     if lut.device.type == "cpu":
         return pq_scan_topk_ref(lut, block_codes, block_ids, block_other,
                                 tile_idx, rank_of, slot_of, rank_u, dead,
@@ -137,6 +191,9 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         raise ValueError(f"code width {mb} (packed={packed}) != lut M {m}")
     if b != t * query_tile:
         raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
+    if not 1 <= query_tile <= MAX_QUERY_TILE:
+        raise ValueError(f"pq_scan_topk takes query_tile 1..{MAX_QUERY_TILE}"
+                         f", got {query_tile}")
     if blk != pow2_ceil(blk):
         raise ValueError(f"block size must be a power of 2: {blk}")
     if fetch < 1:
@@ -147,32 +204,37 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         raise ValueError(f"slot_of / rank_u must be {(b, s)}")
     if rank_of.shape[0] != b:
         raise ValueError(f"rank_of must have {b} rows")
-    fw = topk_width(fetch, blk)
+    fw = topk_width(fetch)
     lib = build.load("pq_scan_topk")
-    smem = lib.pq_scan_topk_smem_bytes(m, k, query_tile, fw)
+    smem = lib.pq_scan_topk_smem_bytes(m, k, query_tile, fw, blk)
     if smem > SMEM_LIMIT:
         raise ValueError(f"pq_scan_topk needs {smem} B of shared memory "
                          f"(limit {SMEM_LIMIT}); lower query_tile or fetch")
-    acc_d = torch.empty((b, fetch), dtype=torch.float32, device=dev)
-    acc_pos = torch.empty((b, fetch), dtype=torch.int32, device=dev)
-    acc_id = torch.empty((b, fetch), dtype=torch.int32, device=dev)
-    dco = torch.empty((b,), dtype=torch.int32, device=dev)
+    splits, s_per = topk_splits(t, s, blk)
+    acc = tuple(torch.empty((b, fetch), dtype=dt, device=dev)
+                for dt in (torch.float32, torch.int32, torch.int32))
+    part = acc if splits == 1 else tuple(
+        torch.empty((b, splits, fetch), dtype=x.dtype, device=dev)
+        for x in acc)
+    dco = torch.zeros((b,), dtype=torch.int32, device=dev)
     err = lib.pq_scan_topk_launch(
         lut.data_ptr(), block_codes.data_ptr(), block_ids.data_ptr(),
         block_other.data_ptr(), tile_idx.data_ptr(), rank_of.data_ptr(),
         slot_of.data_ptr(), rank_u.data_ptr(),
         None if dead is None else dead.data_ptr(),
-        acc_d.data_ptr(), acc_pos.data_ptr(), acc_id.data_ptr(),
-        dco.data_ptr(), b, m, k, blk, mb, s, query_tile, nlist, fw, fetch,
-        int(packed), _stream(dev))
+        *(x.data_ptr() for x in part), dco.data_ptr(), b, m, k, blk, mb, s,
+        query_tile, nlist, fw, fetch, int(packed), splits, s_per,
+        _stream(dev))
     build.check(lib, err, "pq_scan_topk_kernel")
     pq_scan_topk_kernel.launches += 1
-    return acc_d, acc_pos, acc_id, dco
+    if splits > 1:
+        acc = merge_topk_kernel(*part)
+    return acc[0], acc[1], acc[2], dco
 
 
 pq_scan_topk_kernel.launches = 0
 
-KERNELS = (pq_scan_tiled_kernel, pq_scan_topk_kernel)
+KERNELS = (pq_scan_tiled_kernel, pq_scan_topk_kernel, merge_topk_kernel)
 
 
 def reset_launch_counts() -> None:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two CUDA kernels, with their signatures.
+"""Plain PyTorch versions of the CUDA kernels, with their signatures.
 
 They serve the CPU (a wrapper in ``pq_scan.py`` takes them only for a
 tensor on the CPU) and hold the kernels on the card in
@@ -94,6 +94,14 @@ def pq_scan_topk_ref(lut, block_codes, block_ids, block_other, tile_idx,
     cd = torch.where(keep, d, torch.inf).reshape(b, -1)
     cp = torch.where(keep, pos, PAD_POS).reshape(b, -1)
     ci = torch.where(keep, ids, -1).reshape(b, -1)
+    acc_d, acc_pos, acc_id = _lex_topk(cd, cp, ci, fetch)
+    return acc_d, acc_pos, acc_id, dco
+
+
+def _lex_topk(cd, cp, ci, fetch: int):
+    """The first ``fetch`` of (B, N) triples under the lexicographic
+    (d, pos) key, stable, padded with ``(+inf, PAD_POS, -1)``."""
+    b = cd.shape[0]
     # lexicographic (d, pos): stable sort by pos, then stable by d
     o1 = torch.sort(cp, dim=1, stable=True).indices
     o2 = torch.sort(torch.gather(cd, 1, o1), dim=1, stable=True).indices
@@ -105,4 +113,14 @@ def pq_scan_topk_ref(lut, block_codes, block_ids, block_other, tile_idx,
         out = [torch.cat([x, torch.full((b, short), p, dtype=x.dtype,
                                         device=x.device)], dim=1)
                for x, p in zip(out, pads)]
-    return out[0], out[1], out[2], dco
+    return out[0], out[1], out[2]
+
+
+def merge_topk_ref(part_d, part_pos, part_id):
+    """Plain K3 merge: (B, splits, F) lists of (d, pos, id) triples ->
+    the top-F of their union under (d, pos), stable, (B, F) each.  When
+    every list is the top-F of one range of scan positions, this is the
+    top-F of the whole range."""
+    b, _, fetch = part_d.shape
+    return _lex_topk(part_d.reshape(b, -1), part_pos.reshape(b, -1),
+                     part_id.reshape(b, -1), fetch)

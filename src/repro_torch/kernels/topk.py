@@ -5,10 +5,12 @@ runs (``repro/kernels/topk.py``).  Keys are lexicographic ``(d, pos)``
 ascending; ``pos`` is unique among real candidates and padding carries
 ``(+inf, PAD_POS, -1)``, so the key is a total order and the network
 needs no stability of its own.  The CUDA kernel
-(``csrc/pq_scan_topk.cu``) runs the same compare-exchange schedule in
-shared memory.  No path of the port calls the network: the plain K3
-(``ref.py``) selects with a stable ``torch.sort``, which gives the same
-answer.  Only the tests run it, against a numpy lexsort.
+(``csrc/pq_scan_topk.cu``) runs these networks in shared memory: when
+a candidate queue fills it takes ``bitonic_sort`` of the queue, then
+``merge_topf`` of accumulator and queue.  No path of the port calls
+the torch network: the plain K3 (``ref.py``) selects with a stable
+``torch.sort``, which gives the same answer.  Only the tests run it,
+against a numpy lexsort.
 """
 from __future__ import annotations
 
