@@ -7,23 +7,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. device   — card name, and name + power limit from nvidia-smi;
   2. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc;
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                bitwise, over a sweep of shapes and layouts (K3 also
-                split over the grid: few tiles, long S, sparse plans);
-                K3's merge on random sorted lists; K2's tile-row check;
+                bitwise, over a sweep of shapes and layouts: K1 at every
+                instantiation and grid choice (long S, K 4 / 16 / 256,
+                QT 1 to 64, query groups, packed with odd Mc); K3 also
+                split over the grid (few tiles, long S, sparse plans) and
+                in query groups; K3's merge on random sorted lists; K2's
+                tile-row check;
   4. main     — a SIFT1M-shaped corpus (n x 128, made on the card from
                 --seed), a RAIRS index built on the card (IVF4096,
                 PQ64x4, block 32, rair + SEIL), exact top-10 ground
                 truth, then paged / clustered at B=1024 and grouped at
                 B=64, each with fused_topk off and on: recall@10, DCO,
                 QPS, kernel launch counts; all six runs must agree on
-                ids and DCO; an inner-product build through paged+fused;
-                a small index searched on the card and on the CPU;
+                ids and DCO; clustered at query_tile 64 (query groups),
+                fused off and on, must agree with them too; an
+                inner-product build through paged+fused; an nbits=8
+                index (PQ64x8) in all six modes, which must agree; a
+                small index searched on the card and on the CPU;
   5. timing   — each kernel, bitwise against its plain version at the
                 shapes of each exec mode's first main-path batch, then
-                both timed (CUDA events) beside the kernel's bound on
-                this card (K3's merge also alone where K3 splits); the
-                device time of each search stage for one batch of each
-                exec mode, fused off and on.
+                both timed (CUDA events) beside the kernel's bound and
+                lookup floor on this card (K3's merge also alone where
+                K3 splits), and the union fill of grouped and clustered
+                mode; the device time of each search stage for one batch
+                of each exec mode, fused off and on.
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -111,6 +118,58 @@ def synth_plan(torch, g, dev, *, b, s, tb, blk, m, k, nlist, nid, ints,
     return store, plan, lut, rank_of, sel, live
 
 
+# K1 cases that reach every instantiation and grid choice of pq_scan.cu:
+# (query_tile, B, S, BLK, M, K, packed); TB = 400
+K1_CASES = (
+    (1, 2, 1000, 32, 64, 16, False),     # main-path QT=1, long S, 2 tiles
+    (8, 8, 300, 32, 64, 16, False),      # main-path QT=8, one tile
+    (8, 16, 1000, 128, 64, 16, False),   # BLK 128, uneven last range
+    (16, 32, 40, 32, 64, 16, False),     # QT 16 and 32: chunks of 8
+    (32, 64, 40, 32, 64, 16, False),
+    (64, 64, 40, 32, 64, 16, False),     # 256 KB of tables: two groups
+    (1, 4, 300, 32, 64, 4, False),       # K 4 and K 256: generic
+    (8, 16, 40, 32, 64, 4, False),
+    (1, 4, 300, 32, 64, 256, False),
+    (8, 8, 40, 32, 64, 256, False),      # 512 KB of tables: three groups
+    (1, 2, 300, 24, 64, 16, False),      # BLK not a power of two
+    (1, 2, 300, 32, 63, 16, True),       # packed, odd Mc
+    (8, 16, 300, 32, 15, 16, True),
+)
+
+
+def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
+    """K1 on random tables, codes and tile lists, bitwise against its
+    plain version; the case must cover what its comment says."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
+                                             query_groups, scan_splits)
+    from repro_torch.quant import pack_nibbles
+    lut = torch.randn(b, m, k, generator=g, device=dev)
+    codes = torch.randint(0, k, (tb, blk, m), generator=g,
+                          device=dev).to(torch.uint8)
+    if packed:
+        codes = torch.from_numpy(pack_nibbles(codes.cpu().numpy())).to(dev)
+    tiles = torch.randint(0, tb, (b // qt, s), generator=g, device=dev).int()
+    lut_a, codes_a = ops.align(lut, codes, packed)
+    splits, s_per = scan_splits(b // qt, s, blk)
+    groups = query_groups(qt, 4 * lut_a.shape[1] * k, 4 * s_per)
+    before = pq_scan_tiled_kernel.launches
+    out = pq_scan_tiled_kernel(lut_a, codes_a, tiles, query_tile=qt,
+                               packed=packed)
+    want = ref.pq_scan_tiled_ref(lut_a, codes_a, tiles, query_tile=qt,
+                                 packed=packed)
+    torch.cuda.synchronize()
+    name = f"K1 qt={qt} B={b} S={s} blk={blk} m={m} k={k} packed={packed}"
+    check(pq_scan_tiled_kernel.launches - before == len(groups),
+          f"{name}: not one launch per query group")
+    check(s < 300 or splits > 1, f"{name}: long S ran one split")
+    check(4 * qt * lut_a.shape[1] * k <= 232448 or len(groups) > 1,
+          f"{name}: oversize tables in one group")
+    check(torch.equal(out, want),
+          f"{name} ({splits} splits of {s_per}, groups {groups}): max err "
+          f"{(out - want).abs().max().item()}")
+
+
 def check_kernels(torch, dev, seed):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pq_scan import (merge_topk_kernel,
@@ -146,6 +205,13 @@ def check_kernels(torch, dev, seed):
                           f"max err {(out - want).abs().max().item()}")
                     n_k1 += 1
     log(f"kernels: K1 bitwise equal to plain version in {n_k1} cases")
+    n_k1 = 0
+    for case in K1_CASES:
+        k1_case(torch, g, dev, *case)
+        n_k1 += 1
+    log(f"kernels: K1 bitwise equal to plain version in {n_k1} more cases "
+        "(long S, K 4 / 16 / 256, QT 1 / 8 / 16 / 32 / 64, query groups, "
+        "BLK 24 / 128, packed with odd Mc)")
     # K2: per-query rows under query_tile > 1 must raise
     lut = torch.randn(4, 16, 16, generator=g, device=dev)
     codes = torch.randint(0, 16, (9, 32, 16), generator=g,
@@ -185,7 +251,7 @@ def check_kernels(torch, dev, seed):
                                             (False, False, True),
                                             (True, False, False)):
                 for p_valid in (0.85, 0.05):
-                    splits, short = k3_case(
+                    splits, short, _ = k3_case(
                         torch, g, dev, mode=mode, packed=packed, ints=ints,
                         with_dead=with_dead, fetch=100, qt=qt, s=300, tb=400,
                         p_valid=p_valid)
@@ -197,6 +263,21 @@ def check_kernels(torch, dev, seed):
                     n_split += 1
     log(f"kernels: K3 split over the grid bitwise equal to plain version "
         f"in {n_split} cases")
+    # K3 where a tile's state does not fit in one CTA: QT 64 at M 64, K 16
+    # (461 KB) and QT 8 at K 256 (549 KB) run in query groups
+    n_groups = 0
+    for mode in ("grouped", "clustered"):
+        for qt, b, k in ((64, 64, 16), (8, 16, 256)):
+            for ints in (True, False):
+                _, _, groups = k3_case(
+                    torch, g, dev, mode=mode, packed=False, ints=ints,
+                    with_dead=ints, fetch=100, qt=qt, s=40, tb=60, b=b, m=64,
+                    k=k)
+                check(len(groups) > 1, f"K3 group case {mode} qt={qt} k={k} "
+                      "ran one group")
+                n_groups += 1
+    log(f"kernels: K3 in query groups bitwise equal to plain version in "
+        f"{n_groups} cases")
     # the merge alone: random ascending lists, tie-heavy, with pads
     n_merge = 0
     for b, splits, fetch in ((1, 2, 1), (7, 5, 100), (64, 66, 100),
@@ -214,17 +295,22 @@ def check_kernels(torch, dev, seed):
 
 
 def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
-            tb, p_valid=0.85):
+            tb, p_valid=0.85, b=16, m=None, k=16):
     """K3 on one synthetic plan in ``mode``, bitwise against its plain
-    version.  Returns (splits, whether some split keeps < fetch items)."""
+    version.  Returns (splits, whether some split keeps < fetch items,
+    query groups of a tile)."""
     from repro_torch.core.engine import fused_scan_args
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import pq_scan_topk_kernel, topk_splits
+    from repro_torch.kernels.pq_scan import (MAX_QUERY_TILE,
+                                             pq_scan_topk_kernel,
+                                             query_groups, topk_smem_bytes,
+                                             topk_splits, topk_width)
     from repro_torch.kernels.topk import PAD_POS
     from repro_torch.quant import pack_nibbles
     store, plan, lut, rank_of, sel, live = synth_plan(
-        torch, g, dev, b=16, s=s, tb=tb, blk=32, m=15 if packed else 16,
-        k=16, nlist=10, nid=300, ints=ints, p_valid=p_valid)
+        torch, g, dev, b=b, s=s, tb=tb, blk=32,
+        m=m or (15 if packed else 16), k=k, nlist=10, nid=300, ints=ints,
+        p_valid=p_valid)
     if packed:
         store = store._replace(block_codes=torch.from_numpy(
             pack_nibbles(store.block_codes.cpu().numpy())).to(dev))
@@ -239,7 +325,13 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
             tiles.contiguous(), rank_x.contiguous(), slot_of.contiguous(),
             rank_u.contiguous(), dead)
     kw = dict(query_tile=qt, fetch=fetch, packed=packed)
+    fw, blk = topk_width(fetch), codes_a.shape[1]
+    groups = query_groups(qt, topk_smem_bytes(lut_a.shape[1], k, 1, fw, blk),
+                          max_group=MAX_QUERY_TILE)
+    before = pq_scan_topk_kernel.launches
     got = pq_scan_topk_kernel(*args, **kw)
+    check(pq_scan_topk_kernel.launches - before == len(groups),
+          f"K3 {mode} qt={qt}: not one launch per query group")
     want = ref.pq_scan_topk_ref(*args, **kw)
     torch.cuda.synchronize()
     for name, x, y in zip(("acc_d", "acc_pos", "acc_id", "dco"), got, want):
@@ -250,7 +342,7 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
     short = splits > 1 and any(
         bool((p[1] == PAD_POS).any())
         for p in split_parts(torch, args, kw, splits, s_per))
-    return splits, short
+    return splits, short, groups
 
 
 def split_parts(torch, args, kw, splits, s_per):
@@ -433,6 +525,24 @@ def mode_inputs(index, queries, mode):
     return (lx, codes, tiles), k3, qt, fetch
 
 
+def union_fill(index, queries, mode) -> float:
+    """The share of K1's scan positions in ``mode`` (grouped or
+    clustered) that are union padding clamped to block 0 (scan.py's
+    ``_safe``): K1 scores them and nothing reads them."""
+    from repro_torch.core.engine import (BIG, batch_union, cluster_order,
+                                         tile_unions, union_dims)
+    p, _, _, store, sel, plan, _ = batch_inputs(index, queries)
+    b, s = plan.blocks.shape
+    tb = store.block_codes.shape[0]
+    if mode == "grouped":
+        u = batch_union(plan, tb)
+    else:
+        perm = cluster_order(sel.sel).long()
+        t, w = union_dims(b, s, tb, mode, p.query_tile)
+        u = tile_unions(plan.blocks[perm], plan.valid[perm], t, w)
+    return (u >= BIG).float().mean().item()
+
+
 def lookup_rate(torch) -> float:
     """Table lookups a second if every SM serves one 4-byte shared-memory
     read per lane (32) per clock at its maximum clock: the floor of a
@@ -462,6 +572,11 @@ def time_kernels(torch, index, queries, launches, lookups_per_s):
         k1, k3, qt, fetch = mode_inputs(index, queries[:bsz].contiguous(),
                                         mode)
         lx, codes, tiles = k1
+        if mode != "paged":
+            log(f"timing: K1 {mode} union fill "
+                f"{union_fill(index, queries[:bsz], mode):.4f}: the share of "
+                "K1's scan positions that are union padding, clamped to "
+                "block 0, scored and never read")
         for kid, fn, plain, args, kw, (nbytes, ops) in (
                 ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
                  dict(query_tile=qt), k1_bound(torch, k1)),
@@ -528,8 +643,7 @@ def time_kernels(torch, index, queries, launches, lookups_per_s):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 def main_path(torch, dev, args):
-    from repro_torch.core import (IndexConfig, SearchParams, build_index,
-                                  ground_truth, recall_at_k)
+    from repro_torch.core import IndexConfig, build_index, ground_truth
     from repro_torch.data import make_dataset
     from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
 
@@ -557,49 +671,114 @@ def main_path(torch, dev, args):
     reset_launch_counts()
     for mode, bsz in RUNS:
         for fused in (False, True):
-            params = SearchParams(**SEARCH, exec_mode=mode, fused_topk=fused,
-                                  batch_buckets=(bsz,))
-            searcher = index.searcher(params, device=dev)
-            before = launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = searcher(q)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            after = launch_counts()
-            delta = {k: after[k] - before[k] for k in after}
-            ids = res.ids.cpu().numpy()
-            rec = recall_at_k(ids, gt)
-            results[(mode, fused)] = res
-            log(f"main: {mode:9s} B={bsz:4d} fused={int(fused)} "
-                f"recall@10={rec:.4f} approx_dco/q="
-                f"{res.approx_dco.float().mean().item():.1f} refine_dco/q="
-                f"{res.refine_dco.float().mean().item():.1f} "
-                f"dropped/q={res.dropped_blocks.float().mean().item():.3f} "
-                f"qps={q.shape[0] / dt:.1f} launches={json.dumps(delta)}")
-            check(rec >= 0.5, f"recall@10 {rec} below the 0.5 floor")
-            check(bool(torch.isfinite(res.dists).all()),
-                  "non-finite distances in a result")
-            check(tuple(res.ids.shape) == (q.shape[0], 10),
-                  "result ids of the wrong shape")
+            results[(mode, fused)] = search_run(torch, index, q, gt, mode,
+                                                bsz, fused)
     launches = launch_counts()
     log(f"main: launches over the six runs {json.dumps(launches)}")
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was never launched")
+    check_agree(torch, results, "main")
+    # the same index in clustered mode at query_tile=64: K1's tables
+    # (256 KB) and K3's state pass a CTA's shared memory, so both run in
+    # query groups
+    qt64 = {}
+    for fused in (False, True):
+        reset_launch_counts()
+        qt64[("clustered qt=64", fused)] = search_run(
+            torch, index, q, gt, "clustered", 1024, fused, query_tile=64)
+        used = launch_counts()
+        kern = "pq_scan_topk_kernel" if fused else "pq_scan_tiled_kernel"
+        check(used[kern] > 0, f"clustered qt=64 fused={int(fused)} never "
+              f"launched {kern}")
+        log(f"main: clustered qt=64 fused={int(fused)} launches "
+            f"{json.dumps(used)}")
+    check_agree(torch, {**qt64, ("paged", False): results[("paged", False)]},
+                "main, clustered qt=64")
+    return index, q, launches
+
+
+def search_run(torch, index, q, gt, mode, bsz, fused, tag="main", **params):
+    """One searcher over all of ``q`` at batch size ``bsz``: the result,
+    after the recall floor and shape checks, with its log line."""
+    from repro_torch.core import SearchParams, recall_at_k
+    from repro_torch.kernels.pq_scan import launch_counts
+    p = SearchParams(**SEARCH, exec_mode=mode, fused_topk=fused,
+                     batch_buckets=(bsz,), **params)
+    searcher = index.searcher(p, device=index.device)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = searcher(q)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    rec = recall_at_k(res.ids.cpu().numpy(), gt)
+    qt = "" if mode == "paged" else f" QT={p.query_tile}"
+    log(f"{tag}: {mode:9s} B={bsz:4d}{qt} fused={int(fused)} "
+        f"recall@10={rec:.4f} approx_dco/q="
+        f"{res.approx_dco.float().mean().item():.1f} refine_dco/q="
+        f"{res.refine_dco.float().mean().item():.1f} "
+        f"dropped/q={res.dropped_blocks.float().mean().item():.3f} "
+        f"qps={q.shape[0] / dt:.1f} launches={json.dumps(delta)}")
+    check(rec >= 0.5, f"recall@10 {rec} below the 0.5 floor")
+    check(bool(torch.isfinite(res.dists).all()),
+          "non-finite distances in a result")
+    check(tuple(res.ids.shape) == (q.shape[0], 10),
+          "result ids of the wrong shape")
+    return res
+
+
+def check_agree(torch, results, what):
+    """Every run agrees with paged unfused on ids and DCO counters, and
+    on distances within 1e-5."""
     base = results[("paged", False)]
     same_d = 0
     for key, res in results.items():
         for f in ("ids", "approx_dco", "refine_dco", "scanned_blocks"):
             check(torch.equal(getattr(res, f), getattr(base, f)),
-                  f"{key} disagrees with paged unfused on {f}")
+                  f"{what}: {key} disagrees with paged unfused on {f}")
         # the exact re-rank reduces over D in batches of 1024 or 64 rows,
         # which may round differently: f32 at the port's 1e-5 tolerance
         check(torch.allclose(res.dists, base.dists, rtol=1e-5, atol=1e-5),
-              f"{key} disagrees with paged unfused on dists beyond 1e-5")
+              f"{what}: {key} disagrees with paged unfused on dists beyond "
+              "1e-5")
         same_d += int(torch.equal(res.dists, base.dists))
-    log("main: all six runs agree on ids and DCO counters, and on "
-        f"distances within 1e-5 ({same_d} of 6 bitwise)")
-    return index, q, launches
+    log(f"{what}: all {len(results)} runs agree on ids and DCO counters, "
+        f"and on distances within 1e-5 ({same_d} of {len(results)} "
+        "bitwise)")
+
+
+def nbits8_path(torch, dev, seed):
+    """An nbits=8 index (PQ64x8: 64 KB of tables per query) built on the
+    card and searched in every exec mode, fused off and on; at
+    query_tile 8 K1's and K3's tables pass a CTA's shared memory, so
+    they run in query groups.  Each run's launches are counted alone."""
+    from repro_torch.core import IndexConfig, build_index, ground_truth
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
+    x, q, _ = make_dataset("sift1m", seed, n=80_000, n_queries=1024,
+                           device=dev)
+    t0 = time.perf_counter()
+    index = build_index(x, IndexConfig(**dict(INDEX, nlist=1024, nbits=8)),
+                        generator=torch.Generator().manual_seed(seed),
+                        device=dev)
+    gt = ground_truth(x, q, 10, device=dev)
+    log(f"nbits8: sift1m-shaped n={x.shape[0]} IVF1024 PQ64x8 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    results = {}
+    for mode, bsz in RUNS:
+        for fused in (False, True):
+            reset_launch_counts()
+            results[(mode, fused)] = search_run(torch, index, q, gt, mode,
+                                                bsz, fused, tag="nbits8")
+            used = launch_counts()
+            kern = "pq_scan_topk_kernel" if fused else "pq_scan_tiled_kernel"
+            check(used[kern] > 0, f"nbits8 {mode} fused={int(fused)} never "
+                  f"launched {kern}")
+            log(f"nbits8: {mode} fused={int(fused)} launches "
+                f"{json.dumps(used)}")
+    check_agree(torch, results, "nbits8")
 
 
 def ip_path(torch, dev, seed):
@@ -697,6 +876,7 @@ def main() -> int:
     del index
     torch.cuda.empty_cache()
     ip_path(torch, dev, args.seed)
+    nbits8_path(torch, dev, args.seed)
     small_reference(torch, dev, args.seed)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -2,9 +2,11 @@
 // (pq_scan.cu) and K3 (pq_scan_topk.cu).
 //
 // Both kernels sum lut[m][code_m] over ascending m in f32, one add at a
-// time, and so does the plain PyTorch version (kernels/ref.py).  Keeping
-// the one definition here is what makes the two kernels, and each kernel
-// and its plain version, agree bitwise.
+// time, starting from 0, and so does the plain PyTorch version
+// (kernels/ref.py).  Keeping the definitions here is what makes the two
+// kernels, and each kernel and its plain version, agree bitwise.  The
+// forms below differ only in how they find the table entries and in how
+// many queries' sums they carry at once; each sum keeps that order.
 #pragma once
 
 #include <cstdint>
@@ -23,24 +25,70 @@ __device__ __forceinline__ float add_byte(float acc, const float* ql, int K,
   return acc;
 }
 
-// sum_m ql[m][code_m] over the MB code bytes of `row`; `vec16` reads the
-// row with 16-byte loads (MB % 16 == 0 and a 16-byte aligned row).
-template <bool PACKED>
-__device__ __forceinline__ float score_row(const uint8_t* __restrict__ row,
-                                           const float* ql, int K, int MB,
-                                           bool vec16) {
-  float acc = 0.f;
+// sum_m ql[m][code_m] over the MB code bytes of `row`, for the first `nq`
+// of QC queries whose tables lie `tab` floats apart from `ql`: each code
+// byte is read once and added to every one of those sums.  `vec16` reads
+// the row with 16-byte loads (MB % 16 == 0 and a 16-byte aligned row).
+template <int QC, bool PACKED>
+__device__ __forceinline__ void score_row_queries(
+    float (&acc)[QC], const uint8_t* __restrict__ row, const float* ql,
+    int tab, int K, int MB, int nq, bool vec16) {
+#pragma unroll
+  for (int q = 0; q < QC; ++q) acc[q] = 0.f;
+  auto add = [&](uint32_t byte, int c) {
+#pragma unroll
+    for (int q = 0; q < QC; ++q)
+      if (q < nq) acc[q] = add_byte<PACKED>(acc[q], ql + q * tab, K, byte, c);
+  };
   if (vec16) {
     for (int c = 0; c < MB; c += 16) {
       const uint4 v = *reinterpret_cast<const uint4*>(row + c);
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int j = 0; j < 16; ++j)
-        acc = add_byte<PACKED>(acc, ql, K, (w[j >> 2] >> (8 * (j & 3))) & 255u,
-                               c + j);
+        add((w[j >> 2] >> (8 * (j & 3))) & 255u, c + j);
     }
   } else {
-    for (int c = 0; c < MB; ++c) acc = add_byte<PACKED>(acc, ql, K, row[c], c);
+    for (int c = 0; c < MB; ++c) add(row[c], c);
   }
-  return acc;
+}
+
+// The same sum for one query.
+template <bool PACKED>
+__device__ __forceinline__ float score_row(const uint8_t* __restrict__ row,
+                                           const float* ql, int K, int MB,
+                                           bool vec16) {
+  float acc[1];
+  score_row_queries<1, PACKED>(acc, row, ql, 0, K, MB, 1, vec16);
+  return acc[0];
+}
+
+// The same sum for an unpacked row held in registers (MB / 16 pieces of 16
+// bytes) and QC queries whose tables lie MB * K floats apart from `ql`, with
+// compile-time K and MB.  Each code word is shifted once so that every byte
+// is its entry's byte offset within a subquantizer's table (codes < K <= 64,
+// so code * 4 < 256); each byte is extracted once (one PRMT) for all QC
+// queries, and the rest of every lookup's address is an immediate.
+template <int QC, int K, int MB>
+__device__ __forceinline__ void score_regs(float (&acc)[QC],
+                                           const uint4 (&row)[MB / 16],
+                                           const float* ql) {
+  static_assert(K <= 64 && MB % 16 == 0, "byte offsets must fit a byte");
+  const char* base = reinterpret_cast<const char*>(ql);
+#pragma unroll
+  for (int q = 0; q < QC; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int v = 0; v < MB / 16; ++v) {
+    const uint32_t w[4] = {row[v].x << 2, row[v].y << 2, row[v].z << 2,
+                           row[v].w << 2};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 16 * v + j;
+      const char* e =
+          base + __byte_perm(w[j >> 2], 0, 0x4440 | (j & 3)) + 4 * c * K;
+#pragma unroll
+      for (int q = 0; q < QC; ++q)
+        acc[q] = acc[q] + *reinterpret_cast<const float*>(e + 4 * q * MB * K);
+    }
+  }
 }

@@ -251,7 +251,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
     const uint8_t* __restrict__ dead, float* __restrict__ part_d,
     int32_t* __restrict__ part_pos, int32_t* __restrict__ part_id,
     int32_t* __restrict__ dco, int M, int K, int BLK, int MB, int S, int QT,
-    int nlist, int FW, int fetch, int s_per, int vec16) {
+    int QS, int nlist, int FW, int fetch, int s_per, int vec16) {
   extern __shared__ int smem[];
   const int qi = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31;
@@ -263,7 +263,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
   int* sslot = carve(sel, smem + n_lut, QT, FW, fetch);  // QT * P
   int* sdco = sslot + QT * P;                             // QT
 
-  const float* glut = lut + (size_t)qi * n_lut;
+  const float* glut = lut + (size_t)qi * QS * M * K;
   for (int j = tid; j < n_lut; j += NT) slut[j] = glut[j];
   for (int j = tid; j < QT * FW; j += NT) {
     sel.ad[j] = inf();
@@ -280,7 +280,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
     const int sr = f0 / BLK;  // first position of the round
     for (int j = tid; j < QT * P; j += NT) {
       const int q = j / P, s = sr + j % P;
-      sslot[j] = s < s1 ? slot_of[(size_t)(qi * QT + q) * S + s] : -1;
+      sslot[j] = s < s1 ? slot_of[(size_t)(qi * QS + q) * S + s] : -1;
     }
     __syncthreads();
     const int f = f0 + tid;
@@ -310,7 +310,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
         const unsigned m = __ballot_sync(FULL, ok);
         if (m == 0) continue;
         if (lane == __ffs(m) - 1) atomicAdd(&sdco[q], __popc(m));
-        const int b = qi * QT + q;
+        const int b = qi * QS + q;
         bool keep = ok && !is_dead;
         if (keep && oth >= 0)
           keep = rank_of[(size_t)b * nlist + oth] >= rank_u[(size_t)b * S + s];
@@ -345,14 +345,14 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
 
   for (int j = tid; j < QT * fetch; j += NT) {
     const int q = j / fetch, c = j % fetch;
-    const size_t o = ((size_t)(qi * QT + q) * splits + split) * fetch + c;
+    const size_t o = ((size_t)(qi * QS + q) * splits + split) * fetch + c;
     const int a = q * FW + c;
     part_d[o] = sel.ad[a];
     part_pos[o] = sel.ap[a];
     part_id[o] = sel.ai[a];
   }
   for (int q = tid; q < QT; q += NT)
-    if (sdco[q]) atomicAdd(&dco[qi * QT + q], sdco[q]);
+    if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);
 }
 
 // One CTA per query: the top-F under (d, pos) of `splits` ascending lists
@@ -426,25 +426,30 @@ size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK) {
 }
 
 // lut (B, M, K) f32; codes (TB, BLK, MB) u8; block_ids / block_other
-// (TB, BLK) i32; tile_idx (B / QT, S) i32; rank_of (B, nlist) i32;
+// (TB, BLK) i32; tile_idx (B / QS, S) i32; rank_of (B, nlist) i32;
 // slot_of / rank_u (B, S) i32; dead (TB, BLK) u8 or NULL; part_d /
 // part_pos / part_id (B, splits, fetch), the output itself when splits is
-// 1; dco (B,) i32, zeroed.  Split y scans positions [y * s_per,
-// min(S, (y + 1) * s_per)).  FW is a power of two >= max(fetch, 2); BLK
-// is a power of two; 1 <= QT <= 64.
+// 1; dco (B,) i32, zeroed.  A tile has QS query rows and this launch
+// scores QT of them (a query group, kernels/pq_scan.py::query_groups):
+// lut, rank_of, slot_of, rank_u, the part_* and dco point at the group's
+// first row of tile 0, and CTA qi takes rows qi * QS + [0, QT).  Split y
+// scans positions [y * s_per, min(S, (y + 1) * s_per)).  FW is a power of
+// two >= max(fetch, 2); BLK is a power of two; 1 <= QT <= min(QS, 64).
 int pq_scan_topk_launch(const void* lut, const void* codes,
                         const void* block_ids, const void* block_other,
                         const void* tile_idx, const void* rank_of,
                         const void* slot_of, const void* rank_u,
                         const void* dead, void* part_d, void* part_pos,
                         void* part_id, void* dco, int B, int M, int K, int BLK,
-                        int MB, int S, int QT, int nlist, int FW, int fetch,
-                        int packed, int splits, int s_per, void* stream) {
-  if (QT < 1 || QT > MAX_QT || B % QT != 0 || !pow2(BLK) || !pow2(FW) ||
+                        int MB, int S, int QT, int QS, int nlist, int FW,
+                        int fetch, int packed, int splits, int s_per,
+                        void* stream) {
+  if (QT < 1 || QT > MAX_QT || QT > QS || B % QS != 0 || !pow2(BLK) ||
+      !pow2(FW) ||
       FW < 2 || fetch < 1 || fetch > FW || splits < 1 || s_per < 1 ||
       splits > 65535)
     return (int)cudaErrorInvalidValue;
-  const int T = B / QT;
+  const int T = B / QS;
   if (T == 0) return 0;
   const size_t smem = pq_scan_topk_smem_bytes(M, K, QT, FW, BLK);
   const int vec16 =
@@ -464,7 +469,7 @@ int pq_scan_topk_launch(const void* lut, const void* codes,
       static_cast<const int32_t*>(rank_u), static_cast<const uint8_t*>(dead),
       static_cast<float*>(part_d), static_cast<int32_t*>(part_pos),
       static_cast<int32_t*>(part_id), static_cast<int32_t*>(dco), M, K, BLK,
-      MB, S, QT, nlist, FW, fetch, s_per, vec16);
+      MB, S, QT, QS, nlist, FW, fetch, s_per, vec16);
   return (int)cudaGetLastError();
 }
 

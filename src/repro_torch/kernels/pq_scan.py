@@ -20,7 +20,11 @@ _TARGET_CTAS = 4 * 132     # enough CTAs in flight for the H100's 132 SMs
 _MAX_GRID_Y = 65535
 TOPK_THREADS = 256         # threads of a K3 scan CTA (NT in pq_scan_topk.cu)
 _MIN_ROUNDS = 4            # rounds of TOPK_THREADS items a K3 split scans
-MAX_QUERY_TILE = 64        # K3 keeps a tile's queries in 64-bit masks
+MAX_QUERY_TILE = 64        # K3 keeps a group's queries in 64-bit masks
+K1_THREADS = 256           # threads of a K1 CTA (NT in pq_scan.cu)
+_K1_TARGET_CTAS = 8 * 132  # two waves and more of K1 CTAs on the H100
+_K1_MIN_ITEMS = 4 * K1_THREADS   # items a K1 CTA scores at least
+K1_MAX_POSITIONS = 1024    # tile_idx entries a K1 CTA stages (pq_scan.cu)
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -36,43 +40,98 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def query_groups(qt: int, bytes_per_query: int, fixed_bytes: int = 0, *,
+                 limit: int = SMEM_LIMIT, max_group: int = 0) -> list:
+    """Cut a query tile of ``qt`` queries into groups whose shared memory,
+    ``fixed_bytes + n * bytes_per_query`` for a group of n, fits
+    ``limit`` (and n <= ``max_group`` when that is given): ``[(q0, q1),
+    ...]``, as few and as even as can be, covering ``[0, qt)`` in order,
+    none empty.  Raises ``ValueError`` when one query alone does not fit:
+    that shape has no launch on the card."""
+    fit = (limit - fixed_bytes) // bytes_per_query
+    if max_group:
+        fit = min(fit, max_group)
+    if fit < 1:
+        raise ValueError(
+            f"one query's tables need {fixed_bytes + bytes_per_query} B of "
+            f"shared memory, above the {limit} B a Hopper block may use")
+    n = -(-qt // fit)
+    return [(g * qt // n, (g + 1) * qt // n) for g in range(n)]
+
+
+def scan_splits(t: int, s: int, blk: int) -> tuple:
+    """How K1 splits a tile's S scan positions over the grid's second
+    dimension, from the shape alone: ``(splits, s_per)``.  About
+    ``_K1_TARGET_CTAS`` CTAs, each scoring at least ``_K1_MIN_ITEMS``
+    items and staging at most ``K1_MAX_POSITIONS`` positions.  Split
+    ``y`` scans ``[y * s_per, min(s, (y + 1) * s_per))``; the ranges
+    cover ``[0, s)`` exactly and none is empty (one empty range when s
+    is 0)."""
+    splits = max(1, min(-(-_K1_TARGET_CTAS // max(t, 1)),
+                        s * blk // _K1_MIN_ITEMS),
+                 -(-s // K1_MAX_POSITIONS))
+    s_per = max(1, -(-s // splits))
+    splits = max(1, -(-s // s_per))
+    if splits > _MAX_GRID_Y:
+        raise ValueError(f"{s} scan positions need {splits} CTAs per tile, "
+                         f"above the grid's {_MAX_GRID_Y}")
+    return splits, s_per
+
+
+def _tile_rows(x: torch.Tensor, t: int, qt: int, q0: int,
+               q1: int) -> torch.Tensor:
+    """Rows ``tile * qt + [q0, q1)`` of every tile of a (t * qt, ...)
+    tensor, as a contiguous (t * (q1 - q0), ...) tensor."""
+    return x.reshape(t, qt, *x.shape[1:])[:, q0:q1].reshape(
+        t * (q1 - q0), *x.shape[1:])
+
+
+def _set_tile_rows(out: torch.Tensor, t: int, qt: int, q0: int, q1: int,
+                   rows: torch.Tensor) -> None:
+    out.view(t, qt, *out.shape[1:])[:, q0:q1] = rows.view(
+        t, q1 - q0, *out.shape[1:])
+
+
 def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
                          tile_idx: torch.Tensor, *, query_tile: int = 8,
                          packed: bool = False) -> torch.Tensor:
     """K1.  lut (B, M, K) f32, block_codes (TB, BLK, MB) uint8, tile_idx
     (B // query_tile, S) int32 with entries in [0, TB) -> (B, S, BLK)
     f32.  With ``packed`` each code byte holds two 4-bit codes and
-    M == 2 * MB.  Every query tile pages its own scan list."""
-    if lut.device.type == "cpu":
-        return pq_scan_tiled_ref(lut, block_codes, tile_idx,
-                                 query_tile=query_tile, packed=packed)
+    M == 2 * MB.  Every query tile pages its own scan list.  A tile whose
+    tables do not fit in shared memory is scanned in ``query_groups``,
+    one launch each (on the CPU, one plain call each)."""
     b, m, k = lut.shape
     tb, blk, mb = block_codes.shape
     t, s = tile_idx.shape
     dev = lut.device
-    _require(lut, "lut", torch.float32, 3, dev)
-    _require(block_codes, "block_codes", torch.uint8, 3, dev)
-    _require(tile_idx, "tile_idx", torch.int32, 2, dev)
     if (2 * mb if packed else mb) != m:
         raise ValueError(f"code width {mb} (packed={packed}) != lut M {m}")
     if b != t * query_tile:
         raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
-    smem = 4 * query_tile * m * k
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"tables of a query tile need {smem} B of shared "
-                         f"memory (limit {SMEM_LIMIT}); lower query_tile")
+    _, s_per = scan_splits(t, s, blk)
+    groups = query_groups(query_tile, 4 * m * k, 4 * s_per)
     out = torch.empty((b, s, blk), dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        for q0, q1 in groups:
+            _set_tile_rows(out, t, query_tile, q0, q1, pq_scan_tiled_ref(
+                _tile_rows(lut, t, query_tile, q0, q1), block_codes,
+                tile_idx, query_tile=q1 - q0, packed=packed))
+        return out
+    _require(lut, "lut", torch.float32, 3, dev)
+    _require(block_codes, "block_codes", torch.uint8, 3, dev)
+    _require(tile_idx, "tile_idx", torch.int32, 2, dev)
     if out.numel() == 0:
         return out
-    splits = max(1, min(s, -(-_TARGET_CTAS // t)))
-    s_per_cta = max(-(-s // splits), -(-s // _MAX_GRID_Y))
     lib = build.load("pq_scan")
-    err = lib.pq_scan_tiled_launch(
-        lut.data_ptr(), block_codes.data_ptr(), tile_idx.data_ptr(),
-        out.data_ptr(), b, m, k, blk, mb, s, query_tile, int(packed),
-        s_per_cta, _stream(dev))
-    build.check(lib, err, "pq_scan_tiled_kernel")
-    pq_scan_tiled_kernel.launches += 1
+    for q0, q1 in groups:
+        err = lib.pq_scan_tiled_launch(
+            lut.data_ptr() + 4 * q0 * m * k, block_codes.data_ptr(),
+            tile_idx.data_ptr(), out.data_ptr() + 4 * q0 * s * blk, b, m, k,
+            blk, mb, s, q1 - q0, query_tile, int(packed), s_per,
+            _stream(dev))
+        build.check(lib, err, "pq_scan_tiled_kernel")
+        pq_scan_tiled_kernel.launches += 1
     return out
 
 
@@ -156,6 +215,15 @@ def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
 merge_topk_kernel.launches = 0
 
 
+def topk_smem_bytes(m: int, k: int, qt: int, fw: int, blk: int) -> int:
+    """Dynamic shared memory of one K3 scan CTA for ``qt`` queries: the
+    tables, the selection state, the round's plan slots and DCO counts.
+    The same formula as ``pq_scan_topk_smem_bytes`` in pq_scan_topk.cu,
+    which the wrapper holds it to on the card."""
+    per_round = max(1, TOPK_THREADS // blk)
+    return 4 * (qt * m * k + 6 * qt * fw + qt + qt * per_round + qt)
+
+
 def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
                         rank_of, slot_of, rank_u, dead=None, *,
                         query_tile: int = 8, fetch: int = 64,
@@ -165,17 +233,43 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     ``(acc_d, acc_pos, acc_id, dco)``: (B, fetch) f32 / int32 / int32
     ascending by (d, pos), and the (B,) int32 logical DCO.  The scan
     runs over ``topk_splits`` ranges of positions; with more than one,
-    ``merge_topk_kernel`` merges their lists."""
-    if lut.device.type == "cpu":
-        return pq_scan_topk_ref(lut, block_codes, block_ids, block_other,
-                                tile_idx, rank_of, slot_of, rank_u, dead,
-                                query_tile=query_tile, fetch=fetch,
-                                packed=packed)
+    ``merge_topk_kernel`` merges their lists.  A tile whose state does
+    not fit in shared memory, or that has more than ``MAX_QUERY_TILE``
+    queries, is scanned in ``query_groups``, one launch each (on the
+    CPU, one plain call each); every output row depends only on its own
+    query's rows and the tile's list, so the split is exact."""
     b, m, k = lut.shape
     tb, blk, mb = block_codes.shape
     t, s = tile_idx.shape
     nlist = rank_of.shape[1]
     dev = lut.device
+    if (2 * mb if packed else mb) != m:
+        raise ValueError(f"code width {mb} (packed={packed}) != lut M {m}")
+    if b != t * query_tile:
+        raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
+    if blk != pow2_ceil(blk):
+        raise ValueError(f"block size must be a power of 2: {blk}")
+    if fetch < 1:
+        raise ValueError(f"fetch must be >= 1, got {fetch}")
+    fw = topk_width(fetch)
+    fixed = topk_smem_bytes(m, k, 0, fw, blk)
+    groups = query_groups(query_tile, topk_smem_bytes(m, k, 1, fw, blk)
+                          - fixed, fixed, max_group=MAX_QUERY_TILE)
+    if dev.type == "cpu":
+        acc = (torch.empty((b, fetch), dtype=torch.float32),
+               torch.empty((b, fetch), dtype=torch.int32),
+               torch.empty((b, fetch), dtype=torch.int32),
+               torch.empty((b,), dtype=torch.int32))
+        for q0, q1 in groups:
+            def rows(x):
+                return _tile_rows(x, t, query_tile, q0, q1)
+            got = pq_scan_topk_ref(
+                rows(lut), block_codes, block_ids, block_other, tile_idx,
+                rows(rank_of), rows(slot_of), rows(rank_u), dead,
+                query_tile=q1 - q0, fetch=fetch, packed=packed)
+            for x, y in zip(acc, got):
+                _set_tile_rows(x, t, query_tile, q0, q1, y)
+        return acc
     _require(lut, "lut", torch.float32, 3, dev)
     _require(block_codes, "block_codes", torch.uint8, 3, dev)
     for name, x in (("block_ids", block_ids), ("block_other", block_other),
@@ -187,29 +281,18 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         if dead.shape != block_ids.shape:
             raise ValueError(f"dead {tuple(dead.shape)} != block_ids "
                              f"{tuple(block_ids.shape)}")
-    if (2 * mb if packed else mb) != m:
-        raise ValueError(f"code width {mb} (packed={packed}) != lut M {m}")
-    if b != t * query_tile:
-        raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
-    if not 1 <= query_tile <= MAX_QUERY_TILE:
-        raise ValueError(f"pq_scan_topk takes query_tile 1..{MAX_QUERY_TILE}"
-                         f", got {query_tile}")
-    if blk != pow2_ceil(blk):
-        raise ValueError(f"block size must be a power of 2: {blk}")
-    if fetch < 1:
-        raise ValueError(f"fetch must be >= 1, got {fetch}")
     if block_ids.shape != (tb, blk) or block_other.shape != (tb, blk):
         raise ValueError("block_ids / block_other must be (TB, BLK)")
     if slot_of.shape != (b, s) or rank_u.shape != (b, s):
         raise ValueError(f"slot_of / rank_u must be {(b, s)}")
     if rank_of.shape[0] != b:
         raise ValueError(f"rank_of must have {b} rows")
-    fw = topk_width(fetch)
     lib = build.load("pq_scan_topk")
-    smem = lib.pq_scan_topk_smem_bytes(m, k, query_tile, fw, blk)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"pq_scan_topk needs {smem} B of shared memory "
-                         f"(limit {SMEM_LIMIT}); lower query_tile or fetch")
+    qg = max(q1 - q0 for q0, q1 in groups)
+    if lib.pq_scan_topk_smem_bytes(m, k, qg, fw, blk) != topk_smem_bytes(
+            m, k, qg, fw, blk):
+        raise RuntimeError("topk_smem_bytes disagrees with the library's "
+                           "pq_scan_topk_smem_bytes")
     splits, s_per = topk_splits(t, s, blk)
     acc = tuple(torch.empty((b, fetch), dtype=dt, device=dev)
                 for dt in (torch.float32, torch.int32, torch.int32))
@@ -217,16 +300,19 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         torch.empty((b, splits, fetch), dtype=x.dtype, device=dev)
         for x in acc)
     dco = torch.zeros((b,), dtype=torch.int32, device=dev)
-    err = lib.pq_scan_topk_launch(
-        lut.data_ptr(), block_codes.data_ptr(), block_ids.data_ptr(),
-        block_other.data_ptr(), tile_idx.data_ptr(), rank_of.data_ptr(),
-        slot_of.data_ptr(), rank_u.data_ptr(),
-        None if dead is None else dead.data_ptr(),
-        *(x.data_ptr() for x in part), dco.data_ptr(), b, m, k, blk, mb, s,
-        query_tile, nlist, fw, fetch, int(packed), splits, s_per,
-        _stream(dev))
-    build.check(lib, err, "pq_scan_topk_kernel")
-    pq_scan_topk_kernel.launches += 1
+    for q0, q1 in groups:
+        err = lib.pq_scan_topk_launch(
+            lut.data_ptr() + 4 * q0 * m * k, block_codes.data_ptr(),
+            block_ids.data_ptr(), block_other.data_ptr(), tile_idx.data_ptr(),
+            rank_of.data_ptr() + 4 * q0 * nlist,
+            slot_of.data_ptr() + 4 * q0 * s, rank_u.data_ptr() + 4 * q0 * s,
+            None if dead is None else dead.data_ptr(),
+            *(x.data_ptr() + 4 * q0 * splits * fetch for x in part),
+            dco.data_ptr() + 4 * q0, b, m, k, blk, mb, s, q1 - q0,
+            query_tile, nlist, fw, fetch, int(packed), splits, s_per,
+            _stream(dev))
+        build.check(lib, err, "pq_scan_topk_kernel")
+        pq_scan_topk_kernel.launches += 1
     if splits > 1:
         acc = merge_topk_kernel(*part)
     return acc[0], acc[1], acc[2], dco

@@ -13,7 +13,8 @@ if an anchor no longer matches once.  The variants:
                     a register add of the code byte;
   * "lookups only"  derives each code row from its item index (no tile
                     list and no code row is read from device memory) and
-                    does every table lookup and add as built.
+                    does every table lookup and add as built; this holds
+                    for the main path's instantiations, the ones timed.
 
 It builds chip_smoke.py's main-path index and times each variant with
 CUDA events at the first main-path batch of each exec mode, in turns
@@ -35,6 +36,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # variant -> ((file, anchor, text that replaces it), ...)
 VARIANTS = {
     "memory only": (
+        ("adc.cuh",
+         "acc[q] = acc[q] + *reinterpret_cast<const float*>(e + 4 * q * MB * K);",
+         "acc[q] = acc[q] + __uint_as_float(static_cast<uint32_t>(e - base));"),
         ("adc.cuh", "acc = acc + ql[(2 * c) * K + (byte & 15u)];",
          "acc = acc + __uint_as_float(byte & 15u);"),
         ("adc.cuh", "acc = acc + ql[(2 * c + 1) * K + (byte >> 4)];",
@@ -42,15 +46,15 @@ VARIANTS = {
         ("adc.cuh", "acc = acc + ql[c * K + byte];",
          "acc = acc + __uint_as_float(byte);"),
     ),
+    # the main path's instantiations: codes < 16 derived from the item
     "lookups only": (
-        ("pq_scan.cu", "const int blk = tile_idx[(size_t)qi * S + s];",
-         "const int blk = s;"),
-        ("adc.cuh",
-         "const uint4 v = *reinterpret_cast<const uint4*>(row + c);",
-         "const uint32_t h = (uint32_t)(uintptr_t)(row + c) * 0x9E3779B1u;\n"
-         "      const uint32_t km = (uint32_t)(K - 1) * 0x01010101u;\n"
-         "      const uint4 v = make_uint4(h & km, (h >> 3) & km,"
-         " (h >> 7) & km, (h >> 11) & km);"),
+        ("pq_scan.cu", "sidx[j] = tile_idx[s0 + j];", "sidx[j] = s0 + j;"),
+        ("pq_scan.cu", "for (int v = 0; v < V; ++v) r[v] = __ldg(row + v);",
+         "for (int v = 0; v < V; ++v) {\n"
+         "      const uint32_t h = ((uint32_t)f * 4u + v) * 0x9E3779B1u;\n"
+         "      r[v] = make_uint4(h & 0x0F0F0F0Fu, (h >> 3) & 0x0F0F0F0Fu,\n"
+         "                        (h >> 7) & 0x0F0F0F0Fu,"
+         " (h >> 11) & 0x0F0F0F0Fu);\n    }"),
     ),
 }
 

@@ -59,8 +59,8 @@ PROBES = (
      "      __syncthreads();\n    }\n    ph[3] += clock64() - Tc;\n  }\n"
      "  __syncthreads();\n  const long long Te = clock64();\n"
      "  if (sel.any_queued()) flush(sel);\n"),
-    ("    if (sdco[q]) atomicAdd(&dco[qi * QT + q], sdco[q]);\n}",
-     "    if (sdco[q]) atomicAdd(&dco[qi * QT + q], sdco[q]);\n"
+    ("    if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);\n}",
+     "    if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);\n"
      "  if (tid == 0 && g_phase) {\n"
      "    ph[4] = clock64() - Te;\n    ph[5] = clock64() - T0;\n"
      "    long long* o = g_phase + 9 * ((size_t)split * gridDim.x + qi);\n"
