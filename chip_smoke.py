@@ -53,6 +53,8 @@ SEARCH = dict(k=10, nprobe=32, k_factor=10)          # the main path's params
 # its searches: exec mode and batch size (grouped's unfused scan holds
 # (B, U, BLK) f32 with U up to B * S, hence the smaller batch)
 RUNS = (("paged", 1024), ("clustered", 1024), ("grouped", 64))
+# the nbits=8 index: 80,000 SIFT1M-shaped vectors, IVF1024, PQ64x8
+NBITS8_N, NBITS8_INDEX = 80_000, dict(INDEX, nlist=1024, nbits=8)
 
 
 def log(*a):
@@ -141,8 +143,9 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
     """K1 on random tables, codes and tile lists, bitwise against its
     plain version; the case must cover what its comment says."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
-                                             query_groups, scan_splits)
+    from repro_torch.kernels.pq_scan import (k1_query_groups,
+                                             pq_scan_tiled_kernel,
+                                             scan_splits)
     from repro_torch.quant import pack_nibbles
     lut = torch.randn(b, m, k, generator=g, device=dev)
     codes = torch.randint(0, k, (tb, blk, m), generator=g,
@@ -152,7 +155,7 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
     tiles = torch.randint(0, tb, (b // qt, s), generator=g, device=dev).int()
     lut_a, codes_a = ops.align(lut, codes, packed)
     splits, s_per = scan_splits(b // qt, s, blk)
-    groups = query_groups(qt, 4 * lut_a.shape[1] * k, 4 * s_per)
+    groups = k1_query_groups(lut_a.shape[1], k, qt, s_per)
     before = pq_scan_tiled_kernel.launches
     out = pq_scan_tiled_kernel(lut_a, codes_a, tiles, query_tile=qt,
                                packed=packed)
@@ -301,9 +304,8 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
     query groups of a tile)."""
     from repro_torch.core.engine import fused_scan_args
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import (MAX_QUERY_TILE,
+    from repro_torch.kernels.pq_scan import (k3_query_groups,
                                              pq_scan_topk_kernel,
-                                             query_groups, topk_smem_bytes,
                                              topk_splits, topk_width)
     from repro_torch.kernels.topk import PAD_POS
     from repro_torch.quant import pack_nibbles
@@ -326,8 +328,7 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
             rank_u.contiguous(), dead)
     kw = dict(query_tile=qt, fetch=fetch, packed=packed)
     fw, blk = topk_width(fetch), codes_a.shape[1]
-    groups = query_groups(qt, topk_smem_bytes(lut_a.shape[1], k, 1, fw, blk),
-                          max_group=MAX_QUERY_TILE)
+    groups = k3_query_groups(lut_a.shape[1], k, qt, fw, blk)
     before = pq_scan_topk_kernel.launches
     got = pq_scan_topk_kernel(*args, **kw)
     check(pq_scan_topk_kernel.launches - before == len(groups),
@@ -444,14 +445,14 @@ def bound_ms(nbytes, ops):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def batch_inputs(index, queries):
-    """The main path's params, K3's fetch and the stage inputs of one
-    batch, as ``seil_search`` makes them."""
+def batch_inputs(index, queries, **params):
+    """The main path's params (``params`` override SEARCH), K3's fetch
+    and the stage inputs of one batch, as ``seil_search`` makes them."""
     from repro_torch.core.engine import (plan_blocks, select_lists,
                                          store_from_arrays, tables_from_arrays)
     from repro_torch.core.pq import pq_lut
     from repro_torch.core.search import finalize_fetch
-    p = index.searcher(**SEARCH, device=index.device).params
+    p = index.searcher(**dict(SEARCH, **params), device=index.device).params
     fetch = finalize_fetch(p.bigk, index.result_oversample,
                            index.needs_result_dedup)
     tables = tables_from_arrays(index.arrays)
@@ -508,13 +509,15 @@ def stage_breakdown(torch, index, queries):
                     for k, v in times.items()))
 
 
-def mode_inputs(index, queries, mode):
+def mode_inputs(index, queries, mode, **params):
     """K1's and K3's inputs at one batch of ``mode`` as the main path
-    makes them: ``(k1_args, k3_args, query_tile, fetch)``.  K1's inputs
+    makes them (``params`` override SEARCH): ``(k1_args, k3_args,
+    query_tile, fetch)``.  K1's inputs
     in each mode are K3's: per-tile scan lists in scan order
     (scan_blocks and scan_blocks_topk build the same ones)."""
     from repro_torch.core.engine import fused_scan_args
-    p, fetch, _, store, sel, plan, lut = batch_inputs(index, queries)
+    p, fetch, _, store, sel, plan, lut = batch_inputs(index, queries,
+                                                      **params)
     lx, tiles, rx, slot_of, rank_u, qt, _ = fused_scan_args(
         store, plan, lut, sel.rank_of, exec_mode=mode,
         query_tile=p.query_tile, sel=sel.sel)
@@ -557,20 +560,100 @@ def lookup_rate(torch) -> float:
     return 32 * sms * float(mhz) * 1e6
 
 
+def hold_kernels(torch, index, queries, mode, what, **params):
+    """K1 and K3 at one batch of ``mode`` as the search path makes it
+    (``params`` override SEARCH), with the launch counts set to 0 before
+    each: each launched once per query group, and bitwise equal to its
+    plain version; where K3 splits, its merge bitwise equal to
+    merge_topk_ref and to the unsplit plain K3.  Returns ``(k1_args,
+    k3_args, query_tile, fetch, max_abs_err by kernel, merge inputs or
+    None)``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pq_scan import (
+        k1_query_groups, k3_query_groups, launch_counts, merge_topk_kernel,
+        pq_scan_tiled_kernel, pq_scan_topk_kernel, reset_launch_counts,
+        scan_splits, topk_splits, topk_width)
+    k1, k3, qt, fetch = mode_inputs(index, queries, mode, **params)
+    lut, codes, tiles = k1
+    (b, m, k), (t, s), blk = lut.shape, tiles.shape, codes.shape[1]
+    g1 = k1_query_groups(m, k, qt, scan_splits(t, s, blk)[1])
+    g3 = k3_query_groups(m, k, qt, topk_width(fetch), blk)
+    splits, s_per = topk_splits(t, s, blk)
+    shape = f"{what} {mode} B={b} S={s} QT={qt} M={m} K={k}"
+    errs = {}
+    for kid, fn, plain, args, kw, want_launches in (
+            ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
+             dict(query_tile=qt), {"pq_scan_tiled_kernel": len(g1)}),
+            ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
+             dict(query_tile=qt, fetch=fetch),
+             {"pq_scan_topk_kernel": len(g3),
+              "merge_topk_kernel": int(splits > 1)})):
+        reset_launch_counts()
+        got = fn(*args, **kw)
+        used = launch_counts()
+        check(all(n == want_launches.get(name, 0)
+                  for name, n in used.items()),
+              f"{kid} at {shape}: launches {json.dumps(used)}, want one per "
+              f"query group {json.dumps(want_launches)}")
+        want = plain(*args, **kw)
+        if kid == "K1":
+            got, want = (got,), (want,)
+        for x, y in zip(got, want):
+            check(torch.equal(x, y), f"{kid} at {shape} differs from its "
+                  "plain version")
+        fin = torch.isfinite(want[0])
+        errs[kid] = (got[0][fin] - want[0][fin]).abs().max().item()
+        k3_want = want[:3]
+        del got, want
+    parts = None
+    if splits > 1:
+        # the plain top-fetch of each of the kernel's ranges, merged by
+        # the kernel
+        parts = split_parts(torch, k3, dict(query_tile=qt, fetch=fetch),
+                            splits, s_per)
+        got = merge_topk_kernel(*parts)
+        for x, y, z in zip(got, ref.merge_topk_ref(*parts), k3_want):
+            check(torch.equal(x, y) and torch.equal(x, z),
+                  f"K3 merge at {shape} differs from merge_topk_ref or from "
+                  "the unsplit plain K3")
+        del got
+    log(f"{what}: K1 (query groups {g1}) and K3 (query groups {g3}, "
+        f"{splits} splits) launched once per group and bitwise "
+        f"equal to their plain versions at the {mode} batch B={b} S={s} "
+        f"QT={qt} M={m} K={k}" + (", K3's merge too" if parts else ""))
+    return k1, k3, qt, fetch, errs, parts
+
+
+def time_held(torch, held, what, lookups_per_s):
+    """Time K1 and K3 on what hold_kernels held (median of 5), beside
+    the lookup floor; no plain version, no bound."""
+    from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
+                                             pq_scan_topk_kernel)
+    k1, k3, qt, fetch, _, _ = held
+    lut, _, tiles = k1
+    k1_ms = cuda_ms(torch, lambda: pq_scan_tiled_kernel(*k1, query_tile=qt),
+                    reps=5, warm=1)
+    k3_ms = cuda_ms(torch, lambda: pq_scan_topk_kernel(
+        *k3, query_tile=qt, fetch=fetch), reps=5, warm=1)
+    lookups = lut.shape[0] * tiles.shape[1] * k1[1].shape[1] * lut.shape[1]
+    log(f"{what}: K1 {k1_ms:.4f} ms (lookup floor "
+        f"{lookups / lookups_per_s * 1e3:.4f} ms), K3 {k3_ms:.4f} ms at "
+        f"B={lut.shape[0]} S={tiles.shape[1]} QT={qt} K={lut.shape[2]}")
+
+
 def time_kernels(torch, index, queries, launches, lookups_per_s):
     """K1 and K3 at the shapes of the first main-path batch of each exec
-    mode (grouped on its first 64 queries): bitwise against the plain
-    version there, then timed beside the plain version and the bound.
-    K3's time covers its merge where it splits; the merge is also held
-    and timed alone."""
+    mode (grouped on its first 64 queries): held there (hold_kernels),
+    then timed beside the plain version and the bound.  K3's time covers
+    its merge where it splits; the merge is also timed alone."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.pq_scan import (merge_topk_kernel,
                                              pq_scan_tiled_kernel,
                                              pq_scan_topk_kernel, topk_splits)
     rows = {}
     for mode, bsz in RUNS:
-        k1, k3, qt, fetch = mode_inputs(index, queries[:bsz].contiguous(),
-                                        mode)
+        k1, k3, qt, fetch, errs, parts = hold_kernels(
+            torch, index, queries[:bsz].contiguous(), mode, "timing")
         lx, codes, tiles = k1
         if mode != "paged":
             log(f"timing: K1 {mode} union fill "
@@ -583,17 +666,7 @@ def time_kernels(torch, index, queries, launches, lookups_per_s):
                 ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
                  dict(query_tile=qt, fetch=fetch),
                  k3_bound(torch, k3, fetch))):
-            got, want = fn(*args, **kw), plain(*args, **kw)
-            if kid == "K1":
-                got, want = (got,), (want,)
-            for x, y in zip(got, want):
-                check(torch.equal(x, y), f"{kid} at the main path's {mode} "
-                      "shape differs from its plain version")
-            fin = torch.isfinite(want[0])
-            err = (got[0][fin] - want[0][fin]).abs().max().item()
-            if kid == "K3":
-                k3_want = want[:3]
-            del got, want
+            err = errs[kid]
             ms = cuda_ms(torch, lambda: fn(*args, **kw))
             pms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1)
             total = sum(nbytes.values())
@@ -606,18 +679,9 @@ def time_kernels(torch, index, queries, launches, lookups_per_s):
                 f"({by}; {total} B = {json.dumps(nbytes)}; {ops} adds); "
                 f"{ops} lookups, lookup floor "
                 f"{ops / lookups_per_s * 1e3:.4f} ms")
-        # K3's merge at this shape: the plain top-fetch of each of the
-        # kernel's ranges, merged by the kernel
+        # K3's merge at this shape, held by hold_kernels
         splits, s_per = topk_splits(*tiles.shape, codes.shape[1])
-        if splits > 1:
-            parts = split_parts(torch, k3, dict(query_tile=qt, fetch=fetch),
-                                splits, s_per)
-            got = merge_topk_kernel(*parts)
-            for x, y, z in zip(got, ref.merge_topk_ref(*parts), k3_want):
-                check(torch.equal(x, y) and torch.equal(x, z),
-                      f"K3 merge at the main path's {mode} shape differs "
-                      "from merge_topk_ref or from the unsplit plain K3")
-            del got, k3_want
+        if parts is not None:
             mms = cuda_ms(torch, lambda: merge_topk_kernel(*parts))
             log(f"timing: K3 merge {mode} splits={splits} s_per={s_per}: "
                 f"{mms:.4f} ms of K3's {rows[('K3', mode)]['ms']:.4f} ms "
@@ -694,7 +758,9 @@ def main_path(torch, dev, args):
             f"{json.dumps(used)}")
     check_agree(torch, {**qt64, ("paged", False): results[("paged", False)]},
                 "main, clustered qt=64")
-    return index, q, launches
+    held = hold_kernels(torch, index, q[:1024].contiguous(), "clustered",
+                        "main, clustered qt=64", query_tile=64)
+    return index, q, launches, held
 
 
 def search_run(torch, index, q, gt, mode, bsz, fused, tag="main", **params):
@@ -749,18 +815,19 @@ def check_agree(torch, results, what):
         "bitwise)")
 
 
-def nbits8_path(torch, dev, seed):
+def nbits8_path(torch, dev, seed, lookups_per_s):
     """An nbits=8 index (PQ64x8: 64 KB of tables per query) built on the
     card and searched in every exec mode, fused off and on; at
     query_tile 8 K1's and K3's tables pass a CTA's shared memory, so
-    they run in query groups.  Each run's launches are counted alone."""
+    they run in query groups.  Each run's launches are counted alone.
+    Then K1 and K3 are held and timed at each mode's first batch."""
     from repro_torch.core import IndexConfig, build_index, ground_truth
     from repro_torch.data import make_dataset
     from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
-    x, q, _ = make_dataset("sift1m", seed, n=80_000, n_queries=1024,
+    x, q, _ = make_dataset("sift1m", seed, n=NBITS8_N, n_queries=1024,
                            device=dev)
     t0 = time.perf_counter()
-    index = build_index(x, IndexConfig(**dict(INDEX, nlist=1024, nbits=8)),
+    index = build_index(x, IndexConfig(**NBITS8_INDEX),
                         generator=torch.Generator().manual_seed(seed),
                         device=dev)
     gt = ground_truth(x, q, 10, device=dev)
@@ -779,6 +846,12 @@ def nbits8_path(torch, dev, seed):
             log(f"nbits8: {mode} fused={int(fused)} launches "
                 f"{json.dumps(used)}")
     check_agree(torch, results, "nbits8")
+    del results
+    for mode, bsz in RUNS:
+        held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
+                            "nbits8")
+        time_held(torch, held, f"timing: nbits8 {mode}", lookups_per_s)
+        del held
 
 
 def ip_path(torch, dev, seed):
@@ -869,14 +942,17 @@ def main() -> int:
                 log(f"build: {stem}: {line.strip()}")
 
     check_kernels(torch, dev, args.seed)
-    index, q, launches = main_path(torch, dev, args)
+    index, q, launches, held = main_path(torch, dev, args)
+    rate = lookup_rate(torch)
+    time_held(torch, held, "timing: clustered qt=64", rate)
+    del held
     kernels = time_kernels(torch, index, q[:1024].contiguous(), launches,
-                           lookup_rate(torch))
+                           rate)
     stage_breakdown(torch, index, q[:1024].contiguous())
     del index
     torch.cuda.empty_cache()
     ip_path(torch, dev, args.seed)
-    nbits8_path(torch, dev, args.seed)
+    nbits8_path(torch, dev, args.seed, rate)
     small_reference(torch, dev, args.seed)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

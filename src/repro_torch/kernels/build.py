@@ -31,6 +31,7 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "pq_scan": {
         "pq_scan_tiled_launch": ([_VOID] * 4 + [_INT] * 10 + [_VOID], _INT),
+        "pq_scan_tiled_smem_bytes": ([_INT] * 4, ctypes.c_size_t),
     },
     "pq_scan_topk": {
         "pq_scan_topk_launch": ([_VOID] * 13 + [_INT] * 14 + [_VOID], _INT),

@@ -149,6 +149,13 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Dynamic shared memory of one CTA: QT queries' tables, then the CTA's
+// s_per staged positions.  The wrapper cuts a tile into query groups by it
+// (kernels/pq_scan.py::query_groups).
+size_t pq_scan_tiled_smem_bytes(int M, int K, int QT, int s_per) {
+  return (size_t)QT * M * K * sizeof(float) + (size_t)s_per * sizeof(int);
+}
+
 // lut (B, M, K) f32; codes (TB, BLK, MB) u8; tile_idx (B / QS, S) i32;
 // out (B, S, BLK) f32.  All contiguous; M == (packed ? 2 * MB : MB).  A
 // tile has QS query rows; this launch scores QT of them: lut and out point
@@ -164,7 +171,7 @@ int pq_scan_tiled_launch(const void* lut, const void* codes,
   const int T = B / QS;
   if (T == 0 || S == 0) return 0;
   const int splits = (S + s_per - 1) / s_per;
-  const size_t smem = (size_t)QT * M * K * sizeof(float) + s_per * sizeof(int);
+  const size_t smem = pq_scan_tiled_smem_bytes(M, K, QT, s_per);
   const int vec16 =
       (MB % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
   const dim3 grid(T, splits), block(NT);

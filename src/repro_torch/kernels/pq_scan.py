@@ -78,18 +78,30 @@ def scan_splits(t: int, s: int, blk: int) -> tuple:
     return splits, s_per
 
 
-def _tile_rows(x: torch.Tensor, t: int, qt: int, q0: int,
-               q1: int) -> torch.Tensor:
-    """Rows ``tile * qt + [q0, q1)`` of every tile of a (t * qt, ...)
-    tensor, as a contiguous (t * (q1 - q0), ...) tensor."""
-    return x.reshape(t, qt, *x.shape[1:])[:, q0:q1].reshape(
-        t * (q1 - q0), *x.shape[1:])
+def _library_groups(qt: int, smem_of, max_group: int = 0) -> list:
+    """``query_groups`` for a launch whose shared memory the kernel's
+    library reports: ``smem_of(n)`` bytes for a group of n queries,
+    linear in n."""
+    fixed = smem_of(0)
+    return query_groups(qt, smem_of(1) - fixed, fixed, max_group=max_group)
 
 
-def _set_tile_rows(out: torch.Tensor, t: int, qt: int, q0: int, q1: int,
-                   rows: torch.Tensor) -> None:
-    out.view(t, qt, *out.shape[1:])[:, q0:q1] = rows.view(
-        t, q1 - q0, *out.shape[1:])
+def k1_query_groups(m: int, k: int, qt: int, s_per: int) -> list:
+    """The query groups K1 launches for a tile of ``qt`` queries, by its
+    library's ``pq_scan_tiled_smem_bytes`` (on the card only)."""
+    lib = build.load("pq_scan")
+    return _library_groups(
+        qt, lambda n: lib.pq_scan_tiled_smem_bytes(m, k, n, s_per))
+
+
+def k3_query_groups(m: int, k: int, qt: int, fw: int, blk: int) -> list:
+    """The query groups K3 launches for a tile of ``qt`` queries, by its
+    library's ``pq_scan_topk_smem_bytes`` and at most ``MAX_QUERY_TILE``
+    each (on the card only)."""
+    lib = build.load("pq_scan_topk")
+    return _library_groups(
+        qt, lambda n: lib.pq_scan_topk_smem_bytes(m, k, n, fw, blk),
+        max_group=MAX_QUERY_TILE)
 
 
 def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
@@ -98,31 +110,30 @@ def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
     """K1.  lut (B, M, K) f32, block_codes (TB, BLK, MB) uint8, tile_idx
     (B // query_tile, S) int32 with entries in [0, TB) -> (B, S, BLK)
     f32.  With ``packed`` each code byte holds two 4-bit codes and
-    M == 2 * MB.  Every query tile pages its own scan list.  A tile whose
-    tables do not fit in shared memory is scanned in ``query_groups``,
-    one launch each (on the CPU, one plain call each)."""
+    M == 2 * MB.  Every query tile pages its own scan list.  On the card
+    a tile whose tables do not fit in shared memory is scanned in
+    ``k1_query_groups``, one launch each; every output row depends only
+    on its own query's table and the tile's list, so the split is
+    exact."""
+    if lut.device.type == "cpu":
+        return pq_scan_tiled_ref(lut, block_codes, tile_idx,
+                                 query_tile=query_tile, packed=packed)
     b, m, k = lut.shape
     tb, blk, mb = block_codes.shape
     t, s = tile_idx.shape
     dev = lut.device
+    _require(lut, "lut", torch.float32, 3, dev)
+    _require(block_codes, "block_codes", torch.uint8, 3, dev)
+    _require(tile_idx, "tile_idx", torch.int32, 2, dev)
     if (2 * mb if packed else mb) != m:
         raise ValueError(f"code width {mb} (packed={packed}) != lut M {m}")
     if b != t * query_tile:
         raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
-    _, s_per = scan_splits(t, s, blk)
-    groups = query_groups(query_tile, 4 * m * k, 4 * s_per)
     out = torch.empty((b, s, blk), dtype=torch.float32, device=dev)
-    if dev.type == "cpu":
-        for q0, q1 in groups:
-            _set_tile_rows(out, t, query_tile, q0, q1, pq_scan_tiled_ref(
-                _tile_rows(lut, t, query_tile, q0, q1), block_codes,
-                tile_idx, query_tile=q1 - q0, packed=packed))
-        return out
-    _require(lut, "lut", torch.float32, 3, dev)
-    _require(block_codes, "block_codes", torch.uint8, 3, dev)
-    _require(tile_idx, "tile_idx", torch.int32, 2, dev)
     if out.numel() == 0:
         return out
+    _, s_per = scan_splits(t, s, blk)
+    groups = k1_query_groups(m, k, query_tile, s_per)
     lib = build.load("pq_scan")
     for q0, q1 in groups:
         err = lib.pq_scan_tiled_launch(
@@ -215,15 +226,6 @@ def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
 merge_topk_kernel.launches = 0
 
 
-def topk_smem_bytes(m: int, k: int, qt: int, fw: int, blk: int) -> int:
-    """Dynamic shared memory of one K3 scan CTA for ``qt`` queries: the
-    tables, the selection state, the round's plan slots and DCO counts.
-    The same formula as ``pq_scan_topk_smem_bytes`` in pq_scan_topk.cu,
-    which the wrapper holds it to on the card."""
-    per_round = max(1, TOPK_THREADS // blk)
-    return 4 * (qt * m * k + 6 * qt * fw + qt + qt * per_round + qt)
-
-
 def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
                         rank_of, slot_of, rank_u, dead=None, *,
                         query_tile: int = 8, fetch: int = 64,
@@ -233,43 +235,21 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     ``(acc_d, acc_pos, acc_id, dco)``: (B, fetch) f32 / int32 / int32
     ascending by (d, pos), and the (B,) int32 logical DCO.  The scan
     runs over ``topk_splits`` ranges of positions; with more than one,
-    ``merge_topk_kernel`` merges their lists.  A tile whose state does
-    not fit in shared memory, or that has more than ``MAX_QUERY_TILE``
-    queries, is scanned in ``query_groups``, one launch each (on the
-    CPU, one plain call each); every output row depends only on its own
-    query's rows and the tile's list, so the split is exact."""
+    ``merge_topk_kernel`` merges their lists.  On the card a tile whose
+    state does not fit in shared memory, or that has more than
+    ``MAX_QUERY_TILE`` queries, is scanned in ``k3_query_groups``, one
+    launch each; every output row depends only on its own query's rows
+    and the tile's list, so the split is exact."""
+    if lut.device.type == "cpu":
+        return pq_scan_topk_ref(lut, block_codes, block_ids, block_other,
+                                tile_idx, rank_of, slot_of, rank_u, dead,
+                                query_tile=query_tile, fetch=fetch,
+                                packed=packed)
     b, m, k = lut.shape
     tb, blk, mb = block_codes.shape
     t, s = tile_idx.shape
     nlist = rank_of.shape[1]
     dev = lut.device
-    if (2 * mb if packed else mb) != m:
-        raise ValueError(f"code width {mb} (packed={packed}) != lut M {m}")
-    if b != t * query_tile:
-        raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
-    if blk != pow2_ceil(blk):
-        raise ValueError(f"block size must be a power of 2: {blk}")
-    if fetch < 1:
-        raise ValueError(f"fetch must be >= 1, got {fetch}")
-    fw = topk_width(fetch)
-    fixed = topk_smem_bytes(m, k, 0, fw, blk)
-    groups = query_groups(query_tile, topk_smem_bytes(m, k, 1, fw, blk)
-                          - fixed, fixed, max_group=MAX_QUERY_TILE)
-    if dev.type == "cpu":
-        acc = (torch.empty((b, fetch), dtype=torch.float32),
-               torch.empty((b, fetch), dtype=torch.int32),
-               torch.empty((b, fetch), dtype=torch.int32),
-               torch.empty((b,), dtype=torch.int32))
-        for q0, q1 in groups:
-            def rows(x):
-                return _tile_rows(x, t, query_tile, q0, q1)
-            got = pq_scan_topk_ref(
-                rows(lut), block_codes, block_ids, block_other, tile_idx,
-                rows(rank_of), rows(slot_of), rows(rank_u), dead,
-                query_tile=q1 - q0, fetch=fetch, packed=packed)
-            for x, y in zip(acc, got):
-                _set_tile_rows(x, t, query_tile, q0, q1, y)
-        return acc
     _require(lut, "lut", torch.float32, 3, dev)
     _require(block_codes, "block_codes", torch.uint8, 3, dev)
     for name, x in (("block_ids", block_ids), ("block_other", block_other),
@@ -281,18 +261,23 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         if dead.shape != block_ids.shape:
             raise ValueError(f"dead {tuple(dead.shape)} != block_ids "
                              f"{tuple(block_ids.shape)}")
+    if (2 * mb if packed else mb) != m:
+        raise ValueError(f"code width {mb} (packed={packed}) != lut M {m}")
+    if b != t * query_tile:
+        raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
+    if blk != pow2_ceil(blk):
+        raise ValueError(f"block size must be a power of 2: {blk}")
+    if fetch < 1:
+        raise ValueError(f"fetch must be >= 1, got {fetch}")
     if block_ids.shape != (tb, blk) or block_other.shape != (tb, blk):
         raise ValueError("block_ids / block_other must be (TB, BLK)")
     if slot_of.shape != (b, s) or rank_u.shape != (b, s):
         raise ValueError(f"slot_of / rank_u must be {(b, s)}")
     if rank_of.shape[0] != b:
         raise ValueError(f"rank_of must have {b} rows")
+    fw = topk_width(fetch)
+    groups = k3_query_groups(m, k, query_tile, fw, blk)
     lib = build.load("pq_scan_topk")
-    qg = max(q1 - q0 for q0, q1 in groups)
-    if lib.pq_scan_topk_smem_bytes(m, k, qg, fw, blk) != topk_smem_bytes(
-            m, k, qg, fw, blk):
-        raise RuntimeError("topk_smem_bytes disagrees with the library's "
-                           "pq_scan_topk_smem_bytes")
     splits, s_per = topk_splits(t, s, blk)
     acc = tuple(torch.empty((b, fetch), dtype=dt, device=dev)
                 for dt in (torch.float32, torch.int32, torch.int32))

@@ -3,14 +3,17 @@
 On the card a query tile whose tables (K1) or selection state (K3) do
 not fit in a CTA's shared memory is scanned in ``query_groups``, one
 launch per group, and K1 cuts a tile's scan positions into
-``scan_splits`` ranges.  On the CPU the wrappers run the same groups
-through the plain versions, so these tests reach the split: the grouped
-result equals the whole plain K1 / K3 bitwise (every output row depends
-only on its own query's rows and the tile's list) and the Pallas
+``scan_splits`` ranges.  Both helpers are pure and tested directly.
+The split rests on one property of the functions: every output row
+depends only on its own query's rows and the tile's list.  Here the
+plain versions run group by group, on the rows each launch takes, and
+the result equals the whole plain K1 / K3 bitwise and the Pallas
 kernels in interpret mode at rtol=atol=1e-5 (K3 on integer LUTs, where
 every sum is exact, so its positions, ids and DCO compare bitwise).
-The CUDA kernels are held against the plain versions on the card by
-chip_smoke.py, which runs these shapes too.
+On the CPU the wrappers run the whole tile through the plain version,
+at any size.  The CUDA kernels, query groups included, are held
+against the plain versions on the card by chip_smoke.py, which runs
+these shapes too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -54,19 +57,19 @@ def test_query_groups_at_the_shapes_that_need_them():
     assert tpq.query_groups(8, 4 * 64 * 256, 4 * 1024) == [(0, 2), (2, 5),
                                                            (5, 8)]
     assert tpq.query_groups(8, 4 * 64 * 16, 4 * 1024) == [(0, 8)]
-    per = tpq.topk_smem_bytes(64, 16, 1, 128, 32)
-    assert tpq.topk_smem_bytes(64, 16, 0, 128, 32) == 0
-    assert tpq.query_groups(64, per, max_group=64) == [(0, 32), (32, 64)]
+    # K3's state for one query at M 64, K 16, fetch 100, BLK 32: 7208 B
+    assert tpq.query_groups(64, 7208, max_group=64) == [(0, 32), (32, 64)]
 
 
 def test_one_query_above_shared_memory_raises():
+    """No launch on the card takes one query's 256 KB of tables; the
+    plain version on the CPU answers the same shape."""
     with pytest.raises(ValueError, match="one query's tables need"):
         tpq.query_groups(1, 4 * 256 * 256, 0)
-    lut = torch.zeros(2, 256, 256)
-    codes = torch.zeros(3, 32, 256, dtype=torch.uint8)
-    tiles = torch.zeros(2, 2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="one query's tables need"):
-        tpq.pq_scan_tiled_kernel(lut, codes, tiles, query_tile=1)
+    lut, codes, tiles = _k1_inputs(3, 2, 256, 256, 3, 32, 2, 1)
+    got = tpq.pq_scan_tiled_kernel(t(lut), t(codes), t(tiles), query_tile=1)
+    np.testing.assert_array_equal(got.numpy(), tref.pq_scan_tiled_ref(
+        t(lut), t(codes), t(tiles), query_tile=1).numpy())
 
 
 @pytest.mark.parametrize("t_,s,blk", [
@@ -102,12 +105,35 @@ def _k1_inputs(seed, b, m, k, tb, blk, s, qt):
     return lut, codes, tiles
 
 
+def _in_groups(fn, groups, qt, b, rows, *args, **kw):
+    """``fn`` once per query group on rows ``tile * qt + [q0, q1)`` of
+    each per-query input (the positions ``rows`` of ``args``), at
+    query_tile ``q1 - q0``, its outputs put back in those rows: what the
+    card's launches of a query-group split compute."""
+    out = None
+    for q0, q1 in groups:
+        idx = (torch.arange(0, b, qt)[:, None]
+               + torch.arange(q0, q1)[None, :]).reshape(-1)
+        sub = [x[idx] if i in rows else x for i, x in enumerate(args)]
+        got = fn(*sub, **dict(kw, query_tile=q1 - q0))
+        got = got if isinstance(got, tuple) else (got,)
+        if out is None:
+            out = tuple(torch.empty((b, *y.shape[1:]), dtype=y.dtype)
+                        for y in got)
+        for x, y in zip(out, got):
+            x[idx] = y
+    return out
+
+
 @pytest.mark.parametrize("qt,m,k", [(8, 64, 256), (64, 64, 16)])
 def test_k1_query_groups_match_whole_plain_and_pallas(qt, m, k):
     lut, codes, tiles = _k1_inputs(qt + k, 2 * qt, m, k, 10, 32, 3, qt)
     _, s_per = tpq.scan_splits(2, 3, 32)
-    assert len(tpq.query_groups(qt, 4 * m * k, 4 * s_per)) > 1
-    got = tpq.pq_scan_tiled_kernel(t(lut), t(codes), t(tiles), query_tile=qt)
+    # K1's shared memory: each query's tables, and the staged positions
+    groups = tpq.query_groups(qt, 4 * m * k, 4 * s_per)
+    assert len(groups) > 1
+    got, = _in_groups(tref.pq_scan_tiled_ref, groups, qt, 2 * qt, (0,),
+                      t(lut), t(codes), t(tiles))
     whole = tref.pq_scan_tiled_ref(t(lut), t(codes), t(tiles), query_tile=qt)
     np.testing.assert_array_equal(got.numpy(), whole.numpy())
     want = jpq.pq_scan_tiled_kernel(jnp.asarray(lut), jnp.asarray(codes),
@@ -165,9 +191,15 @@ def _k3_inputs(seed, mode, *, qt, m, k, b, s=4, tb=20, blk=32, nlist=10,
 def test_k3_query_groups_match_whole_plain_and_pallas(mode, qt, m, k, b):
     args = _k3_inputs(qt + k, mode, qt=qt, m=m, k=k, b=b)
     kw = dict(query_tile=qt, fetch=40)
-    per = tpq.topk_smem_bytes(m, k, 1, tpq.topk_width(40), 32)
-    assert len(tpq.query_groups(qt, per, max_group=tpq.MAX_QUERY_TILE)) > 1
-    got = tpq.pq_scan_topk_kernel(*args, **kw)
+    # K3's state for one query (pq_scan_topk_smem_bytes): tables, six
+    # FW-wide selection arrays, a count, the round's plan slots and DCO
+    fw = tpq.topk_width(40)
+    per = 4 * (m * k + 6 * fw + 1 + tpq.TOPK_THREADS // 32 + 1)
+    groups = tpq.query_groups(qt, per, max_group=tpq.MAX_QUERY_TILE)
+    assert len(groups) > 1
+    # per-query inputs: lut, rank_of, slot_of, rank_u
+    got = _in_groups(tref.pq_scan_topk_ref, groups, qt, args[0].shape[0],
+                     (0, 5, 6, 7), *args, fetch=40)
     whole = tref.pq_scan_topk_ref(*args, **kw)
     for name, g, w in zip(("acc_d", "acc_pos", "acc_id", "dco"), got, whole):
         np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)

@@ -22,6 +22,13 @@ CUDA events at the first main-path batch of each exec mode, in turns
 built" bitwise against the plain version there.  Beside the times it
 prints the byte bound, the lookup floor and the code bytes the batch
 reads, and the registers and spills ptxas reports for each variant.
+
+Then it builds chip_smoke.py's nbits=8 index, whose K = 256 runs K1's
+generic instantiations in every mode, and times, at each mode's first
+batch, "as built" against "generic uncapped": the generic kernel
+without its two-CTAs-per-SM register cap (``__launch_bounds__(NT,
+2)``), in turns (as built, uncapped, uncapped, as built), after
+holding both bitwise against the plain version there.
 """
 from __future__ import annotations
 
@@ -57,6 +64,10 @@ VARIANTS = {
          " (h >> 11) & 0x0F0F0F0Fu);\n    }"),
     ),
 }
+# the generic instantiations without their register cap
+UNCAPPED = ("generic uncapped", (
+    ("pq_scan.cu", "__launch_bounds__(NT, 2) pq_scan_generic(",
+     "__launch_bounds__(NT) pq_scan_generic("),))
 
 
 def build_variant(build, name, edits):
@@ -113,7 +124,7 @@ def main() -> int:
         if stem == "pq_scan":
             for ln in ptxas_lines(text):
                 print(f"ptxas: as built: {ln}", flush=True)
-    for name, edits in VARIANTS.items():
+    for name, edits in (*VARIANTS.items(), UNCAPPED):
         libs[name], lines = build_variant(build, name, edits)
         for ln in lines:
             print(f"ptxas: {name}: {ln}", flush=True)
@@ -155,6 +166,29 @@ def main() -> int:
               f"code reads {code_reads} B = "
               f"{code_reads / cs.HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
               "rate", flush=True)
+    del index, x, q
+    x, q, _ = make_dataset("sift1m", args.seed, n=cs.NBITS8_N,
+                           n_queries=1024, device=dev)
+    index = build_index(x, IndexConfig(**cs.NBITS8_INDEX), device=dev,
+                        generator=torch.Generator().manual_seed(args.seed))
+    for mode, bsz in cs.RUNS:
+        k1, _, qt, _ = cs.mode_inputs(index, q[:bsz].contiguous(), mode)
+        lut, codes, tiles = k1
+        want = ref.pq_scan_tiled_ref(*k1, query_tile=qt)
+        times = []
+        for name in ("as built", UNCAPPED[0], UNCAPPED[0], "as built"):
+            current["lib"] = libs[name]
+            if not torch.equal(pq_scan.pq_scan_tiled_kernel(
+                    *k1, query_tile=qt), want):
+                raise SystemExit(f"k1_limits: {name} K1 differs from its "
+                                 f"plain version at nbits8 {mode}")
+            ms = cs.cuda_ms(torch, lambda: pq_scan.pq_scan_tiled_kernel(
+                *k1, query_tile=qt))
+            times.append(f"{name} {ms:.4f} ms")
+        lookups = cs.k1_bound(torch, k1)[1]
+        print(f"limits: nbits8 {mode} B={lut.shape[0]} QT={qt} "
+              f"S={tiles.shape[1]} K={lut.shape[2]}: " + ", ".join(times)
+              + f"; lookup floor {lookups / rate * 1e3:.4f} ms", flush=True)
     return 0
 
 
