@@ -9,34 +9,46 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 bitwise, over a sweep of shapes and layouts: K1 at every
                 instantiation and grid choice (long S, K 4 / 16 / 256,
-                QT 1 to 64, query groups, packed with odd Mc); K3 also
-                split over the grid (few tiles, long S, sparse plans) and
-                in query groups; K3's merge on random sorted lists; K2's
+                QT 1 to 64, query groups, global tables at M 256 K 256,
+                packed with odd Mc); K3 also split over the grid (few
+                tiles, long S, sparse plans), in query groups and with
+                global tables; K3's merge on random sorted lists; K2's
                 tile-row check;
   4. main     — a SIFT1M-shaped corpus (n x 128, made on the card from
                 --seed), a RAIRS index built on the card (IVF4096,
                 PQ64x4, block 32, rair + SEIL), exact top-10 ground
-                truth, then paged / clustered at B=1024 and grouped at
-                B=64, each with fused_topk off and on: recall@10, DCO,
-                QPS, kernel launch counts; all six runs must agree on
-                ids and DCO; clustered at query_tile 64 (query groups),
-                fused off and on, must agree with them too; an
-                inner-product build through paged+fused; an nbits=8
-                index (PQ64x8) in all six modes, which must agree; a
-                small index searched on the card and on the CPU;
+                truth, then search sessions (a CUDA graph per bucket,
+                captured by warmup first): paged / clustered at B=1024
+                and grouped at B=64, each with fused_topk off and on:
+                recall@10, DCO, QPS, kernel launch counts; all six runs
+                must agree on ids and DCO; each beside a loop of eager
+                seil_search calls on the same batches (same results);
+                one traced batch per mode (stage spans, bitwise equal to
+                the untraced batch); plan reuse in grouped B=64 and
+                clustered B=1024 (warmup_widths first; plan stats), which
+                must agree with the six runs, with K1 and K3 held at a
+                batch whose unions the plan cache widened; clustered at
+                query_tile 64 (query groups); peak device memory with the
+                sessions' graphs; an inner-product build through
+                paged+fused; an nbits=8 index (PQ64x8) in all six modes;
+                a gist-shaped index (PQ256x8: 256 KB of tables per query,
+                K1 and K3 with global tables) in all six modes; a small
+                index searched on the card and on the CPU;
   5. timing   — each kernel, bitwise against its plain version at the
-                shapes of each exec mode's first main-path batch, then
-                both timed (CUDA events) beside the kernel's bound and
-                lookup floor on this card (K3's merge also alone where
-                K3 splits), and the union fill of grouped and clustered
-                mode; the device time of each search stage for one batch
-                of each exec mode, fused off and on.
+                shapes of each exec mode's first batch (main path and
+                gist index), then both timed (CUDA events) beside the
+                kernel's bound and lookup floor on this card (K3's merge
+                also alone where K3 splits), and the union fill of
+                grouped and clustered mode; the device time of each
+                search stage for one batch of each exec mode, fused off
+                and on.
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -55,6 +67,11 @@ SEARCH = dict(k=10, nprobe=32, k_factor=10)          # the main path's params
 RUNS = (("paged", 1024), ("clustered", 1024), ("grouped", 64))
 # the nbits=8 index: 80,000 SIFT1M-shaped vectors, IVF1024, PQ64x8
 NBITS8_N, NBITS8_INDEX = 80_000, dict(INDEX, nlist=1024, nbits=8)
+# plan-reuse sessions on the main index: exec mode and batch size
+REUSE_RUNS = (("grouped", 64), ("clustered", 1024))
+# the gist-shaped index (50,000 x 256): IVF1024, PQ256x8, 256 KB of tables
+# per query, above a CTA's shared memory
+GIST_INDEX = dict(INDEX, nlist=1024, m_pq=256, nbits=8)
 
 
 def log(*a):
@@ -133,6 +150,9 @@ K1_CASES = (
     (8, 16, 40, 32, 64, 4, False),
     (1, 4, 300, 32, 64, 256, False),
     (8, 8, 40, 32, 64, 256, False),      # 512 KB of tables: three groups
+    (1, 2, 300, 32, 256, 256, False),    # 256 KB for one query: global
+    (8, 8, 300, 32, 256, 256, False),    # tables, the whole tile at once
+    (64, 64, 40, 32, 256, 256, False),
     (1, 2, 300, 24, 64, 16, False),      # BLK not a power of two
     (1, 2, 300, 32, 63, 16, True),       # packed, odd Mc
     (8, 16, 300, 32, 15, 16, True),
@@ -166,8 +186,12 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
     check(pq_scan_tiled_kernel.launches - before == len(groups),
           f"{name}: not one launch per query group")
     check(s < 300 or splits > 1, f"{name}: long S ran one split")
-    check(4 * qt * lut_a.shape[1] * k <= 232448 or len(groups) > 1,
-          f"{name}: oversize tables in one group")
+    one_query = 4 * lut_a.shape[1] * k + 4 * s_per
+    check(groups.global_tables == (one_query > 232448),
+          f"{name}: global tables {groups.global_tables} for {one_query} B "
+          "of shared memory per query")
+    check(4 * qt * lut_a.shape[1] * k <= 232448 or len(groups) > 1
+          or groups.global_tables, f"{name}: oversize tables in one group")
     check(torch.equal(out, want),
           f"{name} ({splits} splits of {s_per}, groups {groups}): max err "
           f"{(out - want).abs().max().item()}")
@@ -214,7 +238,7 @@ def check_kernels(torch, dev, seed):
         n_k1 += 1
     log(f"kernels: K1 bitwise equal to plain version in {n_k1} more cases "
         "(long S, K 4 / 16 / 256, QT 1 / 8 / 16 / 32 / 64, query groups, "
-        "BLK 24 / 128, packed with odd Mc)")
+        "global tables at M 256 K 256, BLK 24 / 128, packed with odd Mc)")
     # K2: per-query rows under query_tile > 1 must raise
     lut = torch.randn(4, 16, 16, generator=g, device=dev)
     codes = torch.randint(0, 16, (9, 32, 16), generator=g,
@@ -281,6 +305,22 @@ def check_kernels(torch, dev, seed):
                 n_groups += 1
     log(f"kernels: K3 in query groups bitwise equal to plain version in "
         f"{n_groups} cases")
+    # K3 where one query's tables pass a CTA's shared memory (M 256,
+    # K 256: 256 KB): tables in global memory, groups of up to 64 by the
+    # selection state alone
+    n_global = 0
+    for mode in ("paged", "grouped", "clustered"):
+        for qt, b in ((8, 16), (64, 128)):
+            for ints in (True, False):
+                _, _, groups = k3_case(
+                    torch, g, dev, mode=mode, packed=False, ints=ints,
+                    with_dead=ints, fetch=100, qt=qt, s=40, tb=60, b=b,
+                    m=256, k=256)
+                check(groups.global_tables, f"K3 global case {mode} qt={qt} "
+                      "kept its tables in shared memory")
+                n_global += 1
+    log(f"kernels: K3 with global tables bitwise equal to plain version in "
+        f"{n_global} cases")
     # the merge alone: random ascending lists, tie-heavy, with pads
     n_merge = 0
     for b, splits, fetch in ((1, 2, 1), (7, 5, 100), (64, 66, 100),
@@ -509,23 +549,64 @@ def stage_breakdown(torch, index, queries):
                     for k, v in times.items()))
 
 
-def mode_inputs(index, queries, mode, **params):
-    """K1's and K3's inputs at one batch of ``mode`` as the main path
-    makes them (``params`` override SEARCH): ``(k1_args, k3_args,
-    query_tile, fetch)``.  K1's inputs
-    in each mode are K3's: per-tile scan lists in scan order
-    (scan_blocks and scan_blocks_topk build the same ones)."""
+def scan_inputs(index, fetch, store, plan, lut, rank_of, sel, mode,
+                query_tile, perm=None, unions=None):
+    """K1's and K3's inputs in ``mode`` for one planned batch:
+    ``(k1_args, k3_args, query_tile, fetch)``.  K1's inputs in each mode
+    are K3's: per-tile scan lists in scan order (scan_blocks and
+    scan_blocks_topk build the same ones); ``perm`` / ``unions`` as a
+    plan_reuse session passes them."""
     from repro_torch.core.engine import fused_scan_args
-    p, fetch, _, store, sel, plan, lut = batch_inputs(index, queries,
-                                                      **params)
     lx, tiles, rx, slot_of, rank_u, qt, _ = fused_scan_args(
-        store, plan, lut, sel.rank_of, exec_mode=mode,
-        query_tile=p.query_tile, sel=sel.sel)
+        store, plan, lut, rank_of, exec_mode=mode, query_tile=query_tile,
+        sel=sel, perm=perm, unions=unions)
     lx, tiles, codes = lx.contiguous(), tiles.contiguous(), store.block_codes
     fetch = min(fetch, plan.blocks.shape[1] * codes.shape[1])
     k3 = (lx, codes, store.block_ids, store.block_other, tiles,
           rx.contiguous(), slot_of.contiguous(), rank_u.contiguous(), None)
     return (lx, codes, tiles), k3, qt, fetch
+
+
+def mode_inputs(index, queries, mode, **params):
+    """K1's and K3's inputs at one batch of ``mode`` as the main path
+    makes them (``params`` override SEARCH): ``(k1_args, k3_args,
+    query_tile, fetch)``."""
+    p, fetch, _, store, sel, plan, lut = batch_inputs(index, queries,
+                                                      **params)
+    return scan_inputs(index, fetch, store, plan, lut, sel.rank_of, sel.sel,
+                       mode, p.query_tile)
+
+
+def reuse_inputs(torch, index, q, mode, bsz):
+    """K1's and K3's inputs (mode_inputs' tuple) at a batch of the
+    ``mode`` plan_reuse session (fused off) whose scanned unions the plan
+    cache widened beyond the batch's own.  After the session's run over
+    ``q`` its cache holds the last batches' tiles; windows of ``q``
+    shifted against them by eighths of a batch (drifting traffic: the
+    same queries, other tile boundaries) are probed and merged by the
+    session, as its dispatch does, until one scans a widened union."""
+    from repro_torch.core.engine import store_from_arrays, union_live
+    from repro_torch.core.graphs import clone_tensors
+    from repro_torch.core.search import finalize_fetch
+    sess = session(index, mode, bsz, False, plan_reuse=True)
+    p = sess.params
+    n = q.shape[0]
+    for s in range(n - bsz - bsz // 8, -1, -(bsz // 8)):
+        _, pr, unions = sess._probe_merge(bsz, q[s:s + bsz].contiguous())
+        if bool((union_live(unions) > union_live(pr.unions)).any()):
+            break
+    else:
+        fail(f"plan reuse {mode}: no batch scanned a widened union")
+    pr = clone_tensors(pr)          # the probe graph's outputs, kept
+    log(f"main, plan reuse {mode}: queries [{s}, {s + bsz}) scan "
+        f"{int(union_live(unions).sum())} union entries, its own "
+        f"{int(union_live(pr.unions).sum())}, at width {unions.shape[1]} "
+        f"of {pr.unions.shape[1]}")
+    fetch = finalize_fetch(p.bigk, index.result_oversample,
+                           index.needs_result_dedup)
+    return scan_inputs(index, fetch, store_from_arrays(index.arrays),
+                       pr.plan, pr.lut, pr.rank_of, pr.sel, mode,
+                       p.query_tile, perm=pr.perm, unions=unions)
 
 
 def union_fill(index, queries, mode) -> float:
@@ -560,26 +641,39 @@ def lookup_rate(torch) -> float:
     return 32 * sms * float(mhz) * 1e6
 
 
-def hold_kernels(torch, index, queries, mode, what, **params):
-    """K1 and K3 at one batch of ``mode`` as the search path makes it
-    (``params`` override SEARCH), with the launch counts set to 0 before
-    each: each launched once per query group, and bitwise equal to its
-    plain version; where K3 splits, its merge bitwise equal to
-    merge_topk_ref and to the unsplit plain K3.  Returns ``(k1_args,
+def hold_kernels(torch, index, queries, mode, what, global_tables=None,
+                 **params):
+    """hold_inputs at one batch of ``mode`` as the search path makes it
+    (``params`` override SEARCH)."""
+    return hold_inputs(torch, mode_inputs(index, queries, mode, **params),
+                       mode, what, global_tables)
+
+
+def hold_inputs(torch, inputs, mode, what, global_tables=None):
+    """K1 and K3 on ``inputs`` (mode_inputs' tuple), with the launch
+    counts set to 0 before each: each launched once per query group, in
+    the table form ``global_tables`` names (when given), and bitwise
+    equal to its plain version; where K3 splits, its merge bitwise equal
+    to merge_topk_ref and to the unsplit plain K3.  Returns ``(k1_args,
     k3_args, query_tile, fetch, max_abs_err by kernel, merge inputs or
-    None)``."""
+    None, (K1's groups, K3's groups))``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.pq_scan import (
         k1_query_groups, k3_query_groups, launch_counts, merge_topk_kernel,
         pq_scan_tiled_kernel, pq_scan_topk_kernel, reset_launch_counts,
         scan_splits, topk_splits, topk_width)
-    k1, k3, qt, fetch = mode_inputs(index, queries, mode, **params)
+    k1, k3, qt, fetch = inputs
     lut, codes, tiles = k1
     (b, m, k), (t, s), blk = lut.shape, tiles.shape, codes.shape[1]
     g1 = k1_query_groups(m, k, qt, scan_splits(t, s, blk)[1])
     g3 = k3_query_groups(m, k, qt, topk_width(fetch), blk)
     splits, s_per = topk_splits(t, s, blk)
     shape = f"{what} {mode} B={b} S={s} QT={qt} M={m} K={k}"
+    if global_tables is not None:
+        check(g1.global_tables == global_tables
+              and g3.global_tables == global_tables,
+              f"{shape}: K1 / K3 global tables {g1.global_tables} / "
+              f"{g3.global_tables}, want {global_tables}")
     errs = {}
     for kid, fn, plain, args, kw, want_launches in (
             ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
@@ -603,8 +697,9 @@ def hold_kernels(torch, index, queries, mode, what, **params):
                   "plain version")
         fin = torch.isfinite(want[0])
         errs[kid] = (got[0][fin] - want[0][fin]).abs().max().item()
-        k3_want = want[:3]
-        del got, want
+        if kid == "K3":
+            k3_want = want[:3]
+        del got, want, fin
     parts = None
     if splits > 1:
         # the plain top-fetch of each of the kernel's ranges, merged by
@@ -616,12 +711,17 @@ def hold_kernels(torch, index, queries, mode, what, **params):
             check(torch.equal(x, y) and torch.equal(x, z),
                   f"K3 merge at {shape} differs from merge_topk_ref or from "
                   "the unsplit plain K3")
+        fin = torch.isfinite(k3_want[0])
+        errs["merge"] = (got[0][fin] - k3_want[0][fin]).abs().max().item()
         del got
-    log(f"{what}: K1 (query groups {g1}) and K3 (query groups {g3}, "
-        f"{splits} splits) launched once per group and bitwise "
-        f"equal to their plain versions at the {mode} batch B={b} S={s} "
-        f"QT={qt} M={m} K={k}" + (", K3's merge too" if parts else ""))
-    return k1, k3, qt, fetch, errs, parts
+    form = "global" if g1.global_tables else "shared-memory"
+    log(f"{what}: K1 (query groups {list(g1)}, {form} tables) and K3 "
+        f"(query groups {list(g3)}, "
+        f"{'global' if g3.global_tables else 'shared-memory'} tables, "
+        f"{splits} splits) launched once per group and bitwise equal to "
+        f"their plain versions at the {mode} batch B={b} S={s} QT={qt} "
+        f"M={m} K={k}" + (", K3's merge too" if parts else ""))
+    return k1, k3, qt, fetch, errs, parts, (g1, g3)
 
 
 def time_held(torch, held, what, lookups_per_s):
@@ -629,7 +729,7 @@ def time_held(torch, held, what, lookups_per_s):
     the lookup floor; no plain version, no bound."""
     from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
                                              pq_scan_topk_kernel)
-    k1, k3, qt, fetch, _, _ = held
+    k1, k3, qt, fetch = held[:4]
     lut, _, tiles = k1
     k1_ms = cuda_ms(torch, lambda: pq_scan_tiled_kernel(*k1, query_tile=qt),
                     reps=5, warm=1)
@@ -641,65 +741,101 @@ def time_held(torch, held, what, lookups_per_s):
         f"B={lut.shape[0]} S={tiles.shape[1]} QT={qt} K={lut.shape[2]}")
 
 
-def time_kernels(torch, index, queries, launches, lookups_per_s):
-    """K1 and K3 at the shapes of the first main-path batch of each exec
-    mode (grouped on its first 64 queries): held there (hold_kernels),
-    then timed beside the plain version and the bound.  K3's time covers
-    its merge where it splits; the merge is also timed alone."""
+def kernel_rows(torch, held, mode, what, lookups_per_s):
+    """K1 and K3 on what hold_kernels held, timed (CUDA events) beside
+    their plain versions, bounds and lookup floors; K3's merge also
+    alone where K3 splits.  Returns {"K1" | "K3" | "merge": row}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.pq_scan import (merge_topk_kernel,
                                              pq_scan_tiled_kernel,
                                              pq_scan_topk_kernel, topk_splits)
+    k1, k3, qt, fetch, errs, parts, _ = held
+    lx, codes, tiles = k1
+    rows = {}
+    for kid, fn, plain, args, kw, (nbytes, ops) in (
+            ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
+             dict(query_tile=qt), k1_bound(torch, k1)),
+            ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
+             dict(query_tile=qt, fetch=fetch),
+             k3_bound(torch, k3, fetch))):
+        ms = cuda_ms(torch, lambda: fn(*args, **kw))
+        pms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1)
+        total = sum(nbytes.values())
+        bms, by = bound_ms(total, ops)
+        rows[kid] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                         max_abs_err=errs[kid],
+                         lookup_ms=ops / lookups_per_s * 1e3)
+        log(f"{what}: {kid} {mode} B={lx.shape[0]} S={tiles.shape[1]} "
+            f"QT={qt} M={lx.shape[1]} K={lx.shape[2]}"
+            + (f" fetch={fetch}" if kid == "K3" else "")
+            + f": {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}; {total} B = {json.dumps(nbytes)}; {ops} adds); "
+            f"{ops} lookups, lookup floor {rows[kid]['lookup_ms']:.4f} ms")
+    if parts is not None:
+        splits, s_per = topk_splits(*tiles.shape, codes.shape[1])
+        mms = cuda_ms(torch, lambda: merge_topk_kernel(*parts))
+        pms = cuda_ms(torch, lambda: ref.merge_topk_ref(*parts), reps=3,
+                      warm=1)
+        b, _, f = parts[0].shape
+        # each list triple read once, the top-fetch triples written once;
+        # one comparison per candidate
+        nbytes = sum(x.numel() * 4 for x in parts) + b * f * 12
+        bms, by = bound_ms(nbytes, parts[0].numel())
+        rows["merge"] = dict(ms=mms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                             max_abs_err=errs["merge"])
+        log(f"{what}: K3 merge {mode} splits={splits} s_per={s_per}: "
+            f"{mms:.4f} ms of K3's {rows['K3']['ms']:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes} B) (bitwise "
+            "equal to merge_topk_ref and to the unsplit plain K3)")
+    return rows
+
+
+def time_kernels(torch, index, queries, lookups_per_s):
+    """K1 and K3 at the shapes of the first main-path batch of each exec
+    mode (grouped on its first 64 queries): held there (hold_kernels, in
+    the shared-memory form), then timed (kernel_rows), with the union
+    fill of grouped and clustered mode.  Returns {mode: rows}."""
     rows = {}
     for mode, bsz in RUNS:
-        k1, k3, qt, fetch, errs, parts = hold_kernels(
-            torch, index, queries[:bsz].contiguous(), mode, "timing")
-        lx, codes, tiles = k1
+        held = hold_kernels(torch, index, queries[:bsz].contiguous(), mode,
+                            "timing", global_tables=False)
         if mode != "paged":
             log(f"timing: K1 {mode} union fill "
                 f"{union_fill(index, queries[:bsz], mode):.4f}: the share of "
                 "K1's scan positions that are union padding, clamped to "
                 "block 0, scored and never read")
-        for kid, fn, plain, args, kw, (nbytes, ops) in (
-                ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
-                 dict(query_tile=qt), k1_bound(torch, k1)),
-                ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
-                 dict(query_tile=qt, fetch=fetch),
-                 k3_bound(torch, k3, fetch))):
-            err = errs[kid]
-            ms = cuda_ms(torch, lambda: fn(*args, **kw))
-            pms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1)
-            total = sum(nbytes.values())
-            bms, by = bound_ms(total, ops)
-            rows[(kid, mode)] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
-                                     bound_by=by, max_abs_err=err)
-            log(f"timing: {kid} {mode} B={lx.shape[0]} S={tiles.shape[1]} "
-                f"QT={qt}" + (f" fetch={fetch}" if kid == "K3" else "")
-                + f": {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-                f"({by}; {total} B = {json.dumps(nbytes)}; {ops} adds); "
-                f"{ops} lookups, lookup floor "
-                f"{ops / lookups_per_s * 1e3:.4f} ms")
-        # K3's merge at this shape, held by hold_kernels
-        splits, s_per = topk_splits(*tiles.shape, codes.shape[1])
-        if parts is not None:
-            mms = cuda_ms(torch, lambda: merge_topk_kernel(*parts))
-            log(f"timing: K3 merge {mode} splits={splits} s_per={s_per}: "
-                f"{mms:.4f} ms of K3's {rows[('K3', mode)]['ms']:.4f} ms "
-                "(bitwise equal to merge_topk_ref and to the unsplit plain "
-                "K3)")
+        rows[mode] = kernel_rows(torch, held, mode, "timing", lookups_per_s)
+    return rows
+
+
+def kernel_json(rows, launches, gist_rows, gist_launches):
+    """The {"kernels": [...]} entries: K1 and K3 at the main path's first
+    paged batch, K3's merge at its first clustered batch, and the
+    global-table forms of K1 and K3 at the gist index's first paged
+    batch, with their launches on the runs that use them."""
     src = "src/repro_torch/kernels/csrc/"
     out = []
-    for kid, name, source, replaces in (
-            ("K1", "pq_scan_tiled_kernel", src + "pq_scan.cu",
-             "src/repro/kernels/pq_scan.py:112"),
-            ("K3", "pq_scan_topk_kernel", src + "pq_scan_topk.cu",
-             "src/repro/kernels/pq_scan.py:311")):
-        r = rows[(kid, "paged")]
+    for name, source, replaces, row, n in (
+            ("pq_scan_tiled_kernel", src + "pq_scan.cu",
+             "src/repro/kernels/pq_scan.py:112", rows["paged"]["K1"],
+             launches["pq_scan_tiled_kernel"]),
+            ("pq_scan_topk_kernel", src + "pq_scan_topk.cu",
+             "src/repro/kernels/pq_scan.py:311", rows["paged"]["K3"],
+             launches["pq_scan_topk_kernel"]),
+            ("merge_topk_kernel", src + "pq_scan_topk.cu",
+             "src/repro/kernels/topk.py:103", rows["clustered"]["merge"],
+             launches["merge_topk_kernel"]),
+            ("pq_scan_tiled_kernel[global tables]", src + "pq_scan.cu",
+             "src/repro/kernels/pq_scan.py:112", gist_rows["paged"]["K1"],
+             gist_launches["pq_scan_tiled_kernel"]),
+            ("pq_scan_topk_kernel[global tables]", src + "pq_scan_topk.cu",
+             "src/repro/kernels/pq_scan.py:311", gist_rows["paged"]["K3"],
+             gist_launches["pq_scan_topk_kernel"])):
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": None})
+                    "replaces": replaces, "launches": n,
+                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": None})
     return out
 
 
@@ -732,6 +868,7 @@ def main_path(torch, dev, args):
     log(f"main: exact top-10 ground truth in {time.perf_counter() - t0:.2f} s")
 
     results = {}
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     for mode, bsz in RUNS:
         for fused in (False, True):
@@ -742,6 +879,28 @@ def main_path(torch, dev, args):
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was never launched")
     check_agree(torch, results, "main")
+    # the sessions' CUDA graphs beside eager seil_search on the same
+    # batches, and one traced batch per mode
+    for mode, bsz in RUNS:
+        for fused in (False, True):
+            eager_run(torch, index, q, mode, bsz, fused,
+                      results[(mode, fused)])
+    for mode, bsz in RUNS:
+        for fused in (False, True):
+            traced_batch(torch, index, q, mode, bsz, fused)
+    # plan reuse: the same ids and counters as the plain runs, then K1
+    # and K3 held at a batch whose unions the plan cache widened
+    reuse = {}
+    for mode, bsz in REUSE_RUNS:
+        for fused in (False, True):
+            reset_launch_counts()
+            reuse[(f"{mode} plan_reuse", fused)] = search_run(
+                torch, index, q, gt, mode, bsz, fused, plan_reuse=True)
+            kern = "pq_scan_topk_kernel" if fused else "pq_scan_tiled_kernel"
+            check(launch_counts()[kern] > 0, f"plan reuse {mode} "
+                  f"fused={int(fused)} never launched {kern}")
+    check_agree(torch, {**reuse, ("paged", False): results[("paged", False)]},
+                "main, plan reuse")
     # the same index in clustered mode at query_tile=64: K1's tables
     # (256 KB) and K3's state pass a CTA's shared memory, so both run in
     # query groups
@@ -758,21 +917,73 @@ def main_path(torch, dev, args):
             f"{json.dumps(used)}")
     check_agree(torch, {**qt64, ("paged", False): results[("paged", False)]},
                 "main, clustered qt=64")
+    log(f"main: device memory with the {len(SESSIONS)} sessions' CUDA "
+        f"graphs: allocated {torch.cuda.memory_allocated() / 2 ** 30:.3f} "
+        f"GiB, reserved {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB; "
+        f"peak over the runs above (sessions, eager loops, traced "
+        f"batches) {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    held_reuse = {mode: hold_inputs(torch, reuse_inputs(torch, index, q,
+                                                        mode, bsz),
+                                    mode, "main, plan reuse",
+                                    global_tables=False)
+                  for mode, bsz in REUSE_RUNS}
+    release_sessions(torch, "main")
     held = hold_kernels(torch, index, q[:1024].contiguous(), "clustered",
-                        "main, clustered qt=64", query_tile=64)
-    return index, q, launches, held
+                        "main, clustered qt=64", global_tables=False,
+                        query_tile=64)
+    return index, q, launches, held, held_reuse
+
+
+SESSIONS = {}   # the runs' sessions, with their CUDA graphs
+
+
+def session(index, mode, bsz, fused, **params):
+    """The session of one run (``Searcher(index, params)``, what
+    ``index.searcher`` caches), kept in SESSIONS until release_sessions
+    drops it with its graphs."""
+    from repro_torch.core import SearchParams, Searcher
+    p = SearchParams(**SEARCH, exec_mode=mode, fused_topk=fused,
+                     batch_buckets=(bsz,), **params)
+    key = (id(index), p)
+    if key not in SESSIONS:
+        SESSIONS[key] = Searcher(index, p)
+    return SESSIONS[key]
+
+
+def release_sessions(torch, what):
+    """Drop every session and the device memory of its CUDA graphs
+    (their pools stay reserved, not allocated, between replays); logs
+    how much that was."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    n = len(SESSIONS)
+    SESSIONS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{what}: {n} sessions released; device memory reserved fell by "
+        f"{(before - torch.cuda.memory_reserved()) / 2 ** 30:.3f} GiB, "
+        "what their CUDA graphs held")
 
 
 def search_run(torch, index, q, gt, mode, bsz, fused, tag="main", **params):
-    """One searcher over all of ``q`` at batch size ``bsz``: the result,
-    after the recall floor and shape checks, with its log line."""
-    from repro_torch.core import SearchParams, recall_at_k
+    """One session over all of ``q`` at batch size ``bsz``, its CUDA
+    graphs captured first (``warmup``; with plan_reuse the whole width
+    ladder, ``warmup_widths``): the result, after the recall floor and
+    shape checks, with its log line (QPS and launches of the timed run
+    alone; plan stats with plan_reuse)."""
+    from repro_torch.core import recall_at_k
     from repro_torch.kernels.pq_scan import launch_counts
-    p = SearchParams(**SEARCH, exec_mode=mode, fused_topk=fused,
-                     batch_buckets=(bsz,), **params)
-    searcher = index.searcher(p, device=index.device)
-    before = launch_counts()
+    searcher = session(index, mode, bsz, fused, **params)
+    reuse = searcher.params.plan_reuse
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if reuse:
+        searcher.warmup_widths(bsz)
+    else:
+        searcher.warmup(bsz)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    before = launch_counts()
     t0 = time.perf_counter()
     res = searcher(q)
     torch.cuda.synchronize()
@@ -780,19 +991,104 @@ def search_run(torch, index, q, gt, mode, bsz, fused, tag="main", **params):
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after}
     rec = recall_at_k(res.ids.cpu().numpy(), gt)
-    qt = "" if mode == "paged" else f" QT={p.query_tile}"
-    log(f"{tag}: {mode:9s} B={bsz:4d}{qt} fused={int(fused)} "
-        f"recall@10={rec:.4f} approx_dco/q="
+    qt = "" if mode == "paged" else f" QT={searcher.params.query_tile}"
+    log(f"{tag}: {mode:9s} B={bsz:4d}{qt} fused={int(fused)}"
+        + (" plan_reuse" if reuse else "")
+        + f" recall@10={rec:.4f} approx_dco/q="
         f"{res.approx_dco.float().mean().item():.1f} refine_dco/q="
         f"{res.refine_dco.float().mean().item():.1f} "
         f"dropped/q={res.dropped_blocks.float().mean().item():.3f} "
-        f"qps={q.shape[0] / dt:.1f} launches={json.dumps(delta)}")
+        f"qps={q.shape[0] / dt:.1f} launches={json.dumps(delta)}; "
+        f"{searcher.stats.warmup_compiles} CUDA graphs captured by "
+        f"{'warmup_widths' if reuse else 'warmup'} in {warm:.2f} s before "
+        "the run")
+    if reuse:
+        st = searcher.compile_stats()
+        pl = st["plan"]
+        log(f"{tag}: {mode} fused={int(fused)} plan_reuse: hit_rate "
+            f"{pl['hit_rate']:.4f} mean_union_live "
+            f"{pl['mean_union_live']:.1f} mean_own_live "
+            f"{pl['mean_own_live']:.1f} mean_width {pl['mean_width']:.1f} "
+            f"tiles {pl['tiles']} hits {pl['hits']} extends "
+            f"{pl['extends']} misses {pl['misses']} sig_deep_split "
+            f"{pl['sig_deep_split']}; compiles {st['compiles']} "
+            f"(warmup {st['warmup_compiles']}) cache_hits "
+            f"{st['cache_hits']}")
     check(rec >= 0.5, f"recall@10 {rec} below the 0.5 floor")
     check(bool(torch.isfinite(res.dists).all()),
           "non-finite distances in a result")
     check(tuple(res.ids.shape) == (q.shape[0], 10),
           "result ids of the wrong shape")
     return res
+
+
+def eager_run(torch, index, q, mode, bsz, fused, want):
+    """A loop of eager seil_search calls over the batches the session
+    dispatched (padded alike): its QPS beside the session's graphs, and
+    the same ids and counters as the session's run ``want``."""
+    from repro_torch.core import seil_search
+    from repro_torch.core.search import SearchResult
+    p = session(index, mode, bsz, fused).params
+    kw = dict(nprobe=p.nprobe, bigk=p.bigk, k=p.k, max_scan=p.max_scan,
+              metric=index.config.metric,
+              dedup_results=index.needs_result_dedup,
+              oversample=index.result_oversample, exec_mode=mode,
+              query_tile=p.query_tile, fused_topk=fused)
+
+    def batch(s):
+        qc = q[s:s + bsz]
+        if qc.shape[0] < bsz:
+            qc = torch.cat([qc, qc.new_zeros((bsz - qc.shape[0],
+                                              q.shape[1]))])
+        return seil_search(index.arrays, index.centroids, index.codebook,
+                           index.vectors, qc, **kw)
+    batch(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [batch(s) for s in range(0, q.shape[0], bsz)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = SearchResult(*(torch.cat(a)[:q.shape[0]] for a in zip(*outs)))
+    for f in ("ids", "approx_dco", "refine_dco", "scanned_blocks",
+              "dropped_blocks"):
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"eager {mode} fused={int(fused)} disagrees with the "
+              f"session's graphs on {f}")
+    same_d = torch.equal(got.dists, want.dists)
+    sess = session(index, mode, bsz, fused)
+    qb = q[:bsz].contiguous()
+    graph_ms = cuda_ms(torch, lambda: sess(qb))
+    eager_ms = cuda_ms(torch, lambda: batch(0))
+    log(f"graphs: {mode:9s} B={bsz:4d} fused={int(fused)}: eager "
+        f"seil_search loop qps={q.shape[0] / dt:.1f} over the session's "
+        f"batches; same ids and counters as the session, distances "
+        f"{'bitwise equal' if same_d else 'not bitwise equal'}; one "
+        f"batch (CUDA events, median of 10): graph replay {graph_ms:.4f} "
+        f"ms, eager {eager_ms:.4f} ms")
+
+
+def traced_batch(torch, index, q, mode, bsz, fused):
+    """One batch of the ``mode`` session under the tracer (the eager,
+    stage-fenced dispatch): bitwise equal to the same batch through the
+    session's graph; its stage spans."""
+    from repro_torch import obs
+    sess = session(index, mode, bsz, fused)
+    qb = q[:bsz].contiguous()
+    want = sess(qb)
+    torch.cuda.synchronize()     # the first span must not wait for this
+    with obs.trace() as tr:
+        got = sess(qb)
+    for f in want._fields:
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"traced {mode} fused={int(fused)} differs from the untraced "
+              f"batch on {f}")
+    spans = {k: v for k, v in tr.stage_summary().items()
+             if k.startswith("stage.")}
+    log(f"traced: {mode:9s} B={bsz:4d} fused={int(fused)}: bitwise equal "
+        f"to the untraced batch; {tr.fences} fences; spans (ms, host clock "
+        "after a device fence): " + ", ".join(
+            f"{k} {v['mean_ms']:.4f}" for k, v in spans.items())
+        + f"; counters {json.dumps({k: v['counters'] for k, v in spans.items()})}")
 
 
 def check_agree(torch, results, what):
@@ -815,15 +1111,96 @@ def check_agree(torch, results, what):
         "bitwise)")
 
 
+def six_runs(torch, index, q, gt, tag):
+    """The six exec-mode runs of a side index and a paged run at
+    grouped's batch size, each run's launches counted alone and required:
+    the runs at one batch size must agree, and the rows where the two
+    batch sizes disagree must be explained (``batch_size_ties``).
+    Returns the summed launches."""
+    from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
+    results, total = {}, {}
+    pb, gb = dict(RUNS)["paged"], dict(RUNS)["grouped"]
+    for mode, bsz in RUNS + (("paged", gb),):
+        for fused in (False, True):
+            if (mode, bsz, fused) == ("paged", gb, True):
+                continue
+            reset_launch_counts()
+            results[(mode, bsz, fused)] = search_run(
+                torch, index, q, gt, mode, bsz, fused, tag=tag)
+            used = launch_counts()
+            kern = "pq_scan_topk_kernel" if fused else "pq_scan_tiled_kernel"
+            check(used[kern] > 0, f"{tag} {mode} fused={int(fused)} never "
+                  f"launched {kern}")
+            log(f"{tag}: {mode} B={bsz} fused={int(fused)} launches "
+                f"{json.dumps(used)}")
+            for k, n in used.items():
+                total[k] = total.get(k, 0) + n
+    for bsz in (pb, gb):
+        check_agree(torch, {("paged", False) if k == ("paged", bsz, False)
+                            else k: r for k, r in results.items()
+                            if k[1] == bsz}, f"{tag}, B={bsz}")
+    batch_size_ties(torch, index, q, results[("paged", pb, False)],
+                    results[("paged", gb, False)], pb, gb, tag)
+    release_sessions(torch, tag)
+    return total
+
+
+def batch_size_ties(torch, index, q, a, b, bsz_a, bsz_b, what):
+    """Runs at two batch sizes may disagree only on queries whose stage-1
+    selection differs between them, and only where the centroid
+    distances of the first two lists that swap differ by no more than
+    the two batch sizes' matmuls round that query's distances apart
+    (twice the largest difference between its two computed distance
+    rows): a matmul of another batch size may round the other way.
+    Logs the count and the largest such gap."""
+    from repro_torch.core.engine import select_lists
+    from repro_torch.core.kmeans import pairwise_sq_l2
+    p = session(index, "paged", bsz_a, False).params
+    n = q.shape[0]
+
+    def stage1(bsz):
+        sels, cds = [], []
+        for s in range(0, n, bsz):
+            qc = q[s:s + bsz]
+            qc = torch.cat([qc, qc.new_zeros((bsz - qc.shape[0],
+                                              q.shape[1]))])
+            sels.append(select_lists(qc, index.centroids,
+                                     nprobe=p.nprobe).sel)
+            cds.append(pairwise_sq_l2(qc, index.centroids))
+        return torch.cat(sels)[:n], torch.cat(cds)[:n]
+    (sa, ca), (sb, cb) = stage1(bsz_a), stage1(bsz_b)
+    differ = ((a.ids != b.ids).any(dim=1) | (a.approx_dco != b.approx_dco)
+              | (a.refine_dco != b.refine_dco)
+              | (a.scanned_blocks != b.scanned_blocks))
+    sel_differ = (sa != sb).any(dim=1)
+    check(not bool((differ & ~sel_differ).any()),
+          f"{what}: B={bsz_a} and B={bsz_b} disagree on queries whose "
+          "stage-1 selections agree")
+    worst = 0.0
+    for r in torch.nonzero(sel_differ).flatten().tolist():
+        j = int(torch.nonzero(sa[r] != sb[r])[0])
+        da, db = ca[r, sa[r, j].long()].item(), ca[r, sb[r, j].long()].item()
+        noise = (ca[r] - cb[r]).abs().max().item()
+        check(abs(da - db) <= 2 * noise,
+              f"{what}: query {r} selects list {int(sa[r, j])} or "
+              f"{int(sb[r, j])} at rank {j}, {da} against {db}, beyond the "
+              f"rounding {noise} between the batch sizes: not a tie")
+        worst = max(worst, abs(da - db) / max(abs(da), 1e-30))
+    log(f"{what}: B={bsz_a} and B={bsz_b} runs disagree on "
+        f"{int(differ.sum())} of {n} queries, each a stage-1 near-tie "
+        f"({int(sel_differ.sum())} queries select lists in another order "
+        "at the two batch sizes, each swap within the rounding between "
+        f"them; largest relative gap {worst:.2e})")
+
+
 def nbits8_path(torch, dev, seed, lookups_per_s):
     """An nbits=8 index (PQ64x8: 64 KB of tables per query) built on the
     card and searched in every exec mode, fused off and on; at
     query_tile 8 K1's and K3's tables pass a CTA's shared memory, so
-    they run in query groups.  Each run's launches are counted alone.
-    Then K1 and K3 are held and timed at each mode's first batch."""
+    they run in query groups.  Then K1 and K3 are held and timed at each
+    mode's first batch."""
     from repro_torch.core import IndexConfig, build_index, ground_truth
     from repro_torch.data import make_dataset
-    from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
     x, q, _ = make_dataset("sift1m", seed, n=NBITS8_N, n_queries=1024,
                            device=dev)
     t0 = time.perf_counter()
@@ -833,25 +1210,42 @@ def nbits8_path(torch, dev, seed, lookups_per_s):
     gt = ground_truth(x, q, 10, device=dev)
     log(f"nbits8: sift1m-shaped n={x.shape[0]} IVF1024 PQ64x8 built in "
         f"{time.perf_counter() - t0:.2f} s")
-    results = {}
-    for mode, bsz in RUNS:
-        for fused in (False, True):
-            reset_launch_counts()
-            results[(mode, fused)] = search_run(torch, index, q, gt, mode,
-                                                bsz, fused, tag="nbits8")
-            used = launch_counts()
-            kern = "pq_scan_topk_kernel" if fused else "pq_scan_tiled_kernel"
-            check(used[kern] > 0, f"nbits8 {mode} fused={int(fused)} never "
-                  f"launched {kern}")
-            log(f"nbits8: {mode} fused={int(fused)} launches "
-                f"{json.dumps(used)}")
-    check_agree(torch, results, "nbits8")
-    del results
+    six_runs(torch, index, q, gt, "nbits8")
     for mode, bsz in RUNS:
         held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
-                            "nbits8")
+                            "nbits8", global_tables=False)
         time_held(torch, held, f"timing: nbits8 {mode}", lookups_per_s)
         del held
+
+
+def gist_path(torch, dev, seed, lookups_per_s):
+    """A gist-shaped index (50,000 x 256, IVF1024, PQ256x8: 256 KB of
+    tables per query, more than a CTA's shared memory) built on the card
+    and searched in every exec mode, fused off and on: K1 and K3 run in
+    their global-table form.  Then both are held at each mode's first
+    batch, in that form, and timed beside their plain versions, bounds
+    and lookup floors.  Returns ({mode: rows}, launches of the six
+    runs)."""
+    from repro_torch.core import IndexConfig, build_index, ground_truth
+    from repro_torch.data import make_dataset
+    x, q, _ = make_dataset("gist", seed, device=dev)
+    t0 = time.perf_counter()
+    index = build_index(x, IndexConfig(**GIST_INDEX),
+                        generator=torch.Generator().manual_seed(seed),
+                        device=dev)
+    gt = ground_truth(x, q, 10, device=dev)
+    log(f"gist: gist-shaped n={x.shape[0]} d={x.shape[1]} "
+        f"queries={q.shape[0]} IVF1024 PQ256x8 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches = six_runs(torch, index, q, gt, "gist")
+    rows = {}
+    for mode, bsz in RUNS:
+        held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
+                            "gist", global_tables=True)
+        rows[mode] = kernel_rows(torch, held, mode, "timing: gist",
+                                 lookups_per_s)
+        del held
+    return rows, launches
 
 
 def ip_path(torch, dev, seed):
@@ -942,18 +1336,22 @@ def main() -> int:
                 log(f"build: {stem}: {line.strip()}")
 
     check_kernels(torch, dev, args.seed)
-    index, q, launches, held = main_path(torch, dev, args)
+    index, q, launches, held, held_reuse = main_path(torch, dev, args)
     rate = lookup_rate(torch)
     time_held(torch, held, "timing: clustered qt=64", rate)
-    del held
-    kernels = time_kernels(torch, index, q[:1024].contiguous(), launches,
-                           rate)
+    for mode, h in held_reuse.items():
+        time_held(torch, h, f"timing: plan reuse {mode}", rate)
+    del held, held_reuse
+    rows = time_kernels(torch, index, q[:1024].contiguous(), rate)
     stage_breakdown(torch, index, q[:1024].contiguous())
     del index
+    gc.collect()
     torch.cuda.empty_cache()
     ip_path(torch, dev, args.seed)
     nbits8_path(torch, dev, args.seed, rate)
+    gist_rows, gist_launches = gist_path(torch, dev, args.seed, rate)
     small_reference(torch, dev, args.seed)
+    kernels = kernel_json(rows, launches, gist_rows, gist_launches)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

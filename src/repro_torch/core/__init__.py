@@ -10,5 +10,5 @@ from .params import (MAX_AUTO_BUCKET, RefineParams,  # noqa: F401
                      SearchParams)
 from .pq import PQCodebook, pq_encode, pq_lut, pq_lut_ip, pq_train  # noqa
 from .search import SearchResult, finalize_fetch, seil_search  # noqa: F401
-from .searcher import Searcher, SearcherStats  # noqa: F401
+from .searcher import PlanStats, Searcher, SearcherStats  # noqa: F401
 from .seil import SeilArrays, SeilStats, build_seil  # noqa: F401

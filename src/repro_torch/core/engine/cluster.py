@@ -1,23 +1,40 @@
-"""Query-tile clustering and tile unions — the device half of the
-reference's locality-aware planner (``repro/core/engine/cluster.py``).
+"""Query-tile clustering and tile unions — the locality-aware planner
+(counterpart of ``repro/core/engine/cluster.py``).
 
-``cluster_order`` buckets a batch by probed-list overlap with a stable
-lexicographic sort over the first ``CLUSTER_DEPTH`` probe ranks;
-``tile_unions`` builds one sorted, duplicate-free block union per query
-tile.  Every valid planned block of a query lies in its tile's union,
-so the sorted-union ``searchsorted`` scatter recovers exactly the paged
-distances.
+Device half (torch): ``cluster_order`` buckets a batch by probed-list
+overlap with a stable lexicographic sort over the first
+``CLUSTER_DEPTH`` probe ranks; ``tile_unions`` builds one sorted,
+duplicate-free block union per query tile.
+
+Host half (numpy, driven by ``Searcher`` with ``plan_reuse``):
+``merge_unions_host`` lets adjacent batches reuse (hit), extend or
+replace (miss) the previous unions of a tile, ``plan_width`` picks the
+smallest geometric width bucket covering the live entries (the scan
+executable's dispatch width, ``width_buckets`` lists them all), and
+``tile_signatures`` names each tile by what it probes, so the plan cache
+follows the working set when a tile boundary moves.
+
+Every valid planned block of a query lies in its tile's union (reused
+or not), so the sorted-union ``searchsorted`` scatter recovers exactly
+the paged distances.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .types import BIG
 
 # probe ranks participating in the cluster signature
 CLUSTER_DEPTH = 4
+
+# incremental-plan cache tightness: a cached union may outgrow the
+# batch's own working set by at most this factor (x own live entries)
+# before it is rebuilt
+EXTEND_SLACK = 2.0
+_MIN_UNION = 32
 
 
 def fit_tile(b: int, query_tile: int) -> int:
@@ -66,6 +83,99 @@ def tile_unions(blocks: torch.Tensor, valid: torch.Tensor, n_tiles: int,
     return torch.sort(uniq, dim=1).values[:, :width].contiguous()
 
 
-def union_live(unions: torch.Tensor) -> torch.Tensor:
-    """(T, W) BIG-padded unions -> (T,) live entry counts."""
-    return (unions < BIG).sum(dim=1)
+def union_live(unions):
+    """(T, W) BIG-padded unions, a numpy array or a tensor -> (T,) live
+    entry counts of the same kind."""
+    return (unions < BIG).sum(axis=1)
+
+
+def plan_width(live_max: int, width_cap: int) -> int:
+    """Smallest width bucket covering ``live_max`` entries (the scan
+    executable's dispatch width), capped at the static worst case; the
+    buckets grow by 1.5x."""
+    w = _MIN_UNION
+    while w < live_max:
+        w = w * 3 // 2
+    return min(w, width_cap)
+
+
+def width_buckets(width_cap: int) -> list:
+    """Every dispatch width ``plan_width`` can produce for one static
+    ``width_cap``: the 1.5x ladder clipped to the cap (what
+    ``Searcher.warmup_widths`` captures)."""
+    out = set()
+    w = _MIN_UNION
+    while w < width_cap:
+        out.add(w)
+        w = w * 3 // 2
+    out.add(width_cap)
+    return sorted(out)
+
+
+def tile_signatures(lead_lists: np.ndarray, deep=None) -> list:
+    """Stable identity keys for a batch's tiles, from the rank-0 probed
+    list of each tile's first query (in cluster order): ``(lead list,
+    run index)``, the run index separating consecutive tiles anchored on
+    the same list.  ``deep`` (T, P), the full ranked probe row of each
+    tile-lead query, widens the key with the probe prefix beyond the lead
+    (ranks 1..CLUSTER_DEPTH-1): ``(lead, prefix, run)``."""
+    leads = np.asarray(lead_lists).tolist()
+    if deep is not None:
+        d = np.asarray(deep)
+        depth = min(CLUSTER_DEPTH, d.shape[1])
+        fps = [tuple(r) for r in d[:, 1:depth].tolist()]
+        sig = []
+        run = 0
+        for i, key in enumerate(zip(leads, fps)):
+            run = run + 1 if i and key == sig[-1][:2] else 0
+            sig.append((key[0], key[1], run))
+        return sig
+    sig = []
+    run = 0
+    for i, lst in enumerate(leads):
+        run = run + 1 if i and lst == sig[-1][0] else 0
+        sig.append((lst, run))
+    return sig
+
+
+def merge_unions_host(cached: Optional[np.ndarray], own: np.ndarray,
+                      present: Optional[np.ndarray] = None
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Incremental-plan merge (host numpy, per dispatch bucket).
+
+    cached/own: (T, W) sorted BIG-padded unions.  Per tile:
+      * hit    — own is in cached and the cache is still tight (within
+        ``EXTEND_SLACK`` x this batch's own live entries): reuse it;
+      * extend — the merged live entries fit the width and the
+        tightness bound: the cache grows;
+      * miss   — cold cache, width overflow, or a bloated cache: this
+        batch's own union replaces it.
+    ``present`` masks rows that had a cached union (rows of first-seen
+    tiles are BIG-filled and must count as misses).  Returns ``(used,
+    hit, extend)``, used (T, W) the unions to scan and cache; every path
+    keeps own in used.
+    """
+    t, w = own.shape
+    big = int(BIG)
+    if cached is None:
+        return own, np.zeros(t, bool), np.zeros(t, bool)
+    cat = np.concatenate([cached, own], axis=1)
+    srt = np.sort(cat, axis=1)
+    keep = srt < big
+    keep[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    live_merged = keep.sum(axis=1)
+    tight = live_merged <= np.maximum(
+        (union_live(own) * EXTEND_SLACK).astype(np.int64), _MIN_UNION)
+    hit = (live_merged == union_live(cached)) & tight  # own added nothing
+    fits = (live_merged <= w) & tight
+    if present is not None:
+        hit &= present
+        fits &= present
+    merged = np.full((t, w), big, srt.dtype)
+    rows = np.nonzero(keep)[0]
+    cols = (np.cumsum(keep, axis=1) - 1)[keep]
+    sel = cols < w                                    # overflow rows ignored
+    merged[rows[sel], cols[sel]] = srt[keep][sel]
+    used = np.where(hit[:, None], cached,
+                    np.where(fits[:, None], merged, own))
+    return used, hit, fits & ~hit

@@ -12,7 +12,8 @@ mode; the kernel iterates scan positions (plan slots in paged mode,
 sorted-union positions in grouped/clustered), so the plan layout rides
 along as two (B, S) sidecars built here: ``slot_of`` (the plan slot at
 that position, -1 if the query does not plan it) and ``rank_u`` (its
-probe rank).
+probe rank).  Callers holding incremental plans pass ``perm`` /
+``unions`` as to ``scan_blocks``.
 """
 from __future__ import annotations
 
@@ -53,10 +54,12 @@ def plan_slot_maps(blocks: torch.Tensor, ranks: torch.Tensor,
 
 
 def fused_scan_args(store: BlockStore, plan: QueryPlan, lut, rank_of, *,
-                    exec_mode: str, query_tile: int, sel):
+                    exec_mode: str, query_tile: int, sel, perm=None,
+                    unions=None):
     """K3's per-exec-mode inputs: ``(lut, tile_idx, rank_of, slot_of,
     rank_u, query_tile, inv)`` with rows in scan order; ``inv`` (or
-    None) restores the batch order of the outputs."""
+    None) restores the batch order of the outputs.  ``perm`` / ``unions``
+    as in ``scan_blocks``."""
     b, s = plan.blocks.shape
     if exec_mode == "paged":
         # scan position == plan slot; every query pages its own list
@@ -66,17 +69,20 @@ def fused_scan_args(store: BlockStore, plan: QueryPlan, lut, rank_of, *,
         return lut, plan.blocks, rank_of, slot_of, plan.ranks, 1, None
     if exec_mode == "grouped":
         qt = fit_tile(b, query_tile)
-        union = batch_union(plan, store.block_codes.shape[0])      # (U,)
+        union = (batch_union(plan, store.block_codes.shape[0])
+                 if unions is None else unions[0])                # (U,)
         tile_idx = _safe(union)[None, :].expand(b // qt, union.shape[0])
         slot_of, rank_u = plan_slot_maps(plan.blocks, plan.ranks,
                                          plan.valid, union[None, :])
         return lut, tile_idx, rank_of, slot_of, rank_u, qt, None
     # clustered: per-tile unions in probe-overlap order, then un-permute
-    perm = cluster_order(sel).long()
+    perm = (cluster_order(sel) if perm is None else perm).long()
     pb, pr, pv = plan.blocks[perm], plan.ranks[perm], plan.valid[perm]
-    t, w = union_dims(b, s, store.block_codes.shape[0], "clustered",
-                      query_tile)
-    unions = tile_unions(pb, pv, t, w)
+    if unions is None:
+        t, w = union_dims(b, s, store.block_codes.shape[0], "clustered",
+                          query_tile)
+        unions = tile_unions(pb, pv, t, w)
+    t = unions.shape[0]
     slot_of, rank_u = plan_slot_maps(pb, pr, pv, unions)
     return (lut[perm], _safe(unions), rank_of[perm], slot_of, rank_u,
             b // t, torch.argsort(perm))
@@ -85,10 +91,12 @@ def fused_scan_args(store: BlockStore, plan: QueryPlan, lut, rank_of, *,
 def scan_blocks_topk(store: BlockStore, plan: QueryPlan, lut: torch.Tensor,
                      rank_of: torch.Tensor, *, fetch: int,
                      exec_mode: str = "paged", query_tile: int = 8, sel=None,
-                     live=None, packed: bool = False) -> ScanOut:
+                     perm=None, unions=None, live=None,
+                     packed: bool = False) -> ScanOut:
     """Fused scan + stable top-``fetch`` (see the module docstring).
     ``fetch`` is the candidate budget finalize needs (``finalize_fetch``);
-    ``live`` an optional tombstone mask over the id space."""
+    ``perm`` / ``unions`` as in ``scan_blocks``; ``live`` an optional
+    tombstone mask over the id space."""
     if exec_mode not in EXEC_MODES:
         raise ValueError(f"exec_mode must be one of {EXEC_MODES}, got "
                          f"{exec_mode!r}")
@@ -100,7 +108,7 @@ def scan_blocks_topk(store: BlockStore, plan: QueryPlan, lut: torch.Tensor,
         dead = ((ids >= 0) & ~live[ids.clamp_min(0).long()]).to(torch.uint8)
     lut_x, tile_idx, rank_x, slot_of, rank_u, qt, inv = fused_scan_args(
         store, plan, lut, rank_of, exec_mode=exec_mode,
-        query_tile=query_tile, sel=sel)
+        query_tile=query_tile, sel=sel, perm=perm, unions=unions)
     d, _, ids, dco = ops.pq_scan_topk(
         lut_x, store.block_codes, store.block_ids, store.block_other,
         tile_idx, rank_x, slot_of, rank_u, dead, fetch=fetch, query_tile=qt,

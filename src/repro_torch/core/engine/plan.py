@@ -39,12 +39,13 @@ def gather_candidates(tables: ListTables, selection: ListSelection
                          ).reshape(other_list.shape)
         return (other_list >= 0) & (r < t)
 
-    neg = torch.tensor(-1, dtype=torch.int32, device=sel.device)
     # reference entries: skip if the home list was scanned earlier (Alg. 5 L7)
-    refs = torch.where(visited_earlier(refs_other), neg, refs)
+    # (a Python -1, not a tensor made from one: that copy from the host
+    # would synchronize, and a session captures this stage in a CUDA graph)
+    refs = torch.where(visited_earlier(refs_other), -1, refs)
     # home shared blocks: skip if the co-assigned list was scanned earlier
     # (cell-level compute-once in both directions, as the reference does)
-    owned = torch.where(visited_earlier(owned_other), neg, owned)
+    owned = torch.where(visited_earlier(owned_other), -1, owned)
 
     def flat(tbl):
         return tbl.reshape(bq, -1)

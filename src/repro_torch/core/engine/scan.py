@@ -9,7 +9,10 @@
 Grouped and clustered scatter the per-query distances back into the
 plan layout through a sorted-union ``searchsorted``, so masks, DCO and
 top-k downstream are the same computation as paged and the results are
-bitwise identical.  The scan always goes through ``kernels/ops.py``: on
+bitwise identical.  Callers holding incremental plans (``Searcher`` with
+``plan_reuse``) pass ``perm`` / ``unions`` explicitly, possibly width-
+bucketed and widened with an earlier batch's unions; otherwise both are
+derived here.  The scan always goes through ``kernels/ops.py``: on
 CUDA tensors that launches the kernel, on CPU tensors the plain version.
 
 Item-level masks (all modes): invalid slots, and misc items whose
@@ -40,9 +43,10 @@ def _safe(u: torch.Tensor) -> torch.Tensor:
 
 
 def _scan_grouped(store: BlockStore, plan: QueryPlan, lut, query_tile: int,
-                  packed: bool):
+                  packed: bool, union=None):
     b, s = plan.blocks.shape
-    union = batch_union(plan, store.block_codes.shape[0])       # (U,)
+    if union is None:
+        union = batch_union(plan, store.block_codes.shape[0])   # (U,)
     dists_u = ops.pq_scan_grouped(lut, store.block_codes, _safe(union),
                                   query_tile=fit_tile(b, query_tile),
                                   packed=packed)                # (B, U, BLK)
@@ -52,15 +56,17 @@ def _scan_grouped(store: BlockStore, plan: QueryPlan, lut, query_tile: int,
 
 
 def _scan_clustered(store: BlockStore, plan: QueryPlan, lut, query_tile: int,
-                    sel, packed: bool):
+                    sel, packed: bool, perm=None, unions=None):
     """Per-tile-union scan in cluster order; returns (B, S, BLK) dists in
     the original batch order."""
     b, s = plan.blocks.shape
-    perm = cluster_order(sel).long()
+    perm = (cluster_order(sel) if perm is None else perm).long()
     pb = plan.blocks[perm]                                      # (B, S)
-    t, w = union_dims(b, s, store.block_codes.shape[0], "clustered",
-                      query_tile)
-    unions = tile_unions(pb, plan.valid[perm], t, w)            # (T, W)
+    if unions is None:
+        t, w = union_dims(b, s, store.block_codes.shape[0], "clustered",
+                          query_tile)
+        unions = tile_unions(pb, plan.valid[perm], t, w)        # (T, W)
+    t, w = unions.shape
     qt = b // t
     d_u = ops.pq_scan_tiled(lut[perm], store.block_codes, _safe(unions),
                             query_tile=qt, packed=packed)       # (B, W, BLK)
@@ -72,22 +78,27 @@ def _scan_clustered(store: BlockStore, plan: QueryPlan, lut, query_tile: int,
 
 def scan_blocks(store: BlockStore, plan: QueryPlan, lut: torch.Tensor,
                 rank_of: torch.Tensor, *, exec_mode: str = "paged",
-                query_tile: int = 8, sel=None,
+                query_tile: int = 8, sel=None, perm=None, unions=None,
                 packed: bool = False) -> ScanOut:
     """ADC distances + item masks + DCO for the planned blocks.
 
     lut (B, M, K) per-query tables; rank_of (B, nlist); ``sel`` (the
-    stage-1 ranked lists) is required by ``"clustered"``.  ``packed``
-    marks ``store.block_codes`` as a nibble-packed plane.
+    stage-1 ranked lists) is required by ``"clustered"`` unless ``perm``
+    / ``unions`` (T, W) come from a caller holding incremental plans;
+    ``unions`` alone overrides the batch union of ``"grouped"`` (one
+    row).  ``packed`` marks ``store.block_codes`` as a nibble-packed
+    plane.
     """
     if exec_mode not in EXEC_MODES:
         raise ValueError(f"exec_mode must be one of {EXEC_MODES}, got "
                          f"{exec_mode!r}")
     bq = plan.blocks.shape[0]
     if exec_mode == "grouped":
-        dists = _scan_grouped(store, plan, lut, query_tile, packed)
+        dists = _scan_grouped(store, plan, lut, query_tile, packed,
+                              union=None if unions is None else unions[0])
     elif exec_mode == "clustered":
-        dists = _scan_clustered(store, plan, lut, query_tile, sel, packed)
+        dists = _scan_clustered(store, plan, lut, query_tile, sel, packed,
+                                perm=perm, unions=unions)
     else:
         dists = ops.pq_scan_paged(lut, store.block_codes, plan.blocks,
                                   packed=packed)

@@ -51,6 +51,18 @@ class QueryPlan(NamedTuple):
     dropped: torch.Tensor   # (B,) int32 candidates lost to the budget
 
 
+class PlanProbe(NamedTuple):
+    """Probe-half output of the split pipeline (``plan_reuse`` sessions,
+    core/searcher.py): everything the scan + finalize half consumes, and
+    this batch's own tile unions for the host plan cache."""
+    sel: torch.Tensor       # (B, P) int32 ranked probed lists
+    rank_of: torch.Tensor   # (B, nlist) int32 probe ranks
+    lut: torch.Tensor       # (B, M, K) f32 per-query ADC tables
+    plan: QueryPlan
+    perm: torch.Tensor      # (B,) int32 cluster order (identity for grouped)
+    unions: torch.Tensor    # (T, W) int32 sorted tile unions, BIG pad
+
+
 class ScanOut(NamedTuple):
     """Stage-3 output: flat per-item candidate distances (inf = masked)."""
     flat_d: torch.Tensor          # (B, S*BLK) f32

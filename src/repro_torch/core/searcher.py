@@ -1,4 +1,5 @@
-"""Search sessions — the query-side public API.
+"""Search sessions — the query-side public API (counterpart of
+``repro/core/searcher.py``).
 
 A ``Searcher`` binds one ``RairsIndex`` to one ``SearchParams``.  A
 batch is padded with zero rows up to its dispatch bucket (powers of two,
@@ -6,63 +7,319 @@ or ``batch_buckets``); batches larger than the biggest bucket are cut
 into chunks and the results concatenated.  Every stage is per query, so
 the first B rows of a padded batch are the rows of the padded run.
 
-PyTorch runs eagerly, so a session compiles nothing; it fixes the
-resolved params and counts calls, dispatches and padded rows.  Plan
-reuse and the two-tier refine are not ported yet and raise.
+Each bucket dispatches to a cached executable (``core/graphs.py``): on
+the card a CUDA graph, captured at first use or in ``warmup`` /
+``warmup_widths``; on the CPU the eager function.  The keys are the
+reference's: ``bucket`` for the whole pipeline (``seil_search``), and
+with ``plan_reuse`` ``("probe", bucket)`` for stages 1-2 plus the
+batch's own unions (``probe_plan``) and ``("scan", bucket, width)`` for
+stages 3-4 at one union-width bucket (``scan_finalize``).  So the same
+traffic gives the same ``compiles``, ``cache_hits`` and ``buckets`` as
+the reference.
+
+With ``plan_reuse`` a batch runs probe -> host plan-cache merge -> scan:
+each tile's union is merged with the one cached under the tile's
+signature (``engine/cluster.py``), and the scan runs at the smallest
+width bucket covering the live entries.  While a tracer is active
+(``obs/``) the whole-pipeline dispatch goes through the stage-fenced
+``seil_search_traced`` instead, and the plan-reuse dispatch fences its
+probe / merge / scan boundaries; results stay bitwise equal.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from .. import obs
+from .engine import (BIG, merge_unions_host, plan_width, tile_signatures,
+                     union_live, width_buckets)
+from .graphs import GraphExe
 from .params import SearchParams
-from .search import SearchResult, seil_search
+from .search import (SearchResult, probe_plan, scan_finalize, seil_search,
+                     seil_search_traced)
 
 
 @dataclasses.dataclass
 class SearcherStats:
-    """Dispatch accounting for one session."""
+    """Compile/dispatch accounting for one session."""
+    compiles: int = 0        # executables built (CUDA graphs captured)
+    warmup_compiles: int = 0  # of which paid up-front by warmup /
+                              # warmup_widths, not by live traffic
     calls: int = 0           # searcher invocations
     dispatches: int = 0      # chunk dispatches (>= calls)
+    cache_hits: int = 0      # executable fetches served from the cache
+                             # (plan_reuse chunks fetch two: probe + scan)
     padded_rows: int = 0     # total pad rows added across dispatches
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
 
 
+@dataclasses.dataclass
+class PlanStats:
+    """Incremental-plan accounting (``SearchParams.plan_reuse``).
+
+    A tile is one block union (the whole batch for ``grouped``, one
+    query tile for ``clustered``); every dispatched batch classifies each
+    of its tiles as hit (own union covered by the cache), extend (cache
+    grew, still fits the width) or miss (first sight / overflow, cache
+    replaced)."""
+    batches: int = 0          # probe->scan dispatches
+    tiles: int = 0            # unions processed (batches x tiles/batch)
+    hits: int = 0             # reused unchanged
+    extends: int = 0          # merged into the cache
+    misses: int = 0           # replaced (cold cache or width overflow)
+    union_live_sum: int = 0   # live entries actually scanned (per tile)
+    own_live_sum: int = 0     # live entries this batch needed (per tile)
+    width_sum: int = 0        # dispatched union-width buckets (per tile)
+    sig_deep_split: int = 0   # tiles the deep signature separated from a
+                              # neighbour sharing its lead list
+
+    def summary(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        t = max(self.tiles, 1)
+        d["hit_rate"] = self.hits / t
+        d["mean_union_live"] = self.union_live_sum / t
+        d["mean_own_live"] = self.own_live_sum / t
+        d["mean_width"] = self.width_sum / t
+        return d
+
+
 class Searcher:
     """A search session over one index (create via
     ``RairsIndex.searcher(params)``).  Calling it with a (B, D) query
-    batch returns a ``SearchResult`` of tensors on the index's device."""
+    batch returns a ``SearchResult`` of tensors on the index's device;
+    ``stats`` counts executables and dispatches, ``buckets`` lists the
+    batch sizes with an executable."""
 
     def __init__(self, index, params: SearchParams):
         if not isinstance(params, SearchParams):
             raise TypeError(f"params must be SearchParams, got {type(params)}")
-        if params.plan_reuse:
-            raise NotImplementedError(
-                "plan_reuse is not ported yet: ROADMAP.md Queue 1, 'plan "
-                "reuse, warmup, traced stages and CUDA graphs in sessions'")
         if params.refine is not None:
             raise NotImplementedError(
-                "refine is not ported yet: ROADMAP.md Queue 1, "
-                "'quantization ladder'")
+                "refine is not ported yet: ROADMAP.md Queue 1, item 4 "
+                "(quantization ladder)")
         self.index = index
         self.params = params.resolve(index)
         self.stats = SearcherStats()
+        self.plan_stats = PlanStats()
+        self._compiled: Dict[Any, Any] = {}
+        # per dispatch bucket, a signature-keyed map of cached tile unions
+        # ((list, run) -> (W,) row), LRU-bounded
+        self._plan_cache: Dict[int, "collections.OrderedDict"] = {}
+        on_card = index.device.type == "cuda"
+        self._pool = torch.cuda.graph_pool_handle() if on_card else None
 
-    def _dispatch(self, qc: torch.Tensor) -> SearchResult:
+    @property
+    def buckets(self):
+        """Batch-size buckets with an executable, ascending."""
+        return tuple(sorted({k if isinstance(k, int) else k[1]
+                             for k in self._compiled}))
+
+    def compile_stats(self) -> Dict[str, Any]:
+        d = self.stats.as_dict()
+        d["buckets"] = list(self.buckets)
+        if self.params.plan_reuse:
+            d["plan"] = self.plan_stats.summary()
+        return d
+
+    # -- the three executables --------------------------------------------
+    def _search_kw(self) -> dict:
+        p, idx = self.params, self.index
+        return dict(bigk=p.bigk, k=p.k, metric=idx.config.metric,
+                    dedup_results=idx.needs_result_dedup,
+                    oversample=idx.result_oversample, exec_mode=p.exec_mode,
+                    query_tile=p.query_tile, fused_topk=p.fused_topk)
+
+    def _probe_kw(self) -> dict:
         p = self.params
+        return dict(nprobe=p.nprobe, max_scan=p.max_scan,
+                    metric=self.index.config.metric, exec_mode=p.exec_mode,
+                    query_tile=p.query_tile)
+
+    def _zeros(self, bucket: int) -> torch.Tensor:
         idx = self.index
-        self.stats.dispatches += 1
-        return seil_search(
+        return torch.zeros((bucket, idx.vectors.shape[1]),
+                           dtype=torch.float32, device=idx.device)
+
+    def _make(self, fn, inputs, clone: bool = True):
+        """``fn`` as an executable: a CUDA graph over the static
+        ``inputs`` on the card, the eager function on the CPU."""
+        if self._pool is None:
+            return fn
+        return GraphExe(fn, inputs, pool=self._pool, clone=clone)
+
+    def _get_exe(self, key, make):
+        hit = key in self._compiled
+        if not hit:
+            with obs.span("searcher.compile", cat="compile", key=str(key)):
+                self._compiled[key] = make()
+            self.stats.compiles += 1
+        else:
+            self.stats.cache_hits += 1
+        return self._compiled[key]
+
+    def _executable(self, bucket: int):
+        """The whole pipeline for one bucket."""
+        idx = self.index
+        kw = dict(self._search_kw(), nprobe=self.params.nprobe,
+                  max_scan=self.params.max_scan)
+
+        def fn(q):
+            return seil_search(idx.arrays, idx.centroids, idx.codebook,
+                               idx.vectors, q, **kw)
+        return self._get_exe(bucket,
+                             lambda: self._make(fn, (self._zeros(bucket),)))
+
+    def _probe_exe(self, bucket: int):
+        """Stages 1-2 and the batch's own unions for one bucket; returns
+        ``(queries, PlanProbe)``, the scan executable's first inputs."""
+        idx = self.index
+        kw = self._probe_kw()
+
+        def fn(q):
+            return q, probe_plan(idx.arrays, idx.centroids, idx.codebook, q,
+                                 **kw)
+        return self._get_exe(
+            ("probe", bucket),
+            lambda: self._make(fn, (self._zeros(bucket),), clone=False))
+
+    def _scan_exe(self, bucket: int, qp, pr, width: int):
+        """Stages 3-4 for one bucket at one union width, reading the
+        probe executable's outputs ``(qp, pr)``."""
+        idx = self.index
+        kw = self._search_kw()
+
+        def fn(q, probe, unions):
+            return scan_finalize(idx.arrays, idx.vectors, q, probe, unions,
+                                 **kw)
+
+        def make():
+            unions = torch.full((pr.unions.shape[0], width), BIG,
+                                dtype=pr.unions.dtype, device=idx.device)
+            return self._make(fn, (qp, pr, unions))
+        return self._get_exe(("scan", bucket, width), make)
+
+    # -- dispatch ---------------------------------------------------------
+    def _dispatch_traced(self, qc: torch.Tensor) -> SearchResult:
+        """The stage-fenced pipeline, run while a tracer is active."""
+        p, idx = self.params, self.index
+        return seil_search_traced(
             idx.arrays, idx.centroids, idx.codebook, idx.vectors, qc,
-            nprobe=p.nprobe, bigk=p.bigk, k=p.k, max_scan=p.max_scan,
-            metric=idx.config.metric, dedup_results=idx.needs_result_dedup,
-            oversample=idx.result_oversample, exec_mode=p.exec_mode,
-            query_tile=p.query_tile, fused_topk=p.fused_topk)
+            nprobe=p.nprobe, max_scan=p.max_scan, **self._search_kw())
+
+    def _dispatch(self, bucket: int, qc: torch.Tensor) -> SearchResult:
+        """One padded chunk through the whole-pipeline executable, or
+        through probe -> plan-cache merge -> scan."""
+        self.stats.dispatches += 1
+        if not self.params.plan_reuse:
+            if obs.enabled():
+                return self._dispatch_traced(qc)
+            return self._executable(bucket)(qc)
+        qp, pr, unions_w = self._probe_merge(bucket, qc)
+        wp = unions_w.shape[1]
+        scan = self._scan_exe(bucket, qp, pr, wp)
+        with obs.span("stage.scan_finalize", cat="device", bucket=bucket,
+                      width=wp):
+            return obs.fence(scan(qp, pr, unions_w))
+
+    def _probe_merge(self, bucket: int, qc: torch.Tensor):
+        """Probe a padded chunk and merge its tile unions with the plan
+        cache: ``(qp, pr, unions)``, the scan's inputs (on the card
+        ``qp`` and ``pr`` are the probe graph's outputs, valid until its
+        next replay)."""
+        probe = self._probe_exe(bucket)
+        with obs.span("stage.probe_plan", cat="device", bucket=bucket):
+            qp, pr = obs.fence(probe(qc))
+        with obs.span("stage.merge_unions_host", cat="host") as msp:
+            own = pr.unions.cpu().numpy()
+            t, w = own.shape
+            deep_split = 0
+            if t == 1:                 # grouped: one batch-wide union
+                sigs = [(0, 0)]
+            else:                      # clustered: name tiles by working set
+                rows = (pr.sel.cpu().numpy()[pr.perm.cpu().numpy()]
+                        [::bucket // t])
+                sigs = tile_signatures(rows[:, 0], deep=rows)
+                deep_split = (len({(s[0], s[1]) for s in sigs})
+                              - len({s[0] for s in sigs}))
+            cache = self._plan_cache.setdefault(bucket,
+                                                collections.OrderedDict())
+            cached = [cache.get(s) for s in sigs]
+            present = np.array([r is not None for r in cached])
+            if present.any():
+                pad = np.full(w, int(BIG), own.dtype)
+                used, hit, ext = merge_unions_host(
+                    np.stack([pad if r is None else r for r in cached]), own,
+                    present)
+            else:
+                used, hit, ext = merge_unions_host(None, own)
+            for s, row in zip(sigs, used):
+                cache[s] = row
+                cache.move_to_end(s)
+            while len(cache) > max(64, 4 * t):  # bound drifting signatures
+                cache.popitem(last=False)
+            live = union_live(used)
+            wp = plan_width(int(live.max(initial=1)), w)
+            n_hit, n_ext = int(hit.sum()), int(ext.sum())
+            ps = self.plan_stats
+            ps.batches += 1
+            ps.tiles += t
+            ps.hits += n_hit
+            ps.extends += n_ext
+            ps.misses += t - n_hit - n_ext
+            ps.union_live_sum += int(live.sum())
+            ps.own_live_sum += int(union_live(own).sum())
+            ps.width_sum += wp * t
+            ps.sig_deep_split += deep_split
+            msp.add(tiles=t, hits=n_hit, extends=n_ext,
+                    misses=t - n_hit - n_ext, union_live=int(live.sum()),
+                    width=wp, sig_deep_split=deep_split)
+            unions_w = torch.from_numpy(
+                np.ascontiguousarray(used[:, :wp])).to(self.index.device)
+        return qp, pr, unions_w
+
+    # -- warmup -----------------------------------------------------------
+    def _bucket(self, b: int) -> int:
+        return self.params.bucket_for(min(b, self.params.max_chunk))
+
+    def warmup(self, *batch_sizes: int) -> "Searcher":
+        """Build the executables of the buckets covering ``batch_sizes``
+        (chainable).  With plan_reuse only the probe half: the scan
+        half's union width is a property of the traffic
+        (``warmup_widths`` builds the whole width ladder).  Builds here
+        count as ``warmup_compiles``."""
+        before = self.stats.compiles
+        for b in batch_sizes:
+            bucket = self._bucket(b)
+            if self.params.plan_reuse:
+                self._probe_exe(bucket)
+            else:
+                self._executable(bucket)
+        self.stats.warmup_compiles += self.stats.compiles - before
+        return self
+
+    def warmup_widths(self, *batch_sizes: int) -> "Searcher":
+        """Build the plan_reuse scan executables at every union-width
+        bucket (``width_buckets``) for ``batch_sizes`` (chainable), so
+        that no batch of live traffic pays a capture.  Without plan_reuse
+        this is ``warmup``.  Builds here count as ``warmup_compiles``."""
+        if not self.params.plan_reuse:
+            return self.warmup(*batch_sizes)
+        before = self.stats.compiles
+        for b in batch_sizes:
+            bucket = self._bucket(b)
+            # one throwaway probe dispatch gives the scan inputs (tile
+            # count and full union width) of this bucket
+            qp, pr = self._probe_exe(bucket)(self._zeros(bucket))
+            for wp in width_buckets(pr.unions.shape[1]):
+                self._scan_exe(bucket, qp, pr, wp)
+        self.stats.warmup_compiles += self.stats.compiles - before
+        return self
 
     def __call__(self, queries) -> SearchResult:
         dev = self.index.device
@@ -80,13 +337,16 @@ class Searcher:
         while s < n:
             b = min(n - s, self.params.max_chunk)
             bucket = self.params.bucket_for(b)
-            qc = q[s:s + b]
-            if b < bucket:
-                qc = torch.cat([qc, qc.new_zeros((bucket - b, q.shape[1]))])
-                self.stats.padded_rows += bucket - b
-            r = self._dispatch(qc)
-            if b < bucket:
-                r = SearchResult(*(a[:b] for a in r))
+            with obs.span("searcher.dispatch", cat="searcher",
+                          bucket=bucket, rows=b, pad=bucket - b):
+                qc = q[s:s + b]
+                if b < bucket:
+                    qc = torch.cat([qc, qc.new_zeros((bucket - b,
+                                                      q.shape[1]))])
+                    self.stats.padded_rows += bucket - b
+                r = self._dispatch(bucket, qc)
+                if b < bucket:
+                    r = SearchResult(*(a[:b] for a in r))
             outs.append(r)
             s += b
         self.stats.calls += 1

@@ -11,10 +11,36 @@
 
 #include <cstdint>
 
+// Tables in global memory, read through the read-only data cache (__ldg):
+// the form K1 and K3 take when one query's tables do not fit in a CTA's
+// shared memory (e.g. M = 256 at K = 256: 256 KB).  It indexes and offsets
+// like a pointer to shared memory, so the sums below serve both, in the
+// same order.
+struct LdgTable {
+  const float* p;
+  __device__ __forceinline__ float operator[](int i) const {
+    return __ldg(p + i);
+  }
+  template <typename I>
+  __device__ __forceinline__ LdgTable operator+(I i) const {
+    return {p + i};
+  }
+};
+
+// The tables a CTA reads: staged in shared memory (`slut`), or (GT) left in
+// global memory (`glut`) and read through the read-only cache.
+template <bool GT>
+__device__ __forceinline__ auto tables(const float* glut, const float* slut) {
+  if constexpr (GT)
+    return LdgTable{glut};
+  else
+    return slut;
+}
+
 // Add the table entries of code byte `c` of a row.  Packed: the lo nibble
 // is subquantizer 2c, the hi nibble 2c + 1.
-template <bool PACKED>
-__device__ __forceinline__ float add_byte(float acc, const float* ql, int K,
+template <bool PACKED, typename Tab>
+__device__ __forceinline__ float add_byte(float acc, Tab ql, int K,
                                           uint32_t byte, int c) {
   if (PACKED) {
     acc = acc + ql[(2 * c) * K + (byte & 15u)];
@@ -26,13 +52,14 @@ __device__ __forceinline__ float add_byte(float acc, const float* ql, int K,
 }
 
 // sum_m ql[m][code_m] over the MB code bytes of `row`, for the first `nq`
-// of QC queries whose tables lie `tab` floats apart from `ql`: each code
-// byte is read once and added to every one of those sums.  `vec16` reads
-// the row with 16-byte loads (MB % 16 == 0 and a 16-byte aligned row).
-template <int QC, bool PACKED>
+// of QC queries whose tables lie `tab` floats apart from `ql` (a pointer to
+// shared memory, or an LdgTable): each code byte is read once and added to
+// every one of those sums.  `vec16` reads the row with 16-byte loads
+// (MB % 16 == 0 and a 16-byte aligned row).
+template <int QC, bool PACKED, typename Tab>
 __device__ __forceinline__ void score_row_queries(
-    float (&acc)[QC], const uint8_t* __restrict__ row, const float* ql,
-    int tab, int K, int MB, int nq, bool vec16) {
+    float (&acc)[QC], const uint8_t* __restrict__ row, Tab ql, int tab,
+    int K, int MB, int nq, bool vec16) {
 #pragma unroll
   for (int q = 0; q < QC; ++q) acc[q] = 0.f;
   auto add = [&](uint32_t byte, int c) {
@@ -54,9 +81,9 @@ __device__ __forceinline__ void score_row_queries(
 }
 
 // The same sum for one query.
-template <bool PACKED>
+template <bool PACKED, typename Tab>
 __device__ __forceinline__ float score_row(const uint8_t* __restrict__ row,
-                                           const float* ql, int K, int MB,
+                                           Tab ql, int K, int MB,
                                            bool vec16) {
   float acc[1];
   score_row_queries<1, PACKED>(acc, row, ql, 0, K, MB, 1, vec16);

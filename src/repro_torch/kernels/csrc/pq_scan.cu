@@ -39,6 +39,12 @@
 // multiple of 8) runs through the generic instantiation of the same loop:
 // runtime K and MB, the row read in 16-byte pieces (or bytes), each piece's
 // bytes extracted once for a chunk of up to 8 queries.
+// Where one query's tables alone pass a CTA's shared memory (M = 256 at
+// K = 256 is 256 KB), the generic loop reads them from global memory
+// through the read-only cache (adc.cuh's LdgTable), in the same order, and
+// shared memory holds only the staged positions: the whole tile is one
+// launch, and a tile's tables (2 MB for 8 such queries) stay in the L2.
+// The shape alone picks this form (kernels/pq_scan.py::query_groups).
 // Entries of tile_idx must lie in [0, TB): callers clamp padding to 0.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -102,21 +108,24 @@ __global__ void __launch_bounds__(NT) pq_scan_fast(
 }
 
 // Every other shape: runtime K and MB, packed or not; queries in chunks of
-// up to QC.  Two CTAs per SM at least: left alone, ptxas hoists all 128
-// table reads of a 16-byte piece for QC = 8 and takes 254 registers.
-template <int QC, bool PACKED>
+// up to QC; tables in shared memory, or in global memory (GT).  Two CTAs
+// per SM at least: left alone, ptxas hoists all 128 table reads of a
+// 16-byte piece for QC = 8 and takes 254 registers.
+template <int QC, bool PACKED, bool GT>
 __global__ void __launch_bounds__(NT, 2) pq_scan_generic(
     const float* __restrict__ lut, const uint8_t* __restrict__ codes,
     const int32_t* __restrict__ tile_idx, float* __restrict__ out, int M,
     int K, int BLK, int MB, int S, int QT, int QS, int s_per, int vec16) {
   extern __shared__ float slut[];
   const int tab = M * K;
-  int* sidx = reinterpret_cast<int*>(slut + QT * tab);
+  int* sidx = reinterpret_cast<int*>(GT ? slut : slut + QT * tab);
   const int qi = blockIdx.x, tid = threadIdx.x;
   const int s0 = blockIdx.y * s_per, s1 = min(S, s0 + s_per);
   const float* glut = lut + (size_t)qi * QS * tab;
-  for (int j = tid; j < QT * tab; j += NT) slut[j] = glut[j];
+  if (!GT)
+    for (int j = tid; j < QT * tab; j += NT) slut[j] = glut[j];
   stage_positions(sidx, tile_idx + (size_t)qi * S, s0, s1);
+  const auto tabs = tables<GT>(glut, slut);
 
   const int n = (s1 - s0) * BLK;
   for (int f = tid; f < n; f += NT) {
@@ -126,7 +135,7 @@ __global__ void __launch_bounds__(NT, 2) pq_scan_generic(
     for (int q0 = 0; q0 < QT; q0 += QC) {
       const int nq = min(QC, QT - q0);
       float acc[QC];
-      score_row_queries<QC, PACKED>(acc, row, slut + (size_t)q0 * tab, tab,
+      score_row_queries<QC, PACKED>(acc, row, tabs + (size_t)q0 * tab, tab,
                                     K, MB, nq, vec16 != 0);
 #pragma unroll
       for (int q = 0; q < QC; ++q)
@@ -141,6 +150,16 @@ cudaError_t prepare(Kern kern, size_t smem) {
                               (int)smem);
 }
 
+using GenericKernel = decltype(&pq_scan_generic<1, false, false>);
+
+template <bool GT>
+GenericKernel generic_kernel(bool packed, bool one_query) {
+  return packed ? (one_query ? pq_scan_generic<1, true, GT>
+                             : pq_scan_generic<8, true, GT>)
+                : (one_query ? pq_scan_generic<1, false, GT>
+                             : pq_scan_generic<8, false, GT>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -149,11 +168,14 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of one CTA: QT queries' tables, then the CTA's
-// s_per staged positions.  The wrapper cuts a tile into query groups by it
+// Dynamic shared memory of one CTA: QT queries' tables (none when they are
+// read from global memory), then the CTA's s_per staged positions.  The
+// wrapper picks the form and cuts a tile into query groups by it
 // (kernels/pq_scan.py::query_groups).
-size_t pq_scan_tiled_smem_bytes(int M, int K, int QT, int s_per) {
-  return (size_t)QT * M * K * sizeof(float) + (size_t)s_per * sizeof(int);
+size_t pq_scan_tiled_smem_bytes(int M, int K, int QT, int s_per,
+                                int global_tables) {
+  return (global_tables ? 0 : (size_t)QT * M * K * sizeof(float)) +
+         (size_t)s_per * sizeof(int);
 }
 
 // lut (B, M, K) f32; codes (TB, BLK, MB) u8; tile_idx (B / QS, S) i32;
@@ -161,17 +183,19 @@ size_t pq_scan_tiled_smem_bytes(int M, int K, int QT, int s_per) {
 // tile has QS query rows; this launch scores QT of them: lut and out point
 // at the group's first row of tile 0, rows qi * QS + [0, QT) of each tile.
 // CTA (tile, y) scans positions [y * s_per, min(S, (y + 1) * s_per)).
+// global_tables: read the tables from global memory (generic loop only).
 int pq_scan_tiled_launch(const void* lut, const void* codes,
                          const void* tile_idx, void* out, int B, int M, int K,
                          int BLK, int MB, int S, int QT, int QS, int packed,
-                         int s_per, void* stream) {
+                         int s_per, int global_tables, void* stream) {
   if (QS < 1 || B % QS != 0 || QT < 1 || QT > QS || BLK < 1 || s_per < 1 ||
       s_per > MAX_POSITIONS)
     return (int)cudaErrorInvalidValue;
   const int T = B / QS;
   if (T == 0 || S == 0) return 0;
   const int splits = (S + s_per - 1) / s_per;
-  const size_t smem = pq_scan_tiled_smem_bytes(M, K, QT, s_per);
+  const size_t smem =
+      pq_scan_tiled_smem_bytes(M, K, QT, s_per, global_tables);
   const int vec16 =
       (MB % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
   const dim3 grid(T, splits), block(NT);
@@ -182,8 +206,9 @@ int pq_scan_tiled_launch(const void* lut, const void* codes,
   float* o = static_cast<float*>(out);
   cudaError_t err;
   const int lb = __builtin_ctz((unsigned)BLK);
-  const bool fast = !packed && K == FAST_K && MB == FAST_MB && M == FAST_MB &&
-                    vec16 && BLK == 1 << lb && (QT == 1 || QT % 8 == 0);
+  const bool fast = !packed && !global_tables && K == FAST_K &&
+                    MB == FAST_MB && M == FAST_MB && vec16 && BLK == 1 << lb &&
+                    (QT == 1 || QT % 8 == 0);
   if (fast && QT == 1) {
     if ((err = prepare(pq_scan_fast<1>, smem)) != cudaSuccess) return (int)err;
     pq_scan_fast<1><<<grid, block, smem, st>>>(l, c, ti, o, lb, S, QT, QS,
@@ -193,10 +218,9 @@ int pq_scan_tiled_launch(const void* lut, const void* codes,
     pq_scan_fast<8><<<grid, block, smem, st>>>(l, c, ti, o, lb, S, QT, QS,
                                                 s_per);
   } else {
-    auto kern = packed ? (QT == 1 ? pq_scan_generic<1, true>
-                                  : pq_scan_generic<8, true>)
-                       : (QT == 1 ? pq_scan_generic<1, false>
-                                  : pq_scan_generic<8, false>);
+    const GenericKernel kern =
+        global_tables ? generic_kernel<true>(packed, QT == 1)
+                      : generic_kernel<false>(packed, QT == 1);
     if ((err = prepare(kern, smem)) != cudaSuccess) return (int)err;
     kern<<<grid, block, smem, st>>>(l, c, ti, o, M, K, BLK, MB, S, QT, QS,
                                     s_per, vec16);

@@ -53,6 +53,11 @@
 //   * Scoring as in K1.  score_row (adc.cuh), the ascending-m f32 sum; the
 //     thread of an item scores its row for every query of the tile that
 //     keeps it, so K3 agrees bitwise with K1 and with both plain versions.
+//     Where one query's tables alone pass a CTA's shared memory (M = 256
+//     at K = 256: 256 KB), the GT instantiation reads them from global
+//     memory through the read-only cache (adc.cuh's LdgTable) and shared
+//     memory holds only the selection state and plan slots; the shape
+//     alone picks it (kernels/pq_scan.py::query_groups).
 //
 // pos = slot * BLK + lane is unique among a query's kept candidates and
 // every pad is (+inf, PAD_POS, -1), so the result is the stable selection
@@ -241,7 +246,7 @@ __device__ __forceinline__ int* carve(Sel& s, int* p, int nq, int fw,
   return s.cnt + nq;
 }
 
-template <bool PACKED>
+template <bool PACKED, bool GT>
 __global__ void __launch_bounds__(NT) pq_scan_topk(
     const float* __restrict__ lut, const uint8_t* __restrict__ codes,
     const int32_t* __restrict__ block_ids,
@@ -257,7 +262,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
   const int tid = threadIdx.x, lane = tid & 31;
   const int s0 = split * s_per, s1 = min(S, s0 + s_per);
   const int P = max(1, NT / BLK);  // positions per round
-  const int n_lut = QT * M * K;
+  const int n_lut = GT ? 0 : QT * M * K;  // tables staged in shared memory
   float* slut = reinterpret_cast<float*>(smem);
   Sel sel;
   int* sslot = carve(sel, smem + n_lut, QT, FW, fetch);  // QT * P
@@ -265,6 +270,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
 
   const float* glut = lut + (size_t)qi * QS * M * K;
   for (int j = tid; j < n_lut; j += NT) slut[j] = glut[j];
+  const auto tabs = tables<GT>(glut, slut);
   for (int j = tid; j < QT * FW; j += NT) {
     sel.ad[j] = inf();
     sel.ap[j] = PAD_POS;
@@ -318,7 +324,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
         int pos = 0;
         bool want = false;
         if (keep) {
-          d = score_row<PACKED>(row, slut + (size_t)q * M * K, K, MB,
+          d = score_row<PACKED>(row, tabs + (size_t)q * M * K, K, MB,
                                 vec16 != 0);
           pos = sslot[q * P + p] * BLK + ln;
           want = sel.beats(q, d, pos);
@@ -331,7 +337,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
       flush(sel);
       for (uint64_t r = pend; r; r &= r - 1) {
         const int q = __ffsll((long long)r) - 1;
-        const float d = score_row<PACKED>(row, slut + (size_t)q * M * K, K,
+        const float d = score_row<PACKED>(row, tabs + (size_t)q * M * K, K,
                                           MB, vec16 != 0);
         const int pos = sslot[q * P + p] * BLK + ln;
         if (!sel.beats(q, d, pos) || push_one(sel, q, d, pos, iid))
@@ -416,13 +422,16 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of one scan CTA: the tables, the selection state
-// and the round's staged plan slots and DCO counts (layout at the top of
-// pq_scan_topk).  The wrapper checks it against the card's limit.
-size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK) {
+// Dynamic shared memory of one scan CTA: the tables (none when they are
+// read from global memory), the selection state and the round's staged plan
+// slots and DCO counts (layout at the top of pq_scan_topk).  The wrapper
+// picks the form and cuts a tile into query groups by it
+// (kernels/pq_scan.py::query_groups).
+size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
+                               int global_tables) {
   const int P = NT / BLK > 1 ? NT / BLK : 1;
-  return sizeof(int) *
-         ((size_t)QT * M * K + sel_words(QT, FW) + (size_t)QT * P + QT);
+  const size_t tables = global_tables ? 0 : (size_t)QT * M * K;
+  return sizeof(int) * (tables + sel_words(QT, FW) + (size_t)QT * P + QT);
 }
 
 // lut (B, M, K) f32; codes (TB, BLK, MB) u8; block_ids / block_other
@@ -435,6 +444,7 @@ size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK) {
 // first row of tile 0, and CTA qi takes rows qi * QS + [0, QT).  Split y
 // scans positions [y * s_per, min(S, (y + 1) * s_per)).  FW is a power of
 // two >= max(fetch, 2); BLK is a power of two; 1 <= QT <= min(QS, 64).
+// global_tables: read the tables from global memory.
 int pq_scan_topk_launch(const void* lut, const void* codes,
                         const void* block_ids, const void* block_other,
                         const void* tile_idx, const void* rank_of,
@@ -443,7 +453,7 @@ int pq_scan_topk_launch(const void* lut, const void* codes,
                         void* part_id, void* dco, int B, int M, int K, int BLK,
                         int MB, int S, int QT, int QS, int nlist, int FW,
                         int fetch, int packed, int splits, int s_per,
-                        void* stream) {
+                        int global_tables, void* stream) {
   if (QT < 1 || QT > MAX_QT || QT > QS || B % QS != 0 || !pow2(BLK) ||
       !pow2(FW) ||
       FW < 2 || fetch < 1 || fetch > FW || splits < 1 || s_per < 1 ||
@@ -451,11 +461,15 @@ int pq_scan_topk_launch(const void* lut, const void* codes,
     return (int)cudaErrorInvalidValue;
   const int T = B / QS;
   if (T == 0) return 0;
-  const size_t smem = pq_scan_topk_smem_bytes(M, K, QT, FW, BLK);
+  const size_t smem =
+      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables);
   const int vec16 =
       (MB % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kern = packed ? pq_scan_topk<true> : pq_scan_topk<false>;
+  auto kern = global_tables ? (packed ? pq_scan_topk<true, true>
+                                      : pq_scan_topk<false, true>)
+                            : (packed ? pq_scan_topk<true, false>
+                                      : pq_scan_topk<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

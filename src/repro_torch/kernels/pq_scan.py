@@ -40,23 +40,44 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+class QueryGroups(list):
+    """The query groups of a tile, ``[(q0, q1), ...]``, one launch each,
+    and the kernel form they run: ``global_tables`` is True when the
+    launches read the tables from global memory (one query's tables alone
+    do not fit in a CTA's shared memory)."""
+
+    def __init__(self, groups, global_tables: bool = False):
+        super().__init__(groups)
+        self.global_tables = global_tables
+
+
 def query_groups(qt: int, bytes_per_query: int, fixed_bytes: int = 0, *,
-                 limit: int = SMEM_LIMIT, max_group: int = 0) -> list:
+                 table_bytes=None, limit: int = SMEM_LIMIT,
+                 max_group: int = 0) -> QueryGroups:
     """Cut a query tile of ``qt`` queries into groups whose shared memory,
     ``fixed_bytes + n * bytes_per_query`` for a group of n, fits
     ``limit`` (and n <= ``max_group`` when that is given): ``[(q0, q1),
     ...]``, as few and as even as can be, covering ``[0, qt)`` in order,
-    none empty.  Raises ``ValueError`` when one query alone does not fit:
-    that shape has no launch on the card."""
-    fit = (limit - fixed_bytes) // bytes_per_query
+    none empty.  ``table_bytes`` of ``bytes_per_query`` are the query's
+    tables (all of it when None).  When one query alone does not fit,
+    its tables stay in global memory: the groups are sized without them
+    and ``global_tables`` is set.  Raises ``ValueError`` only when one
+    query's state without its tables does not fit either."""
+    tables = bytes_per_query if table_bytes is None else table_bytes
+    global_tables = fixed_bytes + bytes_per_query > limit
+    if global_tables:
+        bytes_per_query -= tables
+    fit = (limit - fixed_bytes) // bytes_per_query if bytes_per_query else qt
     if max_group:
         fit = min(fit, max_group)
     if fit < 1:
         raise ValueError(
-            f"one query's tables need {fixed_bytes + bytes_per_query} B of "
-            f"shared memory, above the {limit} B a Hopper block may use")
+            f"one query needs {fixed_bytes + bytes_per_query} B of shared "
+            f"memory besides its tables, above the {limit} B a Hopper "
+            "block may use")
     n = -(-qt // fit)
-    return [(g * qt // n, (g + 1) * qt // n) for g in range(n)]
+    return QueryGroups([(g * qt // n, (g + 1) * qt // n) for g in range(n)],
+                       global_tables)
 
 
 def scan_splits(t: int, s: int, blk: int) -> tuple:
@@ -78,29 +99,35 @@ def scan_splits(t: int, s: int, blk: int) -> tuple:
     return splits, s_per
 
 
-def _library_groups(qt: int, smem_of, max_group: int = 0) -> list:
+def _library_groups(qt: int, smem_of, max_group: int = 0) -> QueryGroups:
     """``query_groups`` for a launch whose shared memory the kernel's
-    library reports: ``smem_of(n)`` bytes for a group of n queries,
-    linear in n."""
-    fixed = smem_of(0)
-    return query_groups(qt, smem_of(1) - fixed, fixed, max_group=max_group)
+    library reports: ``smem_of(n, global_tables)`` bytes for a group of
+    n queries, linear in n, with the tables in shared memory (0) or in
+    global memory (1)."""
+    fixed = smem_of(0, 0)
+    per = smem_of(1, 0) - fixed
+    state = smem_of(1, 1) - smem_of(0, 1)
+    return query_groups(qt, per, fixed, table_bytes=per - state,
+                        max_group=max_group)
 
 
-def k1_query_groups(m: int, k: int, qt: int, s_per: int) -> list:
-    """The query groups K1 launches for a tile of ``qt`` queries, by its
-    library's ``pq_scan_tiled_smem_bytes`` (on the card only)."""
+def k1_query_groups(m: int, k: int, qt: int, s_per: int) -> QueryGroups:
+    """The query groups K1 launches for a tile of ``qt`` queries, and
+    their form, by its library's ``pq_scan_tiled_smem_bytes`` (on the
+    card only)."""
     lib = build.load("pq_scan")
     return _library_groups(
-        qt, lambda n: lib.pq_scan_tiled_smem_bytes(m, k, n, s_per))
+        qt, lambda n, g: lib.pq_scan_tiled_smem_bytes(m, k, n, s_per, g))
 
 
-def k3_query_groups(m: int, k: int, qt: int, fw: int, blk: int) -> list:
-    """The query groups K3 launches for a tile of ``qt`` queries, by its
-    library's ``pq_scan_topk_smem_bytes`` and at most ``MAX_QUERY_TILE``
-    each (on the card only)."""
+def k3_query_groups(m: int, k: int, qt: int, fw: int,
+                    blk: int) -> QueryGroups:
+    """The query groups K3 launches for a tile of ``qt`` queries, and
+    their form, by its library's ``pq_scan_topk_smem_bytes`` and at most
+    ``MAX_QUERY_TILE`` each (on the card only)."""
     lib = build.load("pq_scan_topk")
     return _library_groups(
-        qt, lambda n: lib.pq_scan_topk_smem_bytes(m, k, n, fw, blk),
+        qt, lambda n, g: lib.pq_scan_topk_smem_bytes(m, k, n, fw, blk, g),
         max_group=MAX_QUERY_TILE)
 
 
@@ -114,7 +141,8 @@ def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
     a tile whose tables do not fit in shared memory is scanned in
     ``k1_query_groups``, one launch each; every output row depends only
     on its own query's table and the tile's list, so the split is
-    exact."""
+    exact.  Where one query's tables alone do not fit, the kernel reads
+    them from global memory, the whole tile in one launch."""
     if lut.device.type == "cpu":
         return pq_scan_tiled_ref(lut, block_codes, tile_idx,
                                  query_tile=query_tile, packed=packed)
@@ -140,7 +168,7 @@ def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
             lut.data_ptr() + 4 * q0 * m * k, block_codes.data_ptr(),
             tile_idx.data_ptr(), out.data_ptr() + 4 * q0 * s * blk, b, m, k,
             blk, mb, s, q1 - q0, query_tile, int(packed), s_per,
-            _stream(dev))
+            int(groups.global_tables), _stream(dev))
         build.check(lib, err, "pq_scan_tiled_kernel")
         pq_scan_tiled_kernel.launches += 1
     return out
@@ -239,7 +267,8 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     state does not fit in shared memory, or that has more than
     ``MAX_QUERY_TILE`` queries, is scanned in ``k3_query_groups``, one
     launch each; every output row depends only on its own query's rows
-    and the tile's list, so the split is exact."""
+    and the tile's list, so the split is exact.  Where one query's
+    tables alone do not fit, the kernel reads them from global memory."""
     if lut.device.type == "cpu":
         return pq_scan_topk_ref(lut, block_codes, block_ids, block_other,
                                 tile_idx, rank_of, slot_of, rank_u, dead,
@@ -295,7 +324,7 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
             *(x.data_ptr() + 4 * q0 * splits * fetch for x in part),
             dco.data_ptr() + 4 * q0, b, m, k, blk, mb, s, q1 - q0,
             query_tile, nlist, fw, fetch, int(packed), splits, s_per,
-            _stream(dev))
+            int(groups.global_tables), _stream(dev))
         build.check(lib, err, "pq_scan_topk_kernel")
         pq_scan_topk_kernel.launches += 1
     if splits > 1:
@@ -315,3 +344,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (by kernel name) to the counters: what a CUDA graph
+    replay launches (``core/graphs.py``)."""
+    for fn in KERNELS:
+        fn.launches += counts.get(fn.__name__, 0)

@@ -62,14 +62,62 @@ def test_query_groups_at_the_shapes_that_need_them():
 
 
 def test_one_query_above_shared_memory_raises():
-    """No launch on the card takes one query's 256 KB of tables; the
-    plain version on the CPU answers the same shape."""
-    with pytest.raises(ValueError, match="one query's tables need"):
-        tpq.query_groups(1, 4 * 256 * 256, 0)
+    """One query's 256 KB of tables no longer raises: the tables stay in
+    global memory (the kernels' global-table form) and the tile is one
+    group; only a query whose state without its tables passes the limit
+    raises.  The plain version on the CPU answers the same shape."""
+    groups = tpq.query_groups(1, 4 * 256 * 256, 0)
+    assert groups == [(0, 1)] and groups.global_tables
+    with pytest.raises(ValueError, match="besides its tables"):
+        tpq.query_groups(1, 4 * 256 * 256 + tpq.SMEM_LIMIT + 1, 0,
+                         table_bytes=4 * 256 * 256)
     lut, codes, tiles = _k1_inputs(3, 2, 256, 256, 3, 32, 2, 1)
     got = tpq.pq_scan_tiled_kernel(t(lut), t(codes), t(tiles), query_tile=1)
     np.testing.assert_array_equal(got.numpy(), tref.pq_scan_tiled_ref(
         t(lut), t(codes), t(tiles), query_tile=1).numpy())
+
+
+def _k1_smem(m, k, s_per):
+    """pq_scan.cu's pq_scan_tiled_smem_bytes, written out."""
+    return lambda n, g: (0 if g else 4 * n * m * k) + 4 * s_per
+
+
+def _k3_smem(m, k, fw, blk):
+    """pq_scan_topk.cu's pq_scan_topk_smem_bytes, written out."""
+    p = max(1, tpq.TOPK_THREADS // blk)
+    return lambda n, g: 4 * ((0 if g else n * m * k) + 6 * n * fw + n
+                             + n * p + n)
+
+
+@pytest.mark.parametrize("qt", [1, 8, 64, 100])
+def test_global_tables_chosen_at_m256_nbits8(qt):
+    """m_pq=256 at nbits=8 (gist-shaped, dsub=1): 256 KB of tables per
+    query.  K1 and K3 take the global-table form from the shape alone,
+    without raising: K1 scans the whole tile in one launch, K3 in groups
+    of at most 64 sized by its selection state alone."""
+    k1 = tpq._library_groups(qt, _k1_smem(256, 256, 1024))
+    assert k1 == [(0, qt)] and k1.global_tables
+    k3 = tpq._library_groups(qt, _k3_smem(256, 256, 128, 32),
+                             max_group=tpq.MAX_QUERY_TILE)
+    assert k3.global_tables
+    assert len(k3) == -(-qt // tpq.MAX_QUERY_TILE)
+    assert k3[0][0] == 0 and k3[-1][1] == qt
+    # the tables of a group of 8 in shared memory would need 2 MB
+    assert 4 * 8 * 256 * 256 > tpq.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("m,k,qt,groups", [
+    (64, 16, 8, [(0, 8)]), (64, 16, 64, [(0, 32), (32, 64)]),
+    (64, 256, 8, [(0, 2), (2, 5), (5, 8)])])
+def test_tables_stay_in_shared_memory_where_one_query_fits(m, k, qt, groups):
+    """Shapes where one query's tables fit keep the shared-memory form
+    and its query groups (the main path, query_tile=64, nbits=8 at
+    M=64)."""
+    k1 = tpq._library_groups(qt, _k1_smem(m, k, 1024))
+    assert k1 == groups and not k1.global_tables
+    k3 = tpq._library_groups(qt, _k3_smem(m, k, 128, 32),
+                             max_group=tpq.MAX_QUERY_TILE)
+    assert not k3.global_tables
 
 
 @pytest.mark.parametrize("t_,s,blk", [

@@ -181,13 +181,22 @@ def test_searcher_chunks_and_merges(rairs_index, unit_data):
     assert SearchParams().max_chunk == 1024
 
 
-def test_searcher_rejects_unported_features(rairs_index):
+def test_searcher_rejects_unported_features(rairs_index, unit_data):
+    """refine is not ported and raises, naming its ROADMAP item.
+    plan_reuse, refused here until it was ported, runs and equals the
+    plain session bitwise (tests/test_torch_plan.py holds it against the
+    reference)."""
     from repro_torch.core import RefineParams
+    _, q, _ = unit_data
     tidx = convert(rairs_index)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tidx.searcher(SearchParams(exec_mode="grouped", plan_reuse=True),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    qs = torch.from_numpy(np.array(q[:16]))
+    for mode in ("grouped", "clustered"):
+        reuse = tidx.searcher(SearchParams(exec_mode=mode, plan_reuse=True),
+                              device="cpu")(qs)
+        plain = tidx.searcher(SearchParams(exec_mode=mode), device="cpu")(qs)
+        for f in plain._fields:
+            assert torch.equal(getattr(reuse, f), getattr(plain, f)), f
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4"):
         tidx.searcher(SearchParams(refine=RefineParams()), device="cpu")
     with pytest.raises(ValueError):
         SearchParams(exec_mode="nope")
