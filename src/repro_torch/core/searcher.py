@@ -135,12 +135,6 @@ class Searcher:
                     oversample=idx.result_oversample, exec_mode=p.exec_mode,
                     query_tile=p.query_tile, fused_topk=p.fused_topk)
 
-    def _probe_kw(self) -> dict:
-        p = self.params
-        return dict(nprobe=p.nprobe, max_scan=p.max_scan,
-                    metric=self.index.config.metric, exec_mode=p.exec_mode,
-                    query_tile=p.query_tile)
-
     def _zeros(self, bucket: int) -> torch.Tensor:
         idx = self.index
         return torch.zeros((bucket, idx.vectors.shape[1]),
@@ -178,8 +172,10 @@ class Searcher:
     def _probe_exe(self, bucket: int):
         """Stages 1-2 and the batch's own unions for one bucket; returns
         ``(queries, PlanProbe)``, the scan executable's first inputs."""
-        idx = self.index
-        kw = self._probe_kw()
+        p, idx = self.params, self.index
+        kw = dict(nprobe=p.nprobe, max_scan=p.max_scan,
+                  metric=idx.config.metric, exec_mode=p.exec_mode,
+                  query_tile=p.query_tile)
 
         def fn(q):
             return q, probe_plan(idx.arrays, idx.centroids, idx.codebook, q,
