@@ -12,8 +12,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 QT 1 to 64, query groups, global tables at M 256 K 256,
                 packed with odd Mc); K3 also split over the grid (few
                 tiles, long S, sparse plans), in query groups and with
-                global tables; K3's merge on random sorted lists; K2's
-                tile-row check;
+                global tables, and with its selection state in global
+                memory (fetch 9000); K3's merge on random sorted lists
+                (fetch up to 16000); K2's tile-row check;
   4. main     — a SIFT1M-shaped corpus (n x 128, made on the card from
                 --seed), a RAIRS index built on the card (IVF4096,
                 PQ64x4, block 32, rair + SEIL), exact top-10 ground
@@ -41,7 +42,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 also alone where K3 splits), and the union fill of
                 grouped and clustered mode; the device time of each
                 search stage for one batch of each exec mode, fused off
-                and on.
+                and on;
+  6. refine   — on the main index, both compact planes attached (pq4
+                Mc=16 and binary Mc=32; train / encode / layout seconds),
+                two-tier sessions at refine factor 4 in the six modes
+                (which must agree; recall@10 beside the single tier),
+                refine factor 1 bitwise the plain session, and the wide
+                case (k=100, pq4 x 16: fetch 16,000) in the six modes,
+                fused equal to unfused, where K3 and its merge keep their
+                selection state in global memory; K1 and K3 held and
+                timed at each mode's first batch at the plane shapes and
+                the wide shape;
+     multi    — an m-assignment index (80,000 x 128, IVF1024, PQ64x4,
+                multi_m=3) built on the card, in the six modes;
+     persist  — the nbits=8 index with both planes saved as one file and
+                as four shards, loaded on the card, searched bitwise
+                equal to the index in memory; the golden v1 bundle
+                answered alike on the card and on the CPU; a bit-flipped
+                copy refused with CorruptBundleError naming the member
+                (the 1M index is not saved: compressing its ~0.6 GB
+                would dominate the run).
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -72,6 +92,17 @@ REUSE_RUNS = (("grouped", 64), ("clustered", 1024))
 # the gist-shaped index (50,000 x 256): IVF1024, PQ256x8, 256 KB of tables
 # per query, above a CTA's shared memory
 GIST_INDEX = dict(INDEX, nlist=1024, m_pq=256, nbits=8)
+# two-tier sessions: the recall@10 floor (a sanity floor: a broken plane
+# scan finds nothing), and the wide case (fetch 16,000 = k 100 x k_factor
+# 10 x refine_factor 16) on the first WIDE_QUERIES queries
+REFINE_FLOOR = 0.2
+WIDE = dict(k=100, k_factor=10)
+WIDE_QUERIES = 2048
+# the m-assignment index: 80,000 SIFT1M-shaped vectors, IVF1024, PQ64x4,
+# every vector in three lists (stored three times: no shared cells, so the
+# results are deduplicated by id)
+MULTI_N, MULTI_INDEX = 80_000, dict(INDEX, nlist=1024, seil=False,
+                                    multi_m=3)
 
 
 def log(*a):
@@ -321,10 +352,34 @@ def check_kernels(torch, dev, seed):
                 n_global += 1
     log(f"kernels: K3 with global tables bitwise equal to plain version in "
         f"{n_global} cases")
+    # K3 where one query's selection arrays pass a CTA's shared memory
+    # (fetch 9000: FW 16384, 393 KB): the arrays in a scratch tensor, the
+    # tables in shared memory (M 16 / 15) or global memory (M 256, K 256);
+    # long S over few tiles splits, so the merge runs in that form too
+    n_state = 0
+    for mode in ("paged", "grouped", "clustered"):
+        for packed, ints, with_dead, m, k in ((False, True, False, None, 16),
+                                              (True, False, True, None, 16),
+                                              (False, True, True, 256, 256)):
+            splits, _, groups = k3_case(
+                torch, g, dev, mode=mode, packed=packed, ints=ints,
+                with_dead=with_dead, fetch=9000, qt=4, s=400, tb=600, b=8,
+                m=m, k=k)
+            check(groups.global_state and groups.global_tables == (k == 256),
+                  f"K3 state case {mode} m={m}: form global tables "
+                  f"{groups.global_tables}, global state "
+                  f"{groups.global_state}")
+            check(mode == "paged" or splits > 1, f"K3 state case {mode} "
+                  "ran one split")
+            n_state += 1
+    log(f"kernels: K3 with its selection state in global memory (fetch "
+        f"9000) bitwise equal to plain version in {n_state} cases, its "
+        "merge too where it splits")
     # the merge alone: random ascending lists, tie-heavy, with pads
     n_merge = 0
     for b, splits, fetch in ((1, 2, 1), (7, 5, 100), (64, 66, 100),
-                             (1024, 5, 100), (16, 3, 200), (3, 300, 37)):
+                             (1024, 5, 100), (16, 3, 200), (3, 300, 37),
+                             (8, 3, 9000), (64, 21, 16000)):
         parts = sorted_lists(torch, g, dev, b, splits, fetch)
         got = merge_topk_kernel(*parts)
         want = ref.merge_topk_ref(*parts)
@@ -334,7 +389,8 @@ def check_kernels(torch, dev, seed):
                   f"fetch={fetch}: {name} differs")
         n_merge += 1
     log(f"kernels: K3 merge bitwise equal to plain version in {n_merge} "
-        "cases")
+        "cases (fetch 9000 and 16000 with the selection state in global "
+        "memory)")
 
 
 def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
@@ -344,9 +400,8 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
     query groups of a tile)."""
     from repro_torch.core.engine import fused_scan_args
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import (k3_query_groups,
-                                             pq_scan_topk_kernel,
-                                             topk_splits, topk_width)
+    from repro_torch.kernels.pq_scan import (k3_query_groups, k3_splits,
+                                             pq_scan_topk_kernel, topk_width)
     from repro_torch.kernels.topk import PAD_POS
     from repro_torch.quant import pack_nibbles
     store, plan, lut, rank_of, sel, live = synth_plan(
@@ -379,7 +434,7 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
         check(torch.equal(x, y), f"K3 {mode} qt={qt} S={tiles.shape[1]} "
               f"packed={packed} ints={ints} dead={with_dead} fetch={fetch} "
               f"p_valid={p_valid}: {name} differs")
-    splits, s_per = topk_splits(*tiles.shape, codes_a.shape[1])
+    splits, s_per = k3_splits(*tiles.shape, codes_a.shape[1], fw, groups)
     short = splits > 1 and any(
         bool((p[1] == PAD_POS).any())
         for p in split_parts(torch, args, kw, splits, s_per))
@@ -487,19 +542,23 @@ def bound_ms(nbytes, ops):
 
 def batch_inputs(index, queries, **params):
     """The main path's params (``params`` override SEARCH), K3's fetch
-    and the stage inputs of one batch, as ``seil_search`` makes them."""
+    and the stage inputs of one batch, as ``seil_search`` makes them in
+    a session with these params (with ``refine``, over the compact
+    plane's codes and codec, at the widened fetch)."""
     from repro_torch.core.engine import (plan_blocks, select_lists,
                                          store_from_arrays, tables_from_arrays)
     from repro_torch.core.pq import pq_lut
     from repro_torch.core.search import finalize_fetch
-    p = index.searcher(**dict(SEARCH, **params), device=index.device).params
-    fetch = finalize_fetch(p.bigk, index.result_oversample,
+    sess = index.searcher(**dict(SEARCH, **params), device=index.device)
+    p = sess.params
+    arrays, codebook, _ = sess._scan_state()
+    fetch = finalize_fetch(p.bigk_eff, index.result_oversample,
                            index.needs_result_dedup)
-    tables = tables_from_arrays(index.arrays)
+    tables = tables_from_arrays(arrays)
     sel = select_lists(queries, index.centroids, nprobe=p.nprobe)
     plan = plan_blocks(tables, sel, max_scan=p.max_scan)
-    lut = pq_lut(index.codebook, queries)
-    return p, fetch, tables, store_from_arrays(index.arrays), sel, plan, lut
+    lut = pq_lut(codebook, queries)
+    return p, fetch, tables, store_from_arrays(arrays), sel, plan, lut
 
 
 def stage_breakdown(torch, index, queries):
@@ -642,44 +701,62 @@ def lookup_rate(torch) -> float:
 
 
 def hold_kernels(torch, index, queries, mode, what, global_tables=None,
-                 **params):
+                 global_state=False, **params):
     """hold_inputs at one batch of ``mode`` as the search path makes it
-    (``params`` override SEARCH)."""
+    (``params`` override SEARCH; with ``refine``, over the compact
+    plane's packed codes)."""
+    sess = index.searcher(**dict(SEARCH, **params), device=index.device)
     return hold_inputs(torch, mode_inputs(index, queries, mode, **params),
-                       mode, what, global_tables)
+                       mode, what, global_tables, global_state,
+                       packed=sess._scan_state()[2])
 
 
-def hold_inputs(torch, inputs, mode, what, global_tables=None):
-    """K1 and K3 on ``inputs`` (mode_inputs' tuple), with the launch
-    counts set to 0 before each: each launched once per query group, in
-    the table form ``global_tables`` names (when given), and bitwise
-    equal to its plain version; where K3 splits, its merge bitwise equal
-    to merge_topk_ref and to the unsplit plain K3.  Returns ``(k1_args,
-    k3_args, query_tile, fetch, max_abs_err by kernel, merge inputs or
-    None, (K1's groups, K3's groups))``."""
-    from repro_torch.kernels import ref
+def hold_inputs(torch, inputs, mode, what, global_tables=None,
+                global_state=False, packed=False):
+    """K1 and K3 on ``inputs`` (mode_inputs' tuple; ``packed`` codes of a
+    compact plane), with the launch counts set to 0 before each: each
+    launched once per query group, in the table form ``global_tables``
+    names (when given) and K3 in the selection-state form
+    ``global_state`` names, and bitwise equal to its plain version;
+    where K3 splits, its merge bitwise equal to merge_topk_ref and to the
+    unsplit plain K3.  Returns ``(k1_args, k3_args, query_tile, fetch,
+    max_abs_err by kernel, merge inputs or None, (K1's groups, K3's
+    groups), packed)``."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pq_scan import (
-        k1_query_groups, k3_query_groups, launch_counts, merge_topk_kernel,
-        pq_scan_tiled_kernel, pq_scan_topk_kernel, reset_launch_counts,
-        scan_splits, topk_splits, topk_width)
+        k1_query_groups, k3_query_groups, k3_splits, launch_counts,
+        merge_global_state, merge_topk_kernel, pq_scan_tiled_kernel,
+        pq_scan_topk_kernel, reset_launch_counts, scan_splits, topk_width)
     k1, k3, qt, fetch = inputs
+    if packed:            # the tables as ops pads them for a packed plane
+        lut, _ = ops.align(k1[0], k1[1], True)
+        k1, k3 = (lut,) + k1[1:], (lut,) + k3[1:]
     lut, codes, tiles = k1
     (b, m, k), (t, s), blk = lut.shape, tiles.shape, codes.shape[1]
+    fw = topk_width(fetch)
     g1 = k1_query_groups(m, k, qt, scan_splits(t, s, blk)[1])
-    g3 = k3_query_groups(m, k, qt, topk_width(fetch), blk)
-    splits, s_per = topk_splits(t, s, blk)
-    shape = f"{what} {mode} B={b} S={s} QT={qt} M={m} K={k}"
+    g3 = k3_query_groups(m, k, qt, fw, blk)
+    splits, s_per = k3_splits(t, s, blk, fw, g3)
+    shape = (f"{what} {mode} B={b} S={s} QT={qt} M={m} K={k} fetch={fetch}"
+             + (" packed" if packed else ""))
     if global_tables is not None:
         check(g1.global_tables == global_tables
               and g3.global_tables == global_tables,
               f"{shape}: K1 / K3 global tables {g1.global_tables} / "
               f"{g3.global_tables}, want {global_tables}")
+    check(g3.global_state == global_state, f"{shape}: K3 global state "
+          f"{g3.global_state}, want {global_state}")
+    if splits > 1:
+        check(merge_global_state(fw) == global_state, f"{shape}: K3's "
+              f"merge global state {merge_global_state(fw)}, want "
+              f"{global_state}")
     errs = {}
     for kid, fn, plain, args, kw, want_launches in (
             ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
-             dict(query_tile=qt), {"pq_scan_tiled_kernel": len(g1)}),
+             dict(query_tile=qt, packed=packed),
+             {"pq_scan_tiled_kernel": len(g1)}),
             ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
-             dict(query_tile=qt, fetch=fetch),
+             dict(query_tile=qt, fetch=fetch, packed=packed),
              {"pq_scan_topk_kernel": len(g3),
               "merge_topk_kernel": int(splits > 1)})):
         reset_launch_counts()
@@ -704,8 +781,8 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None):
     if splits > 1:
         # the plain top-fetch of each of the kernel's ranges, merged by
         # the kernel
-        parts = split_parts(torch, k3, dict(query_tile=qt, fetch=fetch),
-                            splits, s_per)
+        parts = split_parts(torch, k3, dict(query_tile=qt, fetch=fetch,
+                                            packed=packed), splits, s_per)
         got = merge_topk_kernel(*parts)
         for x, y, z in zip(got, ref.merge_topk_ref(*parts), k3_want):
             check(torch.equal(x, y) and torch.equal(x, z),
@@ -718,10 +795,13 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None):
     log(f"{what}: K1 (query groups {list(g1)}, {form} tables) and K3 "
         f"(query groups {list(g3)}, "
         f"{'global' if g3.global_tables else 'shared-memory'} tables, "
-        f"{splits} splits) launched once per group and bitwise equal to "
-        f"their plain versions at the {mode} batch B={b} S={s} QT={qt} "
-        f"M={m} K={k}" + (", K3's merge too" if parts else ""))
-    return k1, k3, qt, fetch, errs, parts, (g1, g3)
+        f"{'global' if g3.global_state else 'shared-memory'} selection "
+        f"state, {splits} splits) launched once per group and bitwise "
+        f"equal to their plain versions at the {mode} batch B={b} S={s} "
+        f"QT={qt} M={m} K={k} fetch={fetch}"
+        + (" (packed plane)" if packed else "")
+        + (", K3's merge too" if parts else ""))
+    return k1, k3, qt, fetch, errs, parts, (g1, g3), packed
 
 
 def time_held(torch, held, what, lookups_per_s):
@@ -730,11 +810,12 @@ def time_held(torch, held, what, lookups_per_s):
     from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
                                              pq_scan_topk_kernel)
     k1, k3, qt, fetch = held[:4]
+    packed = held[7]
     lut, _, tiles = k1
-    k1_ms = cuda_ms(torch, lambda: pq_scan_tiled_kernel(*k1, query_tile=qt),
-                    reps=5, warm=1)
+    k1_ms = cuda_ms(torch, lambda: pq_scan_tiled_kernel(
+        *k1, query_tile=qt, packed=packed), reps=5, warm=1)
     k3_ms = cuda_ms(torch, lambda: pq_scan_topk_kernel(
-        *k3, query_tile=qt, fetch=fetch), reps=5, warm=1)
+        *k3, query_tile=qt, fetch=fetch, packed=packed), reps=5, warm=1)
     lookups = lut.shape[0] * tiles.shape[1] * k1[1].shape[1] * lut.shape[1]
     log(f"{what}: K1 {k1_ms:.4f} ms (lookup floor "
         f"{lookups / lookups_per_s * 1e3:.4f} ms), K3 {k3_ms:.4f} ms at "
@@ -746,17 +827,17 @@ def kernel_rows(torch, held, mode, what, lookups_per_s):
     their plain versions, bounds and lookup floors; K3's merge also
     alone where K3 splits.  Returns {"K1" | "K3" | "merge": row}."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pq_scan import (merge_topk_kernel,
+    from repro_torch.kernels.pq_scan import (k3_splits, merge_topk_kernel,
                                              pq_scan_tiled_kernel,
-                                             pq_scan_topk_kernel, topk_splits)
-    k1, k3, qt, fetch, errs, parts, _ = held
+                                             pq_scan_topk_kernel, topk_width)
+    k1, k3, qt, fetch, errs, parts, (_, g3), packed = held
     lx, codes, tiles = k1
     rows = {}
     for kid, fn, plain, args, kw, (nbytes, ops) in (
             ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
-             dict(query_tile=qt), k1_bound(torch, k1)),
+             dict(query_tile=qt, packed=packed), k1_bound(torch, k1)),
             ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
-             dict(query_tile=qt, fetch=fetch),
+             dict(query_tile=qt, fetch=fetch, packed=packed),
              k3_bound(torch, k3, fetch))):
         ms = cuda_ms(torch, lambda: fn(*args, **kw))
         pms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1)
@@ -772,7 +853,8 @@ def kernel_rows(torch, held, mode, what, lookups_per_s):
             f"({by}; {total} B = {json.dumps(nbytes)}; {ops} adds); "
             f"{ops} lookups, lookup floor {rows[kid]['lookup_ms']:.4f} ms")
     if parts is not None:
-        splits, s_per = topk_splits(*tiles.shape, codes.shape[1])
+        splits, s_per = k3_splits(*tiles.shape, codes.shape[1],
+                                  topk_width(fetch), g3)
         mms = cuda_ms(torch, lambda: merge_topk_kernel(*parts))
         pms = cuda_ms(torch, lambda: ref.merge_topk_ref(*parts), reps=3,
                       warm=1)
@@ -808,14 +890,33 @@ def time_kernels(torch, index, queries, lookups_per_s):
     return rows
 
 
-def kernel_json(rows, launches, gist_rows, gist_launches):
+def kernel_json(rows, launches, gist_rows, gist_launches, plane_rows,
+                plane_launches, wide_rows, wide_launches):
     """The {"kernels": [...]} entries: K1 and K3 at the main path's first
-    paged batch, K3's merge at its first clustered batch, and the
+    paged batch, K3's merge at its first clustered batch, the
     global-table forms of K1 and K3 at the gist index's first paged
-    batch, with their launches on the runs that use them."""
+    batch, K1 and K3 at each compact plane's first paged batch, and K3
+    and its merge with their selection state in global memory at the
+    wide case's first paged (K3) and grouped (merge) batch, with their
+    launches on the runs that use them."""
     src = "src/repro_torch/kernels/csrc/"
+    planes = []
+    for b in sorted(plane_rows):
+        planes += [
+            (f"pq_scan_tiled_kernel[{b} plane]", src + "pq_scan.cu",
+             "src/repro/kernels/pq_scan.py:112", plane_rows[b]["paged"]["K1"],
+             plane_launches[b]["pq_scan_tiled_kernel"]),
+            (f"pq_scan_topk_kernel[{b} plane]", src + "pq_scan_topk.cu",
+             "src/repro/kernels/pq_scan.py:311", plane_rows[b]["paged"]["K3"],
+             plane_launches[b]["pq_scan_topk_kernel"])]
     out = []
-    for name, source, replaces, row, n in (
+    for name, source, replaces, row, n in planes + [
+            ("pq_scan_topk_kernel[global state]", src + "pq_scan_topk.cu",
+             "src/repro/kernels/pq_scan.py:311", wide_rows["paged"]["K3"],
+             wide_launches["pq_scan_topk_kernel"]),
+            ("merge_topk_kernel[global state]", src + "pq_scan_topk.cu",
+             "src/repro/kernels/topk.py:103", wide_rows["grouped"]["merge"],
+             wide_launches["merge_topk_kernel"])] + [
             ("pq_scan_tiled_kernel", src + "pq_scan.cu",
              "src/repro/kernels/pq_scan.py:112", rows["paged"]["K1"],
              launches["pq_scan_tiled_kernel"]),
@@ -830,7 +931,7 @@ def kernel_json(rows, launches, gist_rows, gist_launches):
              gist_launches["pq_scan_tiled_kernel"]),
             ("pq_scan_topk_kernel[global tables]", src + "pq_scan_topk.cu",
              "src/repro/kernels/pq_scan.py:311", gist_rows["paged"]["K3"],
-             gist_launches["pq_scan_topk_kernel"])):
+             gist_launches["pq_scan_topk_kernel"])]:
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": n,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -931,7 +1032,7 @@ def main_path(torch, dev, args):
     held = hold_kernels(torch, index, q[:1024].contiguous(), "clustered",
                         "main, clustered qt=64", global_tables=False,
                         query_tile=64)
-    return index, q, launches, held, held_reuse
+    return index, q, gt, launches, held, held_reuse, results
 
 
 SESSIONS = {}   # the runs' sessions, with their CUDA graphs
@@ -939,11 +1040,11 @@ SESSIONS = {}   # the runs' sessions, with their CUDA graphs
 
 def session(index, mode, bsz, fused, **params):
     """The session of one run (``Searcher(index, params)``, what
-    ``index.searcher`` caches), kept in SESSIONS until release_sessions
-    drops it with its graphs."""
+    ``index.searcher`` caches; ``params`` override SEARCH), kept in
+    SESSIONS until release_sessions drops it with its graphs."""
     from repro_torch.core import SearchParams, Searcher
-    p = SearchParams(**SEARCH, exec_mode=mode, fused_topk=fused,
-                     batch_buckets=(bsz,), **params)
+    p = SearchParams(**{**SEARCH, "exec_mode": mode, "fused_topk": fused,
+                        "batch_buckets": (bsz,), **params})
     key = (id(index), p)
     if key not in SESSIONS:
         SESSIONS[key] = Searcher(index, p)
@@ -965,12 +1066,13 @@ def release_sessions(torch, what):
         "what their CUDA graphs held")
 
 
-def search_run(torch, index, q, gt, mode, bsz, fused, tag="main", **params):
+def search_run(torch, index, q, gt, mode, bsz, fused, tag="main",
+               floor=0.5, **params):
     """One session over all of ``q`` at batch size ``bsz``, its CUDA
     graphs captured first (``warmup``; with plan_reuse the whole width
-    ladder, ``warmup_widths``): the result, after the recall floor and
-    shape checks, with its log line (QPS and launches of the timed run
-    alone; plan stats with plan_reuse)."""
+    ladder, ``warmup_widths``): the result, after the recall@10 floor
+    and shape checks, with its log line (QPS and launches of the timed
+    run alone; plan stats with plan_reuse)."""
     from repro_torch.core import recall_at_k
     from repro_torch.kernels.pq_scan import launch_counts
     searcher = session(index, mode, bsz, fused, **params)
@@ -990,10 +1092,13 @@ def search_run(torch, index, q, gt, mode, bsz, fused, tag="main", **params):
     dt = time.perf_counter() - t0
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after}
-    rec = recall_at_k(res.ids.cpu().numpy(), gt)
+    rec = recall_at_k(res.ids[:, :10].cpu().numpy(), gt)
     qt = "" if mode == "paged" else f" QT={searcher.params.query_tile}"
+    ref = searcher.params.refine
     log(f"{tag}: {mode:9s} B={bsz:4d}{qt} fused={int(fused)}"
         + (" plan_reuse" if reuse else "")
+        + (f" refine={ref.plane}x{ref.refine_factor} fetch "
+           f"{searcher.params.bigk_eff}" if ref else "")
         + f" recall@10={rec:.4f} approx_dco/q="
         f"{res.approx_dco.float().mean().item():.1f} refine_dco/q="
         f"{res.refine_dco.float().mean().item():.1f} "
@@ -1014,10 +1119,10 @@ def search_run(torch, index, q, gt, mode, bsz, fused, tag="main", **params):
             f"{pl['sig_deep_split']}; compiles {st['compiles']} "
             f"(warmup {st['warmup_compiles']}) cache_hits "
             f"{st['cache_hits']}")
-    check(rec >= 0.5, f"recall@10 {rec} below the 0.5 floor")
+    check(rec >= floor, f"{tag}: recall@10 {rec} below the {floor} floor")
     check(bool(torch.isfinite(res.dists).all()),
           "non-finite distances in a result")
-    check(tuple(res.ids.shape) == (q.shape[0], 10),
+    check(tuple(res.ids.shape) == (q.shape[0], searcher.params.k),
           "result ids of the wrong shape")
     return res
 
@@ -1216,6 +1321,7 @@ def nbits8_path(torch, dev, seed, lookups_per_s):
                             "nbits8", global_tables=False)
         time_held(torch, held, f"timing: nbits8 {mode}", lookups_per_s)
         del held
+    persist_path(torch, dev, index, q)
 
 
 def gist_path(torch, dev, seed, lookups_per_s):
@@ -1299,6 +1405,228 @@ def small_reference(torch, dev, seed):
         "(>= 0.99 of ids, distances within 1e-3) in all six modes")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the two-tier search, m-assignment and persistence
+# ---------------------------------------------------------------------------
+def attach_planes(torch, index, what):
+    """Both compact planes on ``index`` (``index.plane``), the codec trained
+    first so the log can split train / encode + layout / layout seconds."""
+    from repro_torch.quant import (PLANE_BACKENDS, plane_block_codes,
+                                   train_plane)
+    for i, b in enumerate(PLANE_BACKENDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codec = train_plane(b, index.vectors, iters=index.config.pq_iters,
+                            generator=torch.Generator().manual_seed(17 + i))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pp = index.plane(b, codec=codec)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        plane_block_codes(pp.codes, index.arrays.block_ids)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        check(pp.codec is codec and index.plane(b) is pp,
+              f"{what}: plane {b} not cached with its codec")
+        log(f"{what}: plane {b} Mc={pp.m} ({pp.bytes_per_item} code bytes "
+            f"per item, the full plane {index.arrays.block_codes.shape[2]}): "
+            f"train {t1 - t0:.3f} s, encode + layout {t2 - t1:.3f} s "
+            f"(layout alone {t3 - t2:.3f} s)")
+
+
+def refine_path(torch, index, q, gt, plain, lookups_per_s):
+    """Two-tier sessions on the main index: both planes at refine factor 4
+    in the six modes (which must agree), recall beside the single-tier
+    runs ``plain``; refine_factor 1 bitwise the plain session; then the
+    wide case (k=100, pq4 x 16: fetch 16,000, K3 and its merge with
+    their selection state in global memory) in the six modes on the
+    first WIDE_QUERIES queries, fused equal to unfused.  Then, sessions
+    released, K1 and K3 held and timed at each mode's first batch at the
+    plane shapes and at the wide shape.  Returns ({plane: {mode: rows}},
+    {plane: launches}, {mode: wide rows}, wide launches)."""
+    from repro_torch.core import RefineParams, recall_at_k
+    from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
+    from repro_torch.quant import PLANE_BACKENDS
+    attach_planes(torch, index, "refine")
+    launches = {}
+    for b in PLANE_BACKENDS:
+        runs = {}
+        reset_launch_counts()
+        for mode, bsz in RUNS:
+            for fused in (False, True):
+                runs[(mode, fused)] = search_run(
+                    torch, index, q, gt, mode, bsz, fused, tag=f"refine {b}",
+                    floor=REFINE_FLOOR, refine=RefineParams(b, 4))
+        launches[b] = launch_counts()
+        check(all(v > 0 for v in launches[b].values()),
+              f"refine {b}: a kernel was never launched")
+        check_agree(torch, runs, f"refine {b}")
+        r = runs[("paged", False)]
+        log(f"refine {b}: recall@10 {recall_at_k(r.ids.cpu(), gt):.4f} "
+            f"(single tier {recall_at_k(plain[('paged', False)].ids.cpu(), gt):.4f}); "
+            f"approx DCO/q {r.approx_dco.float().mean().item():.1f}, refine "
+            f"DCO/q {r.refine_dco.float().mean().item():.1f} (single tier "
+            f"{plain[('paged', False)].refine_dco.float().mean().item():.1f})"
+            f"; launches over its six runs {json.dumps(launches[b])}")
+        for fused in (False, True):
+            rf1 = search_run(torch, index, q, gt, "paged", 1024, fused,
+                             tag=f"refine {b} rf=1",
+                             refine=RefineParams(b, 1))
+            want = plain[("paged", fused)]
+            for f in rf1._fields:
+                check(torch.equal(getattr(rf1, f), getattr(want, f)),
+                      f"refine {b} rf=1 fused={int(fused)} differs from the "
+                      f"plain session on {f}")
+        log(f"refine {b}: refine_factor=1 sessions bitwise equal to the "
+            "plain sessions (paged, fused off and on)")
+    release_sessions(torch, "refine")
+    # the wide case: fetch 16,000 (FW 16384)
+    qw, gw = q[:WIDE_QUERIES].contiguous(), gt[:WIDE_QUERIES]
+    wide, runs = dict(WIDE, refine=RefineParams("pq4", 16)), {}
+    reset_launch_counts()
+    for mode, bsz in RUNS:
+        for fused in (False, True):
+            runs[(mode, fused)] = search_run(torch, index, qw, gw, mode, bsz,
+                                             fused, tag="refine wide",
+                                             **wide)
+            # an unfused graph at B=1024 keeps its (B, 16000, D) re-rank
+            # gather (8.4 GB) in its pool: one session at a time
+            release_sessions(torch, f"refine wide {mode} fused={int(fused)}")
+    wide_launches = launch_counts()
+    log(f"refine wide: launches over the six runs "
+        f"{json.dumps(wide_launches)}")
+    check(all(v > 0 for v in wide_launches.values()),
+          "refine wide: a kernel was never launched")
+    check_agree(torch, runs, "refine wide (fetch 16000)")
+    rows = {b: {} for b in PLANE_BACKENDS}
+    for b in PLANE_BACKENDS:
+        for mode, bsz in RUNS:
+            held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
+                                f"refine {b}", global_tables=False,
+                                refine=RefineParams(b, 4))
+            rows[b][mode] = kernel_rows(torch, held, mode,
+                                        f"timing: refine {b}",
+                                        lookups_per_s)
+            del held
+    wide_rows = {}
+    for mode, bsz in RUNS:
+        held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
+                            "refine wide", global_tables=False,
+                            global_state=True, **wide)
+        wide_rows[mode] = kernel_rows(torch, held, mode,
+                                      "timing: refine wide", lookups_per_s)
+        del held
+    return rows, launches, wide_rows, wide_launches
+
+
+def multi_path(torch, dev, seed):
+    """An m-assignment index (multi_m=3: every vector in three lists,
+    stored unshared) built on the card and searched in every exec mode,
+    fused off and on: the runs must agree (``six_runs``)."""
+    from repro_torch.core import IndexConfig, build_index, ground_truth
+    from repro_torch.data import make_dataset
+    x, q, _ = make_dataset("sift1m", seed, n=MULTI_N, n_queries=1024,
+                           device=dev)
+    t0 = time.perf_counter()
+    index = build_index(x, IndexConfig(**MULTI_INDEX),
+                        generator=torch.Generator().manual_seed(seed),
+                        device=dev)
+    gt = ground_truth(x, q, 10, device=dev)
+    check(index.assigns.shape == (MULTI_N, 3)
+          and bool((index.assigns[:, 1:] > index.assigns[:, :-1]).all()),
+          "multi: assignments are not three distinct sorted lists")
+    log(f"multi: sift1m-shaped n={x.shape[0]} IVF1024 PQ64x4 multi_m=3 "
+        f"built in {time.perf_counter() - t0:.2f} s, phases "
+        + json.dumps({k: round(v, 3) for k, v in index.build_seconds.items()})
+        + f"; {index.stats}")
+    six_runs(torch, index, q, gt, "multi")
+
+
+def persist_path(torch, dev, index, q):
+    """The nbits=8 index with both planes saved as one file and as four
+    shards, loaded on the card, and searched bitwise equal to the index
+    in memory (paged and clustered fused, plain and two-tier); the
+    repository's golden v1 bundle answered alike on the card and on the
+    CPU; a bit-flipped copy refused with CorruptBundleError naming the
+    member."""
+    import tempfile
+    from repro_torch.core import (RefineParams, SearchParams, Searcher,
+                                  load_index, save_index)
+    from repro_torch.errors import CorruptBundleError
+    attach_planes(torch, index, "persist")
+    qb = q[:1024].contiguous()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        single, sharded = Path(tmp) / "nbits8.npz", Path(tmp) / "nbits8"
+        t0 = time.perf_counter()
+        save_index(index, single, extra={"by": "chip_smoke.py"})
+        t1 = time.perf_counter()
+        save_index(index, sharded, shards=4)
+        t2 = time.perf_counter()
+        loaded = {}
+        for name, path in (("one file", single), ("4 shards", sharded)):
+            t3 = time.perf_counter()
+            loaded[name] = load_index(path, device=dev)
+            torch.cuda.synchronize()
+            nbytes = (path.stat().st_size if path.is_file() else
+                      sum(f.stat().st_size for f in path.iterdir()))
+            log(f"persist: {name}: {nbytes} bytes, saved in "
+                f"{(t1 - t0) if path == single else (t2 - t1):.2f} s, "
+                f"loaded on the card in {time.perf_counter() - t3:.2f} s")
+        n = 0
+        for mode in ("paged", "clustered"):
+            for refine in (None, RefineParams("pq4", 4),
+                           RefineParams("binary", 4)):
+                p = SearchParams(**SEARCH, exec_mode=mode, fused_topk=True,
+                                 refine=refine)
+                want = Searcher(index, p)(qb)
+                for name, idx in loaded.items():
+                    got = Searcher(idx, p)(qb)
+                    for f in want._fields:
+                        check(torch.equal(getattr(got, f), getattr(want, f)),
+                              f"persist: {name} {mode} refine={refine} "
+                              f"differs from the index in memory on {f}")
+                    n += 1
+        log(f"persist: {n} sessions of the loaded bundles bitwise equal to "
+            "the index in memory (paged and clustered fused; plain, pq4 x 4 "
+            "and binary x 4)")
+        raw = bytearray(single.read_bytes())
+        raw[raw.index(b"vectors.npy") + 4096] ^= 0x10
+        bad = Path(tmp) / "flipped.npz"
+        bad.write_bytes(bytes(raw))
+        try:
+            load_index(bad, device=dev)
+            fail("persist: a bit-flipped bundle loaded")
+        except CorruptBundleError as e:
+            check(str(e).startswith("flipped.npz:vectors"),
+                  f"persist: CorruptBundleError does not name the member: {e}")
+            log(f"persist: a bit-flipped copy raised CorruptBundleError: {e}")
+    del loaded
+    gc.collect()
+    golden = ROOT / "tests" / "data" / "golden_v1.npz"
+    on_card, on_cpu = load_index(golden, device=dev), load_index(golden,
+                                                                 device="cpu")
+    qg = on_cpu.vectors[:8] + 0.01
+    same_d = 0
+    for mode in ("paged", "grouped", "clustered"):
+        for fused in (False, True):
+            p = SearchParams(k=5, nprobe=2, exec_mode=mode, fused_topk=fused)
+            a = Searcher(on_card, p)(qg.to(dev))
+            b = Searcher(on_cpu, p)(qg)
+            for f in ("ids", "approx_dco", "refine_dco", "scanned_blocks",
+                      "dropped_blocks"):
+                check(torch.equal(getattr(a, f).cpu(), getattr(b, f)),
+                      f"golden v1 {mode} fused={int(fused)}: card and CPU "
+                      f"differ on {f}")
+            check(torch.allclose(a.dists.cpu(), b.dists, rtol=1e-5,
+                                 atol=1e-5),
+                  f"golden v1 {mode}: distances differ beyond 1e-5")
+            same_d += int(torch.equal(a.dists.cpu(), b.dists))
+    log(f"persist: tests/data/golden_v1.npz answers alike on the card and "
+        f"on the CPU in all six modes (ids and DCO equal; distances "
+        f"within 1e-5, {same_d} of 6 bitwise)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1336,7 +1664,8 @@ def main() -> int:
                 log(f"build: {stem}: {line.strip()}")
 
     check_kernels(torch, dev, args.seed)
-    index, q, launches, held, held_reuse = main_path(torch, dev, args)
+    index, q, gt, launches, held, held_reuse, results = main_path(torch, dev,
+                                                                  args)
     rate = lookup_rate(torch)
     time_held(torch, held, "timing: clustered qt=64", rate)
     for mode, h in held_reuse.items():
@@ -1344,14 +1673,16 @@ def main() -> int:
     del held, held_reuse
     rows = time_kernels(torch, index, q[:1024].contiguous(), rate)
     stage_breakdown(torch, index, q[:1024].contiguous())
-    del index
+    refine = refine_path(torch, index, q, gt, results, rate)
+    del index, results
     gc.collect()
     torch.cuda.empty_cache()
     ip_path(torch, dev, args.seed)
+    multi_path(torch, dev, args.seed)
     nbits8_path(torch, dev, args.seed, rate)
     gist_rows, gist_launches = gist_path(torch, dev, args.seed, rate)
     small_reference(torch, dev, args.seed)
-    kernels = kernel_json(rows, launches, gist_rows, gist_launches)
+    kernels = kernel_json(rows, launches, gist_rows, gist_launches, *refine)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,14 @@
 """RAIRS core of the port: k-means IVF training, product quantization,
-AIR-metric assignment, the SEIL layout and the staged searcher."""
+AIR-metric assignment, the SEIL layout, the staged searcher and index
+persistence."""
 from .assign import (STRATEGY_REGISTRY, available_strategies,  # noqa: F401
                      candidate_lists, get_strategy, rair_assign,
-                     register_strategy, single_assign)
+                     rair_assign_multi, register_strategy, single_assign)
 from .index import IndexConfig, RairsIndex, build_index  # noqa: F401
+from .io import (CHECKSUM_FORMAT_VERSION, INDEX_FORMAT,  # noqa: F401
+                 INDEX_FORMAT_VERSION, PLANE_FORMAT_VERSION,
+                 SHARDED_FORMAT_VERSION, load_index, read_index_meta,
+                 save_index)
 from .kmeans import kmeans_fit, kmeans_loop, pairwise_sq_l2  # noqa: F401
 from .metrics import ground_truth, recall_at_k  # noqa: F401
 from .params import (MAX_AUTO_BUCKET, RefineParams,  # noqa: F401

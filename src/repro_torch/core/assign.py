@@ -83,12 +83,43 @@ def single_assign(x: torch.Tensor, centroids: torch.Tensor,
     return torch.cat(outs)
 
 
+def _assign_m_chunk(x, centroids, n_cands, m, aggr, lam):
+    """Greedy strict m-assignment of one chunk (paper §4.3): the nearest
+    list first, then each next list minimising ||r'||^2 + lam * aggr_i
+    r_i^T r' over the residuals r_i chosen so far, never a list twice.
+    -> (n, m) int32 list ids, sorted."""
+    cand_ids, cand_d2 = candidate_lists(x, centroids, n_cands)
+    n, c = cand_ids.shape
+    r = centroids[cand_ids.long()] - x[:, None, :]   # (n, C, D)
+    dots = torch.einsum("ncd,nkd->nck", r, r)        # r_i^T r_j (n, C, C)
+    rows = torch.arange(n, device=x.device)
+    chosen = torch.zeros((n, m), dtype=torch.long, device=x.device)
+    taken = torch.zeros((n, c), dtype=torch.bool, device=x.device)
+    taken[:, 0] = True                               # primary = nearest
+    for j in range(1, m):
+        sel = torch.gather(dots, 1, chosen[:, :j, None].expand(n, j, c))
+        if aggr == "max":
+            agg = sel.amax(dim=1)
+        elif aggr == "min":
+            agg = sel.amin(dim=1)
+        else:
+            agg = sel.sum(dim=1) / j
+        loss = torch.where(taken, torch.inf, cand_d2 + lam * agg)
+        nxt = torch.argmin(loss, dim=-1)             # first minimum
+        chosen[:, j] = nxt
+        taken[rows, nxt] = True
+    return torch.sort(torch.gather(cand_ids, 1, chosen), dim=-1).values
+
+
 def rair_assign_multi(x, centroids, *, m: int = 3, aggr: str = "max",
                       lam: float = 0.5, n_cands: int = 10, chunk: int = 8192):
-    """Strict m-assignment (paper Fig. 14): not ported yet."""
-    raise NotImplementedError(
-        "rair_assign_multi (multi_m > 2) is not ported yet: ROADMAP.md "
-        "Queue 1, 'rair_assign_multi'")
+    """Strict m-assignment (paper Fig. 14).  Returns (n, m) sorted int32
+    list ids, chunked over n like ``rair_assign``."""
+    if aggr not in AGGRS:
+        raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
+    return torch.cat([_assign_m_chunk(x[s:s + chunk], centroids, n_cands, m,
+                                      aggr, lam)
+                      for s in range(0, x.shape[0], chunk)])
 
 
 # ----------------------------------------------------------------------------

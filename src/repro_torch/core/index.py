@@ -44,7 +44,7 @@ class IndexConfig:
     lam: float = 0.5
     n_cands: int = 10
     metric: str = "l2"
-    multi_m: int = 2                  # >2 enables m-assignment (not ported)
+    multi_m: int = 2                  # >2 enables m-assignment
     aggr: str = "max"
     kmeans_iters: int = 15
     pq_iters: int = 12
@@ -139,6 +139,30 @@ class RairsIndex:
             cache[params] = Searcher(self, params)
         return cache[params]
 
+    def plane(self, backend: str, codec=None):
+        """Attach (or fetch) a compact code plane (``quant/plane.py``),
+        cached per backend: the codec is trained (pq4, from a generator
+        seeded with 17 plus the backend's position in
+        ``PLANE_BACKENDS``) or closed-form (binary) from the refine
+        store, every id is encoded, and the codes are gathered into this
+        index's SEIL block layout, nibble-packed, on its device.  Pass
+        ``codec=`` (a ``PQCodebook``) to carry a trained codec across,
+        e.g. one the reference trained: encoding is deterministic."""
+        from ..quant import PLANE_BACKENDS, build_plane
+        if backend not in PLANE_BACKENDS:
+            raise ValueError(f"unknown plane backend {backend!r}; "
+                             f"choose from {PLANE_BACKENDS}")
+        cache = self.__dict__.setdefault("_planes", {})
+        hit = cache.get(backend)
+        if hit is not None and (codec is None or codec is hit.codec):
+            return hit
+        gen = torch.Generator().manual_seed(
+            17 + PLANE_BACKENDS.index(backend))
+        cache[backend] = build_plane(
+            backend, self.vectors, self.arrays.block_ids, codec=codec,
+            iters=self.config.pq_iters, generator=gen, device=self.device)
+        return cache[backend]
+
     def search(self, queries, k: int, nprobe: int, k_factor: int = 10,
                max_scan: Optional[int] = None, exec_mode: str = "paged",
                query_tile: int = 8, *,
@@ -152,10 +176,12 @@ class RairsIndex:
 
 def compute_assignments(x: torch.Tensor, centroids: torch.Tensor,
                         cfg: IndexConfig) -> np.ndarray:
-    """Dispatch to the registered assignment strategy."""
+    """Dispatch to the registered assignment strategy (m-assignment,
+    paper §4.3, overrides the pairwise strategies when multi_m > 2)."""
     if cfg.multi_m > 2:
-        rair_assign_multi(x, centroids, m=cfg.multi_m, aggr=cfg.aggr,
-                          lam=cfg.lam, n_cands=cfg.n_cands)
+        return rair_assign_multi(x, centroids, m=cfg.multi_m, aggr=cfg.aggr,
+                                 lam=cfg.lam, n_cands=cfg.n_cands
+                                 ).cpu().numpy()
     return np.asarray(get_strategy(cfg.strategy)(x, centroids, cfg))
 
 
@@ -207,9 +233,11 @@ def build_index(x, cfg: IndexConfig, *,
     times["encode"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    # SEIL shares cells of two lists; m-assignment stores every copy
     arrays, stats = build_seil(
         assigns, codes, np.arange(n, dtype=np.int32), cfg.nlist,
-        block=cfg.block, shared=cfg.seil, code_bits=cfg.nbits, device=dev)
+        block=cfg.block, shared=cfg.seil and cfg.multi_m == 2,
+        code_bits=cfg.nbits, device=dev)
     _sync(dev)
     times["layout"] = time.perf_counter() - t0
 

@@ -20,9 +20,10 @@ REFINE_PLANES = ("pq4", "binary", "full")
 
 @dataclasses.dataclass(frozen=True)
 class RefineParams:
-    """Two-tier scan knobs (quantization ladder).  Validated here so the
-    params object matches the reference; sessions of the port do not run
-    the ladder yet (ROADMAP.md Queue 1, 'quantization ladder')."""
+    """Two-tier scan knobs (quantization ladder): tier 1 scans the
+    compact ``plane`` ("pq4" | "binary"; "full" keeps the full plane and
+    only widens) and keeps ``bigk * refine_factor`` survivors; tier 2
+    re-ranks them exactly."""
     plane: str = "pq4"
     refine_factor: int = 4
 
@@ -50,10 +51,10 @@ class SearchParams:
                  with ``fused_topk``); on the CPU their plain versions.
     fused_topk   fuse the scan with the stable top-fetch selection (K3)
     query_tile   grouped/clustered query tile
-    plan_reuse   incremental plans (not ported yet)
+    plan_reuse   incremental plans (probe -> plan-cache merge -> scan)
     batch_buckets  optional ascending pad-and-dispatch bucket sizes;
                  None -> powers of two up to MAX_AUTO_BUCKET
-    refine       two-tier scan (not ported yet)
+    refine       two-tier scan over a compact plane (RefineParams)
     """
     k: int = 10
     nprobe: int = 16
@@ -101,6 +102,23 @@ class SearchParams:
     @property
     def bigk(self) -> int:
         return self.k * self.k_factor
+
+    @property
+    def bigk_eff(self) -> int:
+        """Tier-1 survivor budget: bigK widened by the refine factor."""
+        if self.refine is None:
+            return self.bigk
+        return self.bigk * self.refine.refine_factor
+
+    @property
+    def active_plane(self) -> Optional[str]:
+        """The compact-plane backend the scan substitutes, or None when
+        the program is the plain single-tier one (no refine, the "full"
+        widening ablation, or refine_factor=1)."""
+        r = self.refine
+        if r is None or r.plane == "full" or r.refine_factor == 1:
+            return None
+        return r.plane
 
     def resolve(self, index) -> "SearchParams":
         """Pin index-dependent defaults and cross-check against the index."""

@@ -24,6 +24,13 @@ width bucket covering the live entries.  While a tracer is active
 (``obs/``) the whole-pipeline dispatch goes through the stage-fenced
 ``seil_search_traced`` instead, and the plan-reuse dispatch fences its
 probe / merge / scan boundaries; results stay bitwise equal.
+
+With ``refine`` (the two-tier search) the session resolves the compact
+plane once (``index.plane``) and its executables scan the plane's packed
+block codes with the plane's codec and keep ``bigk_eff`` survivors for
+the exact re-rank; the plane's tensors are static inputs of the CUDA
+graphs like the index's own.  ``refine_factor=1`` and the "full" plane
+keep the plain program.
 """
 from __future__ import annotations
 
@@ -99,12 +106,12 @@ class Searcher:
     def __init__(self, index, params: SearchParams):
         if not isinstance(params, SearchParams):
             raise TypeError(f"params must be SearchParams, got {type(params)}")
-        if params.refine is not None:
-            raise NotImplementedError(
-                "refine is not ported yet: ROADMAP.md Queue 1, item 4 "
-                "(quantization ladder)")
         self.index = index
         self.params = params.resolve(index)
+        # the two-tier scan: the compact plane, resolved once
+        ap = self.params.active_plane
+        self._plane = index.plane(ap) if ap is not None else None
+        self._arrays, self._codebook, self._packed = self._scan_state()
         self.stats = SearcherStats()
         self.plan_stats = PlanStats()
         self._compiled: Dict[Any, Any] = {}
@@ -127,13 +134,25 @@ class Searcher:
             d["plan"] = self.plan_stats.summary()
         return d
 
+    def _scan_state(self) -> tuple:
+        """(arrays, codebook, packed) the scan stages run over: with a
+        compact plane its packed block codes and its codec, else the
+        index's own.  The refine store and finalize are untouched."""
+        idx = self.index
+        if self._plane is None:
+            return idx.arrays, idx.codebook, False
+        return (dataclasses.replace(idx.arrays,
+                                    block_codes=self._plane.block_codes),
+                self._plane.codec, True)
+
     # -- the three executables --------------------------------------------
     def _search_kw(self) -> dict:
         p, idx = self.params, self.index
-        return dict(bigk=p.bigk, k=p.k, metric=idx.config.metric,
+        return dict(bigk=p.bigk_eff, k=p.k, metric=idx.config.metric,
                     dedup_results=idx.needs_result_dedup,
                     oversample=idx.result_oversample, exec_mode=p.exec_mode,
-                    query_tile=p.query_tile, fused_topk=p.fused_topk)
+                    query_tile=p.query_tile, fused_topk=p.fused_topk,
+                    packed_codes=self._packed)
 
     def _zeros(self, bucket: int) -> torch.Tensor:
         idx = self.index
@@ -163,9 +182,11 @@ class Searcher:
         kw = dict(self._search_kw(), nprobe=self.params.nprobe,
                   max_scan=self.params.max_scan)
 
+        arrays, codebook = self._arrays, self._codebook
+
         def fn(q):
-            return seil_search(idx.arrays, idx.centroids, idx.codebook,
-                               idx.vectors, q, **kw)
+            return seil_search(arrays, idx.centroids, codebook, idx.vectors,
+                               q, **kw)
         return self._get_exe(bucket,
                              lambda: self._make(fn, (self._zeros(bucket),)))
 
@@ -177,9 +198,10 @@ class Searcher:
                   metric=idx.config.metric, exec_mode=p.exec_mode,
                   query_tile=p.query_tile)
 
+        arrays, codebook = self._arrays, self._codebook
+
         def fn(q):
-            return q, probe_plan(idx.arrays, idx.centroids, idx.codebook, q,
-                                 **kw)
+            return q, probe_plan(arrays, idx.centroids, codebook, q, **kw)
         return self._get_exe(
             ("probe", bucket),
             lambda: self._make(fn, (self._zeros(bucket),), clone=False))
@@ -189,10 +211,10 @@ class Searcher:
         probe executable's outputs ``(qp, pr)``."""
         idx = self.index
         kw = self._search_kw()
+        arrays = self._arrays
 
         def fn(q, probe, unions):
-            return scan_finalize(idx.arrays, idx.vectors, q, probe, unions,
-                                 **kw)
+            return scan_finalize(arrays, idx.vectors, q, probe, unions, **kw)
 
         def make():
             unions = torch.full((pr.unions.shape[0], width), BIG,
@@ -205,7 +227,7 @@ class Searcher:
         """The stage-fenced pipeline, run while a tracer is active."""
         p, idx = self.params, self.index
         return seil_search_traced(
-            idx.arrays, idx.centroids, idx.codebook, idx.vectors, qc,
+            self._arrays, idx.centroids, self._codebook, idx.vectors, qc,
             nprobe=p.nprobe, max_scan=p.max_scan, **self._search_kw())
 
     def _dispatch(self, bucket: int, qc: torch.Tensor) -> SearchResult:

@@ -58,6 +58,18 @@
 //     memory through the read-only cache (adc.cuh's LdgTable) and shared
 //     memory holds only the selection state and plan slots; the shape
 //     alone picks it (kernels/pq_scan.py::query_groups).
+//   * Selection state in global memory (GS).  Each query's state is
+//     4 * 6 * FW bytes: 393 KB at FW = 16384 (fetch above 8192), more than
+//     a CTA's shared memory.  Then the six FW-wide arrays of every query
+//     live in a scratch tensor the wrapper allocates (one slice per CTA,
+//     from PyTorch's caching allocator, so CUDA-graph capture still
+//     works), and shared memory keeps the tables, the queue fills, the
+//     plan slots and the DCO counts.  The same filter, queue and bitonic
+//     network run over the global arrays in the same order, so the result
+//     is the same bitwise; a barrier orders global memory within a CTA as
+//     it orders shared memory.  The merge has the same form.  The wrapper
+//     caps the splits so that the scratch stays near 512 MiB
+//     (kernels/pq_scan.py::k3_splits).  The shape alone picks the form.
 //
 // pos = slot * BLK + lane is unique among a query's kept candidates and
 // every pad is (+inf, PAD_POS, -1), so the result is the stable selection
@@ -227,26 +239,31 @@ __device__ void flush(const Sel& s) {
   __syncthreads();
 }
 
-// Carve nq accumulators and queues of width fw out of shared memory at
-// `p`; returns the first word past them.
-__device__ __forceinline__ int* carve(Sel& s, int* p, int nq, int fw,
-                                      int fetch) {
-  const int n = nq * fw;
+// Words of the six FW-wide selection arrays of nq queries.
+__host__ __device__ __forceinline__ size_t sel_array_words(int nq, int fw) {
+  return 6 * (size_t)nq * fw;
+}
+
+// Point nq accumulators and queues of width fw at `p` (shared or global
+// memory: sel_array_words(nq, fw) words) and their fills at `cnt`
+// (shared memory, nq words).
+__device__ __forceinline__ void carve(Sel& s, int* p, int* cnt, int nq,
+                                      int fw, int fetch) {
+  const size_t n = (size_t)nq * fw;
   s.ad = reinterpret_cast<float*>(p);
   s.ap = p + n;
   s.ai = p + 2 * n;
   s.qd = reinterpret_cast<float*>(p + 3 * n);
   s.qp = p + 4 * n;
   s.qi = p + 5 * n;
-  s.cnt = p + 6 * n;
+  s.cnt = cnt;
   s.nq = nq;
   s.fw = fw;
   s.lw = __ffs(fw) - 1;
   s.fetch = fetch;
-  return s.cnt + nq;
 }
 
-template <bool PACKED, bool GT>
+template <bool PACKED, bool GT, bool GS>
 __global__ void __launch_bounds__(NT) pq_scan_topk(
     const float* __restrict__ lut, const uint8_t* __restrict__ codes,
     const int32_t* __restrict__ block_ids,
@@ -255,8 +272,9 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
     const int32_t* __restrict__ slot_of, const int32_t* __restrict__ rank_u,
     const uint8_t* __restrict__ dead, float* __restrict__ part_d,
     int32_t* __restrict__ part_pos, int32_t* __restrict__ part_id,
-    int32_t* __restrict__ dco, int M, int K, int BLK, int MB, int S, int QT,
-    int QS, int nlist, int FW, int fetch, int s_per, int vec16) {
+    int32_t* __restrict__ dco, int* __restrict__ state, int M, int K,
+    int BLK, int MB, int S, int QT, int QS, int nlist, int FW, int fetch,
+    int s_per, int vec16) {
   extern __shared__ int smem[];
   const int qi = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31;
@@ -264,9 +282,14 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
   const int P = max(1, NT / BLK);  // positions per round
   const int n_lut = GT ? 0 : QT * M * K;  // tables staged in shared memory
   float* slut = reinterpret_cast<float*>(smem);
+  const size_t n_sel = sel_array_words(QT, FW);
+  int* cnt = smem + n_lut + (GS ? 0 : n_sel);             // QT
   Sel sel;
-  int* sslot = carve(sel, smem + n_lut, QT, FW, fetch);  // QT * P
-  int* sdco = sslot + QT * P;                             // QT
+  carve(sel,
+        GS ? state + (size_t)(qi * splits + split) * n_sel : smem + n_lut,
+        cnt, QT, FW, fetch);
+  int* sslot = cnt + QT;                                   // QT * P
+  int* sdco = sslot + QT * P;                              // QT
 
   const float* glut = lut + (size_t)qi * QS * M * K;
   for (int j = tid; j < n_lut; j += NT) slut[j] = glut[j];
@@ -364,16 +387,19 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
 // One CTA per query: the top-F under (d, pos) of `splits` ascending lists
 // of F triples, (B, splits, F) -> (B, F).  The first list seeds the
 // accumulator; the others pass through the same filter and queue as the
-// scan.
+// scan.  GS: the selection arrays live in `state`, one slice per query.
+template <bool GS>
 __global__ void __launch_bounds__(MERGE_NT) topk_merge(
     const float* __restrict__ part_d, const int32_t* __restrict__ part_pos,
     const int32_t* __restrict__ part_id, float* __restrict__ out_d,
-    int32_t* __restrict__ out_pos, int32_t* __restrict__ out_id, int splits,
-    int fetch, int FW) {
+    int32_t* __restrict__ out_pos, int32_t* __restrict__ out_id,
+    int* __restrict__ state, int splits, int fetch, int FW) {
   extern __shared__ int smem[];
   const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t n_sel = sel_array_words(1, FW);
   Sel sel;
-  carve(sel, smem, 1, FW, fetch);
+  carve(sel, GS ? state + (size_t)b * n_sel : smem, smem + (GS ? 0 : n_sel),
+        1, FW, fetch);
   const size_t base = (size_t)b * splits * fetch;
   for (int c = tid; c < FW; c += MERGE_NT) {
     const bool in = c < fetch;
@@ -410,9 +436,14 @@ __global__ void __launch_bounds__(MERGE_NT) topk_merge(
   }
 }
 
-size_t sel_words(int nq, int fw) { return 6 * (size_t)nq * fw + nq; }
-
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+using ScanKernel = decltype(&pq_scan_topk<false, false, false>);
+
+template <bool GT, bool GS>
+ScanKernel scan_kernel(bool packed) {
+  return packed ? pq_scan_topk<true, GT, GS> : pq_scan_topk<false, GT, GS>;
+}
 
 }  // namespace
 
@@ -423,22 +454,31 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory of one scan CTA: the tables (none when they are
-// read from global memory), the selection state and the round's staged plan
-// slots and DCO counts (layout at the top of pq_scan_topk).  The wrapper
-// picks the form and cuts a tile into query groups by it
+// read from global memory), the selection arrays (none when they live in
+// global memory), the queue fills, and the round's staged plan slots and
+// DCO counts (layout at the top of pq_scan_topk).  The wrapper picks the
+// form and cuts a tile into query groups by it
 // (kernels/pq_scan.py::query_groups).
 size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
-                               int global_tables) {
+                               int global_tables, int global_state) {
   const int P = NT / BLK > 1 ? NT / BLK : 1;
   const size_t tables = global_tables ? 0 : (size_t)QT * M * K;
-  return sizeof(int) * (tables + sel_words(QT, FW) + (size_t)QT * P + QT);
+  const size_t arrays = global_state ? 0 : sel_array_words(QT, FW);
+  return sizeof(int) * (tables + arrays + QT + (size_t)QT * P + QT);
+}
+
+// Dynamic shared memory of one merge CTA (one query).
+size_t topk_merge_smem_bytes(int FW, int global_state) {
+  return sizeof(int) * ((global_state ? 0 : sel_array_words(1, FW)) + 1);
 }
 
 // lut (B, M, K) f32; codes (TB, BLK, MB) u8; block_ids / block_other
 // (TB, BLK) i32; tile_idx (B / QS, S) i32; rank_of (B, nlist) i32;
 // slot_of / rank_u (B, S) i32; dead (TB, BLK) u8 or NULL; part_d /
 // part_pos / part_id (B, splits, fetch), the output itself when splits is
-// 1; dco (B,) i32, zeroed.  A tile has QS query rows and this launch
+// 1; dco (B,) i32, zeroed; state NULL, or (GS form) T * splits *
+// sel_array_words(QT, FW) i32 of scratch, CTA (qi, y) at slice
+// qi * splits + y.  A tile has QS query rows and this launch
 // scores QT of them (a query group, kernels/pq_scan.py::query_groups):
 // lut, rank_of, slot_of, rank_u, the part_* and dco point at the group's
 // first row of tile 0, and CTA qi takes rows qi * QS + [0, QT).  Split y
@@ -450,10 +490,10 @@ int pq_scan_topk_launch(const void* lut, const void* codes,
                         const void* tile_idx, const void* rank_of,
                         const void* slot_of, const void* rank_u,
                         const void* dead, void* part_d, void* part_pos,
-                        void* part_id, void* dco, int B, int M, int K, int BLK,
-                        int MB, int S, int QT, int QS, int nlist, int FW,
-                        int fetch, int packed, int splits, int s_per,
-                        int global_tables, void* stream) {
+                        void* part_id, void* dco, void* state, int B, int M,
+                        int K, int BLK, int MB, int S, int QT, int QS,
+                        int nlist, int FW, int fetch, int packed, int splits,
+                        int s_per, int global_tables, void* stream) {
   if (QT < 1 || QT > MAX_QT || QT > QS || B % QS != 0 || !pow2(BLK) ||
       !pow2(FW) ||
       FW < 2 || fetch < 1 || fetch > FW || splits < 1 || s_per < 1 ||
@@ -461,15 +501,18 @@ int pq_scan_topk_launch(const void* lut, const void* codes,
     return (int)cudaErrorInvalidValue;
   const int T = B / QS;
   if (T == 0) return 0;
+  const bool gs = state != nullptr;
   const size_t smem =
-      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables);
+      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables, gs);
   const int vec16 =
       (MB % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kern = global_tables ? (packed ? pq_scan_topk<true, true>
-                                      : pq_scan_topk<false, true>)
-                            : (packed ? pq_scan_topk<true, false>
-                                      : pq_scan_topk<false, false>);
+  const ScanKernel kern =
+      global_tables
+          ? (gs ? scan_kernel<true, true>(packed)
+                : scan_kernel<true, false>(packed))
+          : (gs ? scan_kernel<false, true>(packed)
+                : scan_kernel<false, false>(packed));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -482,31 +525,34 @@ int pq_scan_topk_launch(const void* lut, const void* codes,
       static_cast<const int32_t*>(slot_of),
       static_cast<const int32_t*>(rank_u), static_cast<const uint8_t*>(dead),
       static_cast<float*>(part_d), static_cast<int32_t*>(part_pos),
-      static_cast<int32_t*>(part_id), static_cast<int32_t*>(dco), M, K, BLK,
-      MB, S, QT, QS, nlist, FW, fetch, s_per, vec16);
+      static_cast<int32_t*>(part_id), static_cast<int32_t*>(dco),
+      static_cast<int*>(state), M, K, BLK, MB, S, QT, QS, nlist, FW, fetch,
+      s_per, vec16);
   return (int)cudaGetLastError();
 }
 
 // part_d / part_pos / part_id (B, splits, fetch), each list ascending by
-// (d, pos); out_d / out_pos / out_id (B, fetch).  FW as above.
+// (d, pos); out_d / out_pos / out_id (B, fetch); state NULL, or (GS form)
+// B * sel_array_words(1, FW) i32 of scratch.  FW as above.
 int topk_merge_launch(const void* part_d, const void* part_pos,
                       const void* part_id, void* out_d, void* out_pos,
-                      void* out_id, int B, int splits, int fetch, int FW,
-                      void* stream) {
+                      void* out_id, void* state, int B, int splits, int fetch,
+                      int FW, void* stream) {
   if (!pow2(FW) || FW < 2 || fetch < 1 || fetch > FW || splits < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t smem = sizeof(int) * sel_words(1, FW);
+  const bool gs = state != nullptr;
+  const size_t smem = topk_merge_smem_bytes(FW, gs);
+  auto kern = gs ? topk_merge<true> : topk_merge<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  topk_merge<<<dim3(B), dim3(MERGE_NT), smem,
-               static_cast<cudaStream_t>(stream)>>>(
+  kern<<<dim3(B), dim3(MERGE_NT), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_d),
       static_cast<const int32_t*>(part_pos),
       static_cast<const int32_t*>(part_id), static_cast<float*>(out_d),
-      static_cast<int32_t*>(out_pos), static_cast<int32_t*>(out_id), splits,
-      fetch, FW);
+      static_cast<int32_t*>(out_pos), static_cast<int32_t*>(out_id),
+      static_cast<int*>(state), splits, fetch, FW);
   return (int)cudaGetLastError();
 }
 

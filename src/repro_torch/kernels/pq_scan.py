@@ -25,6 +25,8 @@ K1_THREADS = 256           # threads of a K1 CTA (NT in pq_scan.cu)
 _K1_TARGET_CTAS = 8 * 132  # two waves and more of K1 CTAs on the H100
 _K1_MIN_ITEMS = 4 * K1_THREADS   # items a K1 CTA scores at least
 K1_MAX_POSITIONS = 1024    # tile_idx entries a K1 CTA stages (pq_scan.cu)
+STATE_BUDGET = 1 << 29     # bytes of K3 selection state in global memory
+                           # that k3_splits aims a launch at
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -44,29 +46,47 @@ class QueryGroups(list):
     """The query groups of a tile, ``[(q0, q1), ...]``, one launch each,
     and the kernel form they run: ``global_tables`` is True when the
     launches read the tables from global memory (one query's tables alone
-    do not fit in a CTA's shared memory)."""
+    do not fit in a CTA's shared memory), ``global_state`` when K3 keeps
+    its selection arrays in global memory (one query's arrays do not fit
+    beside the rest of its state)."""
 
-    def __init__(self, groups, global_tables: bool = False):
+    def __init__(self, groups, global_tables: bool = False,
+                 global_state: bool = False):
         super().__init__(groups)
         self.global_tables = global_tables
+        self.global_state = global_state
+
+    @property
+    def largest(self) -> int:
+        """Queries in the largest group."""
+        return max(q1 - q0 for q0, q1 in self)
 
 
 def query_groups(qt: int, bytes_per_query: int, fixed_bytes: int = 0, *,
-                 table_bytes=None, limit: int = SMEM_LIMIT,
-                 max_group: int = 0) -> QueryGroups:
+                 table_bytes=None, state_bytes: int = 0,
+                 limit: int = SMEM_LIMIT, max_group: int = 0) -> QueryGroups:
     """Cut a query tile of ``qt`` queries into groups whose shared memory,
     ``fixed_bytes + n * bytes_per_query`` for a group of n, fits
     ``limit`` (and n <= ``max_group`` when that is given): ``[(q0, q1),
     ...]``, as few and as even as can be, covering ``[0, qt)`` in order,
     none empty.  ``table_bytes`` of ``bytes_per_query`` are the query's
-    tables (all of it when None).  When one query alone does not fit,
-    its tables stay in global memory: the groups are sized without them
-    and ``global_tables`` is set.  Raises ``ValueError`` only when one
-    query's state without its tables does not fit either."""
+    tables (all of it when None), ``state_bytes`` its selection arrays
+    (K3; 0 when they cannot move).  When one query alone does not fit,
+    its tables stay in global memory.  When it still does not fit, its
+    selection arrays go to global memory too, and the tables come back
+    to shared memory if they then fit.  The groups are sized by what
+    stays; ``global_tables`` / ``global_state`` say what moved.  Raises
+    ``ValueError`` only when one query's rest does not fit either."""
     tables = bytes_per_query if table_bytes is None else table_bytes
     global_tables = fixed_bytes + bytes_per_query > limit
     if global_tables:
         bytes_per_query -= tables
+    global_state = bool(state_bytes) and fixed_bytes + bytes_per_query > limit
+    if global_state:
+        bytes_per_query -= state_bytes
+        if global_tables and fixed_bytes + bytes_per_query + tables <= limit:
+            global_tables = False
+            bytes_per_query += tables
     fit = (limit - fixed_bytes) // bytes_per_query if bytes_per_query else qt
     if max_group:
         fit = min(fit, max_group)
@@ -77,7 +97,7 @@ def query_groups(qt: int, bytes_per_query: int, fixed_bytes: int = 0, *,
             "block may use")
     n = -(-qt // fit)
     return QueryGroups([(g * qt // n, (g + 1) * qt // n) for g in range(n)],
-                       global_tables)
+                       global_tables, global_state)
 
 
 def scan_splits(t: int, s: int, blk: int) -> tuple:
@@ -99,16 +119,21 @@ def scan_splits(t: int, s: int, blk: int) -> tuple:
     return splits, s_per
 
 
-def _library_groups(qt: int, smem_of, max_group: int = 0) -> QueryGroups:
+def _library_groups(qt: int, smem_of, max_group: int = 0,
+                    movable_state: bool = False) -> QueryGroups:
     """``query_groups`` for a launch whose shared memory the kernel's
     library reports: ``smem_of(n, global_tables)`` bytes for a group of
     n queries, linear in n, with the tables in shared memory (0) or in
-    global memory (1)."""
+    global memory (1); with ``movable_state`` also
+    ``smem_of(n, global_tables, global_state)``, the selection arrays in
+    shared (0) or global (1) memory."""
     fixed = smem_of(0, 0)
     per = smem_of(1, 0) - fixed
-    state = smem_of(1, 1) - smem_of(0, 1)
-    return query_groups(qt, per, fixed, table_bytes=per - state,
-                        max_group=max_group)
+    rest = smem_of(1, 1) - smem_of(0, 1)
+    arrays = (per - (smem_of(1, 0, 1) - smem_of(0, 0, 1)) if movable_state
+              else 0)
+    return query_groups(qt, per, fixed, table_bytes=per - rest,
+                        state_bytes=arrays, max_group=max_group)
 
 
 def k1_query_groups(m: int, k: int, qt: int, s_per: int) -> QueryGroups:
@@ -127,8 +152,38 @@ def k3_query_groups(m: int, k: int, qt: int, fw: int,
     ``MAX_QUERY_TILE`` each (on the card only)."""
     lib = build.load("pq_scan_topk")
     return _library_groups(
-        qt, lambda n, g: lib.pq_scan_topk_smem_bytes(m, k, n, fw, blk, g),
-        max_group=MAX_QUERY_TILE)
+        qt, lambda n, g, gs=0: lib.pq_scan_topk_smem_bytes(m, k, n, fw, blk,
+                                                           g, gs),
+        max_group=MAX_QUERY_TILE, movable_state=True)
+
+
+def state_words(nq: int, fw: int) -> int:
+    """int32 words of the six FW-wide selection arrays of ``nq`` queries:
+    what a K3 CTA keeps in global memory in the global-state form."""
+    return 6 * nq * fw
+
+
+def k3_splits(t: int, s: int, blk: int, fw: int, groups) -> tuple:
+    """K3's ``(splits, s_per)`` for a tile shape and its query groups:
+    ``topk_splits``, with the splits capped in the global-state form so
+    that the launch's scratch (``t * splits`` CTAs of
+    ``state_words(groups.largest, fw)``) stays within ``STATE_BUDGET``
+    where one split allows it."""
+    splits, s_per = topk_splits(t, s, blk)
+    if groups.global_state:
+        cap = max(1, STATE_BUDGET
+                  // (4 * max(t, 1) * state_words(groups.largest, fw)))
+        if splits > cap:
+            s_per = max(1, -(-s // cap))
+            splits = max(1, -(-s // s_per))
+    return splits, s_per
+
+
+def merge_global_state(fw: int) -> bool:
+    """Whether K3's merge keeps a query's selection arrays in global
+    memory: they do not fit in a CTA's shared memory (on the card only)."""
+    lib = build.load("pq_scan_topk")
+    return lib.topk_merge_smem_bytes(fw, 0) > SMEM_LIMIT
 
 
 def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
@@ -224,7 +279,9 @@ def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
                       part_id: torch.Tensor):
     """K3's merge.  (B, splits, F) lists, each ascending by (d, pos)
     with pads ``(+inf, PAD_POS, -1)`` last -> their top-F
-    ``(acc_d, acc_pos, acc_id)``, (B, F) ascending by (d, pos)."""
+    ``(acc_d, acc_pos, acc_id)``, (B, F) ascending by (d, pos).  Where a
+    query's selection arrays pass a CTA's shared memory (fetch above
+    8192) they live in a scratch tensor (``merge_global_state``)."""
     if part_d.device.type == "cpu":
         return merge_topk_ref(part_d, part_pos, part_id)
     b, splits, fetch = part_d.shape
@@ -241,10 +298,14 @@ def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
     out = (torch.empty((b, fetch), dtype=torch.float32, device=dev),
            torch.empty((b, fetch), dtype=torch.int32, device=dev),
            torch.empty((b, fetch), dtype=torch.int32, device=dev))
+    fw = topk_width(fetch)
+    state = (torch.empty(b * state_words(1, fw), dtype=torch.int32,
+                         device=dev) if merge_global_state(fw) else None)
     lib = build.load("pq_scan_topk")
     err = lib.topk_merge_launch(
         part_d.data_ptr(), part_pos.data_ptr(), part_id.data_ptr(),
-        *(x.data_ptr() for x in out), b, splits, fetch, topk_width(fetch),
+        *(x.data_ptr() for x in out),
+        None if state is None else state.data_ptr(), b, splits, fetch, fw,
         _stream(dev))
     build.check(lib, err, "merge_topk_kernel")
     merge_topk_kernel.launches += 1
@@ -268,7 +329,9 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     ``MAX_QUERY_TILE`` queries, is scanned in ``k3_query_groups``, one
     launch each; every output row depends only on its own query's rows
     and the tile's list, so the split is exact.  Where one query's
-    tables alone do not fit, the kernel reads them from global memory."""
+    tables alone do not fit, the kernel reads them from global memory;
+    where its selection arrays do not fit (fetch above 8192), they live
+    in a scratch tensor, and ``k3_splits`` caps the splits."""
     if lut.device.type == "cpu":
         return pq_scan_topk_ref(lut, block_codes, block_ids, block_other,
                                 tile_idx, rank_of, slot_of, rank_u, dead,
@@ -307,7 +370,10 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     fw = topk_width(fetch)
     groups = k3_query_groups(m, k, query_tile, fw, blk)
     lib = build.load("pq_scan_topk")
-    splits, s_per = topk_splits(t, s, blk)
+    splits, s_per = k3_splits(t, s, blk, fw, groups)
+    state = (torch.empty(t * splits * state_words(groups.largest, fw),
+                         dtype=torch.int32, device=dev)
+             if groups.global_state else None)
     acc = tuple(torch.empty((b, fetch), dtype=dt, device=dev)
                 for dt in (torch.float32, torch.int32, torch.int32))
     part = acc if splits == 1 else tuple(
@@ -322,7 +388,9 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
             slot_of.data_ptr() + 4 * q0 * s, rank_u.data_ptr() + 4 * q0 * s,
             None if dead is None else dead.data_ptr(),
             *(x.data_ptr() + 4 * q0 * splits * fetch for x in part),
-            dco.data_ptr() + 4 * q0, b, m, k, blk, mb, s, q1 - q0,
+            dco.data_ptr() + 4 * q0,
+            None if state is None else state.data_ptr(), b, m, k, blk, mb, s,
+            q1 - q0,
             query_tile, nlist, fw, fetch, int(packed), splits, s_per,
             int(groups.global_tables), _stream(dev))
         build.check(lib, err, "pq_scan_topk_kernel")

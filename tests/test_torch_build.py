@@ -129,9 +129,19 @@ def test_build_index_trains_itself(unit_data):
     assert torch.equal(idx.centroids, again.centroids)
     res = idx.searcher(nprobe=8, device="cpu")(t(q[:100]))
     assert recall_at_k(res.ids, gt[:100]) >= 0.8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_index(t(x[:500]), IndexConfig(nlist=8, multi_m=3),
-                    device="cpu")
+    # multi_m=3 (m-assignment, once refused) builds: three distinct lists
+    # per vector, each copy stored, as the reference lays them out
+    multi = build_index(t(x[:500]), IndexConfig(nlist=16, multi_m=3),
+                        device="cpu")
+    assert multi.assigns.shape == (500, 3)
+    assert (np.diff(multi.assigns, axis=1) > 0).all()
+    want = jassign.rair_assign_multi(x[:500], jnp.asarray(
+        multi.centroids.numpy()), m=3, aggr="max", n_cands=10)
+    assert (multi.assigns == np.asarray(want)).all(axis=1).mean() >= 0.99
+    jarr, _ = j_build_seil(multi.assigns, multi.codes,
+                           np.arange(500, dtype=np.int32), 16, shared=False)
+    np.testing.assert_array_equal(multi.arrays.block_ids.numpy(),
+                                  np.asarray(jarr.block_ids))
 
 
 def test_index_config_validation():

@@ -257,3 +257,146 @@ def test_k3_query_groups_match_whole_plain_and_pallas(mode, qt, m, k, b):
     for name, g, w in zip(("acc_pos", "acc_id", "dco"), got[1:], want[1:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert (got[1] < PAD_POS).any()              # something was kept
+
+
+# ---------------------------------------------------------------------------
+# K3's selection state in global memory (fetch above 8192)
+# ---------------------------------------------------------------------------
+def _k3_smem_gs(m, k, fw, blk):
+    """pq_scan_topk.cu's pq_scan_topk_smem_bytes with its global-state
+    flag, written out: tables, six FW-wide selection arrays (none in the
+    global-state form), a queue fill, the round's plan slots and DCO."""
+    p = max(1, tpq.TOPK_THREADS // blk)
+    return lambda n, g, gs=0: 4 * ((0 if g else n * m * k)
+                                   + (0 if gs else 6 * n * fw) + n + n * p
+                                   + n)
+
+
+@pytest.mark.parametrize("m,k,fw,qt,tables,state,groups", [
+    # fetch 16,000 (FW 16384) on PQ64x4, pq4 (M 16) and binary (M 32)
+    # planes: 393 KB of state per query, tables back in shared memory
+    (64, 16, 16384, 8, False, True, [(0, 8)]),
+    (16, 16, 16384, 8, False, True, [(0, 8)]),
+    (32, 16, 16384, 1, False, True, [(0, 1)]),
+    (64, 16, 16384, 64, False, True, [(0, 32), (32, 64)]),
+    # both moved: 256 KB of tables and 393 KB of state per query
+    (256, 256, 16384, 8, True, True, [(0, 8)]),
+    # FW 8192: one query's state (196 KB) still fits beside its tables
+    (64, 16, 8192, 8, False, False, [(0, 1), (1, 2), (2, 3), (3, 4),
+                                     (4, 5), (5, 6), (6, 7), (7, 8)]),
+    # the main path and the gist index keep their PR 14 forms
+    (64, 16, 128, 8, False, False, [(0, 8)]),
+    (256, 256, 128, 8, True, False, [(0, 8)])])
+def test_k3_form_from_the_shape(m, k, fw, qt, tables, state, groups):
+    got = tpq._library_groups(qt, _k3_smem_gs(m, k, fw, 32),
+                              max_group=tpq.MAX_QUERY_TILE,
+                              movable_state=True)
+    assert (got.global_tables, got.global_state) == (tables, state)
+    assert got == groups and got.largest == max(b - a for a, b in groups)
+    assert 4 * 6 * fw > tpq.SMEM_LIMIT or not state
+    # what stays in shared memory fits
+    smem = _k3_smem_gs(m, k, fw, 32)
+    assert smem(got.largest, int(tables), int(state)) <= tpq.SMEM_LIMIT
+
+
+def test_query_groups_moves_state_only_when_given():
+    """Without ``state_bytes`` (K1, or a caller that cannot move it) a
+    query whose rest does not fit still raises."""
+    per = 4 * (64 * 16 + 6 * 16384 + 10)
+    with pytest.raises(ValueError, match="besides its tables"):
+        tpq.query_groups(8, per, table_bytes=4 * 64 * 16)
+    g = tpq.query_groups(8, per, table_bytes=4 * 64 * 16,
+                         state_bytes=4 * 6 * 16384)
+    assert g == [(0, 8)] and g.global_state and not g.global_tables
+
+
+@pytest.mark.parametrize("t_,s,qt,want", [
+    (1024, 556, 1, (1, 556)),      # paged B=1024: 402 MB at one split
+    (128, 4448, 8, (1, 4448)),     # clustered B=1024: 402 MB at one split
+    (8, 35584, 8, (21, 1695)),     # grouped B=64: 24 MiB a split
+    (2, 300, 4, (9, 34))])         # few tiles: topk_splits' own count
+def test_k3_splits_cap_the_global_state(t_, s, qt, want):
+    fw = 16384
+    gs = tpq.QueryGroups([(0, qt)], global_state=True)
+    assert tpq.k3_splits(t_, s, 32, fw, gs) == want
+    splits, s_per = want
+    assert splits == max(1, -(-s // s_per))
+    scratch = 4 * t_ * splits * tpq.state_words(qt, fw)
+    assert scratch <= tpq.STATE_BUDGET or splits == 1
+    # the shared-memory form keeps topk_splits
+    assert tpq.k3_splits(t_, s, 32, 128, tpq.QueryGroups([(0, qt)])) == \
+        tpq.topk_splits(t_, s, 32)
+
+
+def _wide_store_plan(seed, b=8, s=360, tb=400, blk=32, m=16, nlist=10,
+                     nid=20000):
+    """A plan of b queries over s of tb blocks with integer LUTs (every
+    sum exact), 95% valid slots and few co-assigned items: more than
+    8192 kept candidates per query."""
+    rng = np.random.default_rng(seed)
+    d = dict(
+        lut=rng.integers(0, 3, (b, m, 16)).astype(np.float32),
+        codes=rng.integers(0, 16, (tb, blk, m)).astype(np.uint8),
+        ids=rng.integers(-1, nid, (tb, blk)).astype(np.int32),
+        other=np.where(rng.random((tb, blk)) < 0.9, -1,
+                       rng.integers(0, nlist, (tb, blk))).astype(np.int32),
+        blocks=np.stack([rng.choice(tb, s, replace=False)
+                         for _ in range(b)]).astype(np.int32),
+        ranks=np.sort(rng.integers(0, nlist, (b, s)), 1).astype(np.int32),
+        valid=rng.random((b, s)) < 0.95,
+        rank_of=rng.integers(0, nlist, (b, nlist)).astype(np.int32),
+        sel=np.sort(rng.choice(nlist, (b, 3)), 1).astype(np.int32))
+    return d
+
+
+@pytest.mark.parametrize("mode", ["paged", "grouped", "clustered"])
+def test_plain_k3_and_merge_above_fetch_8192(mode):
+    """At fetch 9000 (FW 16384: the global-state form on the card) the
+    port's fused scan, through the plain K3, equals the reference's
+    non-kernel path (unfused scan, then the stable top-fetch) bitwise:
+    integer LUTs make every sum exact.  And the plain merge of the
+    plain K3's split ranges equals the whole."""
+    from repro.core import engine as jeng
+    d = _wide_store_plan(90)
+    b = d["lut"].shape[0]
+    fetch = 9000
+    assert tpq.topk_width(fetch) == 16384
+    jstore = jeng.BlockStore(*(jnp.asarray(d[k])
+                               for k in ("codes", "ids", "other")))
+    jplan = jeng.QueryPlan(jnp.asarray(d["blocks"]), jnp.asarray(d["ranks"]),
+                           jnp.asarray(d["valid"]), jnp.zeros(b, jnp.int32))
+    tstore = teng.BlockStore(*(t(d[k]) for k in ("codes", "ids", "other")))
+    tplan = teng.QueryPlan(t(d["blocks"]), t(d["ranks"]), t(d["valid"]),
+                           torch.zeros(b, dtype=torch.int32))
+    kw = dict(fetch=fetch, exec_mode=mode, query_tile=4)
+    want = jeng.scan_blocks_topk(jstore, jplan, jnp.asarray(d["lut"]),
+                                 jnp.asarray(d["rank_of"]), use_kernel=False,
+                                 sel=jnp.asarray(d["sel"]), **kw)
+    got = teng.scan_blocks_topk(tstore, tplan, t(d["lut"]), t(d["rank_of"]),
+                                sel=t(d["sel"]), **kw)
+    for f in ("flat_d", "flat_i", "approx_dco", "scanned_blocks"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert got.flat_d.shape == (b, fetch)
+    assert bool(torch.isfinite(got.flat_d).all())    # > fetch kept
+    # the merge: the plain top-fetch of three ranges of scan positions
+    # (K3's splits), merged, is the top-fetch of the whole
+    args = teng.fused_scan_args(tstore, tplan, t(d["lut"]), t(d["rank_of"]),
+                                exec_mode=mode, query_tile=4, sel=t(d["sel"]))
+    lut, tiles, rank_of, slot_of, rank_u, qt, _ = args
+    common = (lut.contiguous(), tstore.block_codes, tstore.block_ids,
+              tstore.block_other)
+    whole = tref.pq_scan_topk_ref(*common, tiles.contiguous(),
+                                  rank_of.contiguous(), slot_of, rank_u,
+                                  query_tile=qt, fetch=fetch)
+    s = tiles.shape[1]
+    cuts = [0, s // 3, 2 * s // 3, s]
+    parts = [tref.pq_scan_topk_ref(
+        *common, tiles[:, a:c].contiguous(), rank_of.contiguous(),
+        slot_of[:, a:c].contiguous(), rank_u[:, a:c].contiguous(),
+        query_tile=qt, fetch=fetch) for a, c in zip(cuts, cuts[1:])]
+    merged = tpq.merge_topk_kernel(*(torch.stack([p[i] for p in parts], 1)
+                                     for i in range(3)))
+    for name, x, y in zip(("acc_d", "acc_pos", "acc_id"), merged, whole):
+        np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=name)

@@ -182,10 +182,11 @@ def test_searcher_chunks_and_merges(rairs_index, unit_data):
 
 
 def test_searcher_rejects_unported_features(rairs_index, unit_data):
-    """refine is not ported and raises, naming its ROADMAP item.
-    plan_reuse, refused here until it was ported, runs and equals the
-    plain session bitwise (tests/test_torch_plan.py holds it against the
-    reference)."""
+    """plan_reuse and refine, each refused here until it was ported, run:
+    plan_reuse equals the plain session bitwise (tests/test_torch_plan.py
+    holds it against the reference), and refine at refine_factor 1 is the
+    plain session bitwise (tests/test_torch_refine.py holds the two-tier
+    search against the reference)."""
     from repro_torch.core import RefineParams
     _, q, _ = unit_data
     tidx = convert(rairs_index)
@@ -196,8 +197,14 @@ def test_searcher_rejects_unported_features(rairs_index, unit_data):
         plain = tidx.searcher(SearchParams(exec_mode=mode), device="cpu")(qs)
         for f in plain._fields:
             assert torch.equal(getattr(reuse, f), getattr(plain, f)), f
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4"):
-        tidx.searcher(SearchParams(refine=RefineParams()), device="cpu")
+    plain = tidx.searcher(SearchParams(), device="cpu")(qs)
+    rf1 = tidx.searcher(SearchParams(refine=RefineParams(refine_factor=1)),
+                        device="cpu")(qs)
+    for f in plain._fields:
+        assert torch.equal(getattr(rf1, f), getattr(plain, f)), f
+    two = tidx.searcher(SearchParams(refine=RefineParams()), device="cpu")(qs)
+    assert two.ids.shape == plain.ids.shape
+    assert torch.equal(two.approx_dco, plain.approx_dco)
     with pytest.raises(ValueError):
         SearchParams(exec_mode="nope")
     with pytest.raises(ValueError, match="nprobe"):

@@ -72,9 +72,9 @@ PROBES = (
 )
 # one CTA per SM: 120,000 B of shared memory, more than half of an SM's
 ALONE = (("  const size_t smem =\n"
-          "      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables);\n",
+          "      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables, gs);\n",
           "  const size_t smem0 =\n"
-          "      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables);\n"
+          "      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables, gs);\n"
           "  const size_t smem = smem0 > 120000 ? smem0 : 120000;\n"),)
 
 
