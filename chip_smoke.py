@@ -12,9 +12,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 QT 1 to 64, query groups, global tables at M 256 K 256,
                 packed with odd Mc); K3 also split over the grid (few
                 tiles, long S, sparse plans), in query groups and with
-                global tables, and with its selection state in global
-                memory (fetch 9000); K3's merge on random sorted lists
-                (fetch up to 16000); K2's tile-row check;
+                global tables, and in its candidate-row form (fetch
+                9000, 16000, the plan width, 40000: one scan to rows
+                per query group, held alone against scan_rows_ref, and
+                one row select); the row select alone (rows up to
+                336,000 entries, fills with garbage past them, -0.0
+                beside +0.0, fetch up to 40000); K3's merge on random
+                sorted lists (fetch up to 40000: above 8192 through the
+                row select); K2's tile-row check;
   4. main     — a SIFT1M-shaped corpus (n x 128, made on the card from
                 --seed), a RAIRS index built on the card (IVF4096,
                 PQ64x4, block 32, rair + SEIL), exact top-10 ground
@@ -47,12 +52,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 Mc=16 and binary Mc=32; train / encode / layout seconds),
                 two-tier sessions at refine factor 4 in the six modes
                 (which must agree; recall@10 beside the single tier),
-                refine factor 1 bitwise the plain session, and the wide
-                case (k=100, pq4 x 16: fetch 16,000) in the six modes,
-                fused equal to unfused, where K3 and its merge keep their
-                selection state in global memory; K1 and K3 held and
-                timed at each mode's first batch at the plane shapes and
-                the wide shape;
+                refine factor 1 bitwise the plain session, plan reuse
+                with the pq4 plane (grouped B=64, clustered B=1024,
+                warmup_widths first) equal to the plain two-tier
+                sessions, and the wide case (k=100, pq4 x 16: fetch
+                16,000) in the six modes, fused equal to unfused, where
+                K3 takes its candidate-row form (a scan to rows and a row
+                select, no merge); K1 and K3 held and timed at each
+                mode's first batch at the plane shapes (and the row
+                select alone at the pq4 plane's fetch 400) and the wide
+                shape (its two launches alone too, a torch.topk beside
+                the select, K1 + one torch.topk beside K3), and the
+                device time of each stage of one wide batch per mode;
      multi    — an m-assignment index (80,000 x 128, IVF1024, PQ64x4,
                 multi_m=3) built on the card, in the six modes;
      persist  — the nbits=8 index with both planes saved as one file and
@@ -98,6 +109,13 @@ GIST_INDEX = dict(INDEX, nlist=1024, m_pq=256, nbits=8)
 REFINE_FLOOR = 0.2
 WIDE = dict(k=100, k_factor=10)
 WIDE_QUERIES = 2048
+# the kernels the main path's runs launch (fetch 100: K3's shared-memory
+# form, split and merged) and those of the wide case (fetch 16,000: K3's
+# candidate-row form, a scan to rows and a row select, no merge)
+MAIN_KERNELS = ("pq_scan_tiled_kernel", "pq_scan_topk_kernel",
+                "merge_topk_kernel")
+WIDE_KERNELS = ("pq_scan_tiled_kernel", "pq_scan_topk_kernel",
+                "select_topk_kernel")
 # the m-assignment index: 80,000 SIFT1M-shaped vectors, IVF1024, PQ64x4,
 # every vector in three lists (stored three times: no shared cells, so the
 # results are deduplicated by id)
@@ -230,9 +248,10 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
 
 def check_kernels(torch, dev, seed):
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import (merge_topk_kernel,
+    from repro_torch.kernels.pq_scan import (launch_counts, merge_topk_kernel,
                                              pq_scan_paged_kernel,
-                                             pq_scan_tiled_kernel)
+                                             pq_scan_tiled_kernel,
+                                             reset_launch_counts)
     from repro_torch.quant import pack_nibbles
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -353,44 +372,139 @@ def check_kernels(torch, dev, seed):
     log(f"kernels: K3 with global tables bitwise equal to plain version in "
         f"{n_global} cases")
     # K3 where one query's selection arrays pass a CTA's shared memory
-    # (fetch 9000: FW 16384, 393 KB): the arrays in a scratch tensor, the
-    # tables in shared memory (M 16 / 15) or global memory (M 256, K 256);
-    # long S over few tiles splits, so the merge runs in that form too
-    n_state = 0
+    # (fetch above 8192): the candidate-row form, a scan to rows and a row
+    # select, with the tables in shared memory (M 16 / 15) or global memory
+    # (M 256, K 256); fetch 9000, 16000, the whole plan width (400 slots of
+    # 32 lanes) and, over a long S (1600 slots), 40000 (survivors beyond a
+    # CTA's shared memory); the scan to rows held alone too
+    n_rows = 0
     for mode in ("paged", "grouped", "clustered"):
-        for packed, ints, with_dead, m, k in ((False, True, False, None, 16),
-                                              (True, False, True, None, 16),
-                                              (False, True, True, 256, 256)):
-            splits, _, groups = k3_case(
+        for packed, ints, with_dead, m, k, fetch, s, tb in (
+                (False, True, False, None, 16, 9000, 400, 600),
+                (True, False, True, None, 16, 16000, 400, 600),
+                (False, True, True, 256, 256, 9000, 400, 600),
+                (False, True, False, None, 16, 400 * 32, 400, 600),
+                (True, True, True, None, 16, 40000, 1600, 2000)):
+            _, _, groups = k3_case(
                 torch, g, dev, mode=mode, packed=packed, ints=ints,
-                with_dead=with_dead, fetch=9000, qt=4, s=400, tb=600, b=8,
-                m=m, k=k)
+                with_dead=with_dead, fetch=fetch, qt=4, s=s, tb=tb, b=8, m=m,
+                k=k)
             check(groups.global_state and groups.global_tables == (k == 256),
-                  f"K3 state case {mode} m={m}: form global tables "
-                  f"{groups.global_tables}, global state "
+                  f"K3 row case {mode} m={m} fetch={fetch}: form global "
+                  f"tables {groups.global_tables}, global state "
                   f"{groups.global_state}")
-            check(mode == "paged" or splits > 1, f"K3 state case {mode} "
-                  "ran one split")
-            n_state += 1
-    log(f"kernels: K3 with its selection state in global memory (fetch "
-        f"9000) bitwise equal to plain version in {n_state} cases, its "
-        "merge too where it splits")
-    # the merge alone: random ascending lists, tie-heavy, with pads
+            n_rows += 1
+    log(f"kernels: K3's candidate-row form (scan to rows, then the row "
+        f"select; fetch 9000 / 16000 / the plan width / 40000) bitwise equal "
+        f"to the plain K3 in {n_rows} cases, its scan to rows to "
+        "scan_rows_ref")
+    # the row select alone: rows longer than shared memory, fills below the
+    # width with garbage past them, tie-heavy and signed-zero distances,
+    # fetch from 400 to 40000 (survivors in the scratch tensor)
+    n_sel = 0
+    for b, w, fetch, fill, zeros in ((64, 17792, 400, True, False),
+                                     (64, 17792, 16000, True, True),
+                                     (16, 336000, 16000, False, True),
+                                     (8, 120000, 40000, True, False),
+                                     (8, 30000, 40000, True, True),
+                                     (4, 5000, 9000, False, False),
+                                     (3, 100, 1, True, True)):
+        select_case(torch, g, dev, b, w, fetch, fill, zeros)
+        n_sel += 1
+    log(f"kernels: row select bitwise equal to select_topk_ref in {n_sel} "
+        "cases (rows up to 336000 entries, fetch 1 to 40000, -0.0 beside "
+        "+0.0)")
+    # the merge alone: random ascending lists, tie-heavy, with pads; above
+    # fetch 8192 it runs the row select over the concatenated lists
     n_merge = 0
     for b, splits, fetch in ((1, 2, 1), (7, 5, 100), (64, 66, 100),
                              (1024, 5, 100), (16, 3, 200), (3, 300, 37),
-                             (8, 3, 9000), (64, 21, 16000)):
+                             (8, 3, 9000), (64, 21, 16000), (4, 3, 40000)):
         parts = sorted_lists(torch, g, dev, b, splits, fetch)
+        reset_launch_counts()
         got = merge_topk_kernel(*parts)
+        used = launch_counts()
         want = ref.merge_topk_ref(*parts)
         torch.cuda.synchronize()
+        select = fetch > 8192
+        check(used["merge_topk_kernel"] == int(not select)
+              and used["select_topk_kernel"] == int(select),
+              f"merge b={b} splits={splits} fetch={fetch}: launches "
+              f"{json.dumps(used)}")
         for name, x, y in zip(("acc_d", "acc_pos", "acc_id"), got, want):
             check(torch.equal(x, y), f"merge b={b} splits={splits} "
                   f"fetch={fetch}: {name} differs")
+        if (b, splits, fetch) == (64, 21, 16000):
+            time_merge(torch, parts, "timing: the wide grouped batch's "
+                       "merge shape")
         n_merge += 1
     log(f"kernels: K3 merge bitwise equal to plain version in {n_merge} "
-        "cases (fetch 9000 and 16000 with the selection state in global "
-        "memory)")
+        "cases (fetch 9000, 16000 and 40000 through the row select, rows "
+        "up to 336000 entries)")
+
+
+def time_merge(torch, parts, what, err=0.0):
+    """K3's merge on (B, splits, fetch) lists, timed beside its plain
+    version, its bound (each list triple read once, the top-fetch
+    written once; one comparison a candidate) and one torch.topk over the
+    flattened distances.  Returns the kernel row (``err``: its max abs
+    error, held elsewhere)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pq_scan import merge_topk_kernel
+    b, splits, fetch = parts[0].shape
+    ms = cuda_ms(torch, lambda: merge_topk_kernel(*parts))
+    pms = cuda_ms(torch, lambda: ref.merge_topk_ref(*parts), reps=3, warm=1)
+    lms = topk_ms(torch, parts[0].reshape(b, -1), fetch)
+    nbytes = sum(x.numel() * 4 for x in parts) + b * fetch * 12
+    bms, by = bound_ms(nbytes, parts[0].numel())
+    log(f"{what}: K3 merge B={b}, {splits} lists of {fetch}: "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; "
+        f"{nbytes} B), one torch.topk over the (B, splits * fetch) lists "
+        f"{lms:.4f} ms (ties may come in another order)")
+    return dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                max_abs_err=err, library_ms=lms)
+
+
+def select_case(torch, g, dev, b, w, fetch, fill, zeros):
+    """The row select on random (b, w) rows, bitwise against
+    select_topk_ref: integer distances (ties everywhere), -0.0 beside
+    +0.0 when ``zeros`` (and rows 0 and 1 alike but for the signs of
+    their zeros), pos unique in a row, and with ``fill`` a random fill
+    per row, the entries past it garbage."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pq_scan import (launch_counts,
+                                             reset_launch_counts,
+                                             select_topk_kernel)
+    d = torch.randint(-3, 4, (b, w), generator=g, device=dev).float()
+    pos = (torch.rand(b, 2 * w, generator=g, device=dev)
+           .argsort(dim=1)[:, :w].int())
+    if zeros:
+        neg = torch.rand(b, w, generator=g, device=dev) < 0.5
+        d = torch.where((d == 0) & neg, -0.0, d)
+        # rows 0 and 1: the same entries, zeros -0.0 in one, +0.0 in the
+        # other
+        d[1], pos[1] = torch.where(d[0] == 0, 0.0, d[0]), pos[0]
+        d[0] = torch.where(d[0] == 0, -0.0, d[0])
+    ids = torch.randint(0, 1 << 20, (b, w), generator=g, device=dev).int()
+    n = None
+    if fill:
+        n = torch.randint(0, w + 1, (b,), generator=g, device=dev).int()
+        n[0] = w
+        past = torch.arange(w, device=dev)[None, :] >= n[:, None]
+        d = torch.where(past, torch.nan, d)
+        pos = torch.where(past, -7, pos)
+    reset_launch_counts()
+    got = select_topk_kernel(d, pos, ids, n, fetch=fetch)
+    used = launch_counts()
+    want = ref.select_topk_ref(d, pos, ids, n, fetch=fetch)
+    torch.cuda.synchronize()
+    name = f"select b={b} w={w} fetch={fetch} fill={fill} zeros={zeros}"
+    check(used["select_topk_kernel"] == 1, f"{name}: launches "
+          f"{json.dumps(used)}")
+    for what, x, y in zip(("acc_d", "acc_pos", "acc_id"), got, want):
+        check(torch.equal(x, y), f"{name}: {what} differs")
+    check(torch.equal(torch.signbit(got[0]), torch.signbit(want[0])),
+          f"{name}: signs of zero differ")
 
 
 def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
@@ -400,8 +514,10 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
     query groups of a tile)."""
     from repro_torch.core.engine import fused_scan_args
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import (k3_query_groups, k3_splits,
-                                             pq_scan_topk_kernel, topk_width)
+    from repro_torch.kernels.pq_scan import (k3_query_groups, launch_counts,
+                                             pq_scan_topk_kernel,
+                                             reset_launch_counts, topk_splits,
+                                             topk_width)
     from repro_torch.kernels.topk import PAD_POS
     from repro_torch.quant import pack_nibbles
     store, plan, lut, rank_of, sel, live = synth_plan(
@@ -424,21 +540,57 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
     kw = dict(query_tile=qt, fetch=fetch, packed=packed)
     fw, blk = topk_width(fetch), codes_a.shape[1]
     groups = k3_query_groups(lut_a.shape[1], k, qt, fw, blk)
-    before = pq_scan_topk_kernel.launches
-    got = pq_scan_topk_kernel(*args, **kw)
-    check(pq_scan_topk_kernel.launches - before == len(groups),
-          f"K3 {mode} qt={qt}: not one launch per query group")
+    splits, s_per = topk_splits(*tiles.shape, blk)
+    reset_launch_counts()
+    got = pq_scan_topk_kernel(*args, **kw, plan_width=s)
+    used = launch_counts()
+    want_used = {"pq_scan_topk_kernel": len(groups),
+                 "merge_topk_kernel": int(splits > 1
+                                          and not groups.global_state),
+                 "select_topk_kernel": int(groups.global_state)}
+    check(all(used[n] == want_used.get(n, 0) for n in used),
+          f"K3 {mode} qt={qt} fetch={fetch}: launches {json.dumps(used)}, "
+          f"want {json.dumps(want_used)}")
     want = ref.pq_scan_topk_ref(*args, **kw)
     torch.cuda.synchronize()
     for name, x, y in zip(("acc_d", "acc_pos", "acc_id", "dco"), got, want):
         check(torch.equal(x, y), f"K3 {mode} qt={qt} S={tiles.shape[1]} "
               f"packed={packed} ints={ints} dead={with_dead} fetch={fetch} "
               f"p_valid={p_valid}: {name} differs")
-    splits, s_per = k3_splits(*tiles.shape, codes_a.shape[1], fw, groups)
+    if groups.global_state:
+        hold_rows(torch, args, dict(query_tile=qt, packed=packed), s,
+                  f"K3 rows {mode} qt={qt} fetch={fetch}")
     short = splits > 1 and any(
         bool((p[1] == PAD_POS).any())
         for p in split_parts(torch, args, kw, splits, s_per))
     return splits, short, groups
+
+
+def hold_rows(torch, args, kw, plan_width, what):
+    """K3's scan to rows (pq_scan_rows_kernel) against scan_rows_ref: the
+    same fills and DCO, and the same triples once each row's first
+    row_n entries are put in pos order (the kernel appends in no
+    particular order)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pq_scan import pq_scan_rows_kernel
+    from repro_torch.kernels.topk import PAD_POS
+    got = pq_scan_rows_kernel(*args, **kw, plan_width=plan_width)
+    want = ref.scan_rows_ref(*args, **kw, plan_width=plan_width)
+    torch.cuda.synchronize()
+    for name, x, y in (("row_n", got[3], want[3]), ("dco", got[4], want[4])):
+        check(torch.equal(x, y), f"{what}: {name} differs from scan_rows_ref")
+    check(got[0].shape == want[0].shape, f"{what}: rows {tuple(got[0].shape)}"
+          f", want {tuple(want[0].shape)}")
+    past = (torch.arange(got[0].shape[1], device=got[0].device)[None, :]
+            >= got[3][:, None])
+    pos = torch.where(past, PAD_POS, got[1])
+    order = torch.sort(pos, dim=1, stable=True).indices
+    for name, x, y, pad in (("row_d", got[0], want[0], torch.inf),
+                            ("row_pos", pos, want[1], PAD_POS),
+                            ("row_id", got[2], want[2], -1)):
+        x = torch.where(past, pad, x).gather(1, order)
+        check(torch.equal(x, y), f"{what}: {name} differs from scan_rows_ref"
+              " (in pos order)")
 
 
 def split_parts(torch, args, kw, splits, s_per):
@@ -561,24 +713,28 @@ def batch_inputs(index, queries, **params):
     return p, fetch, tables, store_from_arrays(arrays), sel, plan, lut
 
 
-def stage_breakdown(torch, index, queries):
+def stage_breakdown(torch, index, queries, tag="stages", **params):
     """Median CUDA-event time of each seil_search stage for one batch,
     per exec mode at its main-path batch size, fused off and on: where a
-    batch's device time goes."""
+    batch's device time goes (``params`` override SEARCH; with
+    ``refine``, the scan stages over the compact plane)."""
     from repro_torch.core.engine import (finalize_candidates, plan_blocks,
                                          scan_blocks, scan_blocks_topk,
                                          select_lists)
     from repro_torch.core.pq import pq_lut
+    _, codebook, packed = index.searcher(
+        **dict(SEARCH, **params), device=index.device)._scan_state()
     for mode, bsz in RUNS:
         q = queries[:bsz].contiguous()
-        p, fetch, tables, store, sel, plan, lut = batch_inputs(index, q)
+        p, fetch, tables, store, sel, plan, lut = batch_inputs(index, q,
+                                                               **params)
         base = {
             "select": cuda_ms(torch, lambda: select_lists(
                 q, index.centroids, nprobe=p.nprobe), reps=5, warm=1),
             "plan": cuda_ms(torch, lambda: plan_blocks(
                 tables, sel, max_scan=p.max_scan), reps=5, warm=1),
-            "lut": cuda_ms(torch, lambda: pq_lut(index.codebook, q),
-                           reps=5, warm=1),
+            "lut": cuda_ms(torch, lambda: pq_lut(codebook, q), reps=5,
+                           warm=1),
         }
         for fused in (False, True):
             if fused:
@@ -586,23 +742,24 @@ def stage_breakdown(torch, index, queries):
                     return scan_blocks_topk(
                         store, plan, lut, sel.rank_of, fetch=fetch,
                         exec_mode=mode, query_tile=p.query_tile,
-                        sel=sel.sel)
+                        sel=sel.sel, packed=packed)
             else:
                 def scan():
                     return scan_blocks(store, plan, lut, sel.rank_of,
                                        exec_mode=mode,
-                                       query_tile=p.query_tile, sel=sel.sel)
+                                       query_tile=p.query_tile, sel=sel.sel,
+                                       packed=packed)
             out = scan()
             times = dict(base)
             times["scan"] = cuda_ms(torch, scan, reps=5, warm=1)
             times["finalize"] = cuda_ms(torch, lambda: finalize_candidates(
-                out.flat_d, out.flat_i, bigk=p.bigk, k=p.k,
+                out.flat_d, out.flat_i, bigk=p.bigk_eff, k=p.k,
                 vectors=index.vectors, queries=q, metric="l2",
                 dedup_results=index.needs_result_dedup,
                 oversample=index.result_oversample), reps=5, warm=1)
             del out
             total = sum(times.values())
-            log(f"stages: {mode:9s} fused={int(fused)} B={bsz} "
+            log(f"{tag}: {mode:9s} fused={int(fused)} B={bsz} "
                 f"total {total:.4f} ms: " + ", ".join(
                     f"{k} {v:.4f} ms ({100 * v / total:.1f}%)"
                     for k, v in times.items()))
@@ -611,7 +768,7 @@ def stage_breakdown(torch, index, queries):
 def scan_inputs(index, fetch, store, plan, lut, rank_of, sel, mode,
                 query_tile, perm=None, unions=None):
     """K1's and K3's inputs in ``mode`` for one planned batch:
-    ``(k1_args, k3_args, query_tile, fetch)``.  K1's inputs in each mode
+    ``(k1_args, k3_args, query_tile, fetch, plan_width)``.  K1's inputs in each mode
     are K3's: per-tile scan lists in scan order (scan_blocks and
     scan_blocks_topk build the same ones); ``perm`` / ``unions`` as a
     plan_reuse session passes them."""
@@ -623,13 +780,13 @@ def scan_inputs(index, fetch, store, plan, lut, rank_of, sel, mode,
     fetch = min(fetch, plan.blocks.shape[1] * codes.shape[1])
     k3 = (lx, codes, store.block_ids, store.block_other, tiles,
           rx.contiguous(), slot_of.contiguous(), rank_u.contiguous(), None)
-    return (lx, codes, tiles), k3, qt, fetch
+    return (lx, codes, tiles), k3, qt, fetch, plan.blocks.shape[1]
 
 
 def mode_inputs(index, queries, mode, **params):
     """K1's and K3's inputs at one batch of ``mode`` as the main path
     makes them (``params`` override SEARCH): ``(k1_args, k3_args,
-    query_tile, fetch)``."""
+    query_tile, fetch, plan_width)``."""
     p, fetch, _, store, sel, plan, lut = batch_inputs(index, queries,
                                                       **params)
     return scan_inputs(index, fetch, store, plan, lut, sel.rank_of, sel.sel,
@@ -716,18 +873,19 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
     """K1 and K3 on ``inputs`` (mode_inputs' tuple; ``packed`` codes of a
     compact plane), with the launch counts set to 0 before each: each
     launched once per query group, in the table form ``global_tables``
-    names (when given) and K3 in the selection-state form
-    ``global_state`` names, and bitwise equal to its plain version;
-    where K3 splits, its merge bitwise equal to merge_topk_ref and to the
-    unsplit plain K3.  Returns ``(k1_args, k3_args, query_tile, fetch,
-    max_abs_err by kernel, merge inputs or None, (K1's groups, K3's
-    groups), packed)``."""
+    names (when given) and K3 in the form ``global_state`` names (its
+    candidate-row form: one scan per query group and one row select),
+    and bitwise equal to its plain version; in that form the scan to rows
+    alone equal to scan_rows_ref; where the shared form splits, its merge
+    bitwise equal to merge_topk_ref and to the unsplit plain K3.  Returns
+    ``(k1_args, k3_args, query_tile, fetch, max_abs_err by kernel, merge
+    inputs or None, (K1's groups, K3's groups), packed, plan_width)``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pq_scan import (
-        k1_query_groups, k3_query_groups, k3_splits, launch_counts,
-        merge_global_state, merge_topk_kernel, pq_scan_tiled_kernel,
-        pq_scan_topk_kernel, reset_launch_counts, scan_splits, topk_width)
-    k1, k3, qt, fetch = inputs
+        k1_query_groups, k3_query_groups, launch_counts, merge_topk_kernel,
+        pq_scan_tiled_kernel, pq_scan_topk_kernel, reset_launch_counts,
+        scan_splits, topk_splits, topk_width)
+    k1, k3, qt, fetch, pw = inputs
     if packed:            # the tables as ops pads them for a packed plane
         lut, _ = ops.align(k1[0], k1[1], True)
         k1, k3 = (lut,) + k1[1:], (lut,) + k3[1:]
@@ -736,7 +894,7 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
     fw = topk_width(fetch)
     g1 = k1_query_groups(m, k, qt, scan_splits(t, s, blk)[1])
     g3 = k3_query_groups(m, k, qt, fw, blk)
-    splits, s_per = k3_splits(t, s, blk, fw, g3)
+    splits, s_per = topk_splits(t, s, blk)
     shape = (f"{what} {mode} B={b} S={s} QT={qt} M={m} K={k} fetch={fetch}"
              + (" packed" if packed else ""))
     if global_tables is not None:
@@ -744,28 +902,27 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
               and g3.global_tables == global_tables,
               f"{shape}: K1 / K3 global tables {g1.global_tables} / "
               f"{g3.global_tables}, want {global_tables}")
-    check(g3.global_state == global_state, f"{shape}: K3 global state "
+    check(g3.global_state == global_state, f"{shape}: K3 candidate-row form "
           f"{g3.global_state}, want {global_state}")
-    if splits > 1:
-        check(merge_global_state(fw) == global_state, f"{shape}: K3's "
-              f"merge global state {merge_global_state(fw)}, want "
-              f"{global_state}")
+    k3_launches = ({"pq_scan_topk_kernel": len(g3), "select_topk_kernel": 1}
+                   if global_state else
+                   {"pq_scan_topk_kernel": len(g3),
+                    "merge_topk_kernel": int(splits > 1)})
     errs = {}
     for kid, fn, plain, args, kw, want_launches in (
             ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
              dict(query_tile=qt, packed=packed),
              {"pq_scan_tiled_kernel": len(g1)}),
             ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
-             dict(query_tile=qt, fetch=fetch, packed=packed),
-             {"pq_scan_topk_kernel": len(g3),
-              "merge_topk_kernel": int(splits > 1)})):
+             dict(query_tile=qt, fetch=fetch, packed=packed), k3_launches)):
         reset_launch_counts()
-        got = fn(*args, **kw)
+        got = (fn(*args, **kw, plan_width=pw) if kid == "K3"
+               else fn(*args, **kw))
         used = launch_counts()
         check(all(n == want_launches.get(name, 0)
                   for name, n in used.items()),
-              f"{kid} at {shape}: launches {json.dumps(used)}, want one per "
-              f"query group {json.dumps(want_launches)}")
+              f"{kid} at {shape}: launches {json.dumps(used)}, want "
+              f"{json.dumps(want_launches)}")
         want = plain(*args, **kw)
         if kid == "K1":
             got, want = (got,), (want,)
@@ -778,7 +935,10 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
             k3_want = want[:3]
         del got, want, fin
     parts = None
-    if splits > 1:
+    if global_state:
+        hold_rows(torch, k3, dict(query_tile=qt, packed=packed), pw,
+                  f"{shape}: K3's scan to rows")
+    elif splits > 1:
         # the plain top-fetch of each of the kernel's ranges, merged by
         # the kernel
         parts = split_parts(torch, k3, dict(query_tile=qt, fetch=fetch,
@@ -795,13 +955,15 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
     log(f"{what}: K1 (query groups {list(g1)}, {form} tables) and K3 "
         f"(query groups {list(g3)}, "
         f"{'global' if g3.global_tables else 'shared-memory'} tables, "
-        f"{'global' if g3.global_state else 'shared-memory'} selection "
-        f"state, {splits} splits) launched once per group and bitwise "
-        f"equal to their plain versions at the {mode} batch B={b} S={s} "
-        f"QT={qt} M={m} K={k} fetch={fetch}"
+        + ("candidate rows and the row select" if g3.global_state else
+           f"shared-memory selection state, {splits} splits")
+        + f") launched as required and bitwise equal to their plain "
+        f"versions at the {mode} batch B={b} S={s} QT={qt} M={m} K={k} "
+        f"fetch={fetch}"
         + (" (packed plane)" if packed else "")
-        + (", K3's merge too" if parts else ""))
-    return k1, k3, qt, fetch, errs, parts, (g1, g3), packed
+        + (", K3's merge too" if parts else "")
+        + (", the scan to rows too" if g3.global_state else ""))
+    return k1, k3, qt, fetch, errs, parts, (g1, g3), packed, pw
 
 
 def time_held(torch, held, what, lookups_per_s):
@@ -815,23 +977,37 @@ def time_held(torch, held, what, lookups_per_s):
     k1_ms = cuda_ms(torch, lambda: pq_scan_tiled_kernel(
         *k1, query_tile=qt, packed=packed), reps=5, warm=1)
     k3_ms = cuda_ms(torch, lambda: pq_scan_topk_kernel(
-        *k3, query_tile=qt, fetch=fetch, packed=packed), reps=5, warm=1)
+        *k3, query_tile=qt, fetch=fetch, packed=packed, plan_width=held[8]),
+        reps=5, warm=1)
     lookups = lut.shape[0] * tiles.shape[1] * k1[1].shape[1] * lut.shape[1]
     log(f"{what}: K1 {k1_ms:.4f} ms (lookup floor "
         f"{lookups / lookups_per_s * 1e3:.4f} ms), K3 {k3_ms:.4f} ms at "
         f"B={lut.shape[0]} S={tiles.shape[1]} QT={qt} K={lut.shape[2]}")
 
 
+def topk_ms(torch, d, fetch):
+    """CUDA-event ms of one torch.topk of the ``fetch`` smallest of each
+    row of ``d``, sorted: the library call beside a selection kernel
+    (ties may come in another order; the port never calls it)."""
+    return cuda_ms(torch, lambda: torch.topk(d, min(fetch, d.shape[1]), dim=1,
+                                             largest=False, sorted=True))
+
+
 def kernel_rows(torch, held, mode, what, lookups_per_s):
     """K1 and K3 on what hold_kernels held, timed (CUDA events) beside
     their plain versions, bounds and lookup floors; K3's merge also
-    alone where K3 splits.  Returns {"K1" | "K3" | "merge": row}."""
+    alone where K3 splits (with one torch.topk over its lists beside
+    it).  In K3's candidate-row form also its two launches alone, the
+    scan to rows and the row select (with one torch.topk over the rows
+    beside it), and K1 followed by one torch.topk over K1's scores, the
+    yardstick of a fused scan.  Returns {"K1" | "K3" | "merge" | "rows" |
+    "select": row}."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pq_scan import (k3_splits, merge_topk_kernel,
-                                             pq_scan_tiled_kernel,
-                                             pq_scan_topk_kernel, topk_width)
-    k1, k3, qt, fetch, errs, parts, (_, g3), packed = held
+    from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
+                                             pq_scan_topk_kernel, topk_splits)
+    k1, k3, qt, fetch, errs, parts, (_, g3), packed, pw = held
     lx, codes, tiles = k1
+    b = lx.shape[0]
     rows = {}
     for kid, fn, plain, args, kw, (nbytes, ops) in (
             ("K1", pq_scan_tiled_kernel, ref.pq_scan_tiled_ref, k1,
@@ -839,37 +1015,92 @@ def kernel_rows(torch, held, mode, what, lookups_per_s):
             ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
              dict(query_tile=qt, fetch=fetch, packed=packed),
              k3_bound(torch, k3, fetch))):
-        ms = cuda_ms(torch, lambda: fn(*args, **kw))
+        ms = cuda_ms(torch, lambda: (fn(*args, **kw, plan_width=pw)
+                                     if kid == "K3" else fn(*args, **kw)))
         pms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1)
         total = sum(nbytes.values())
         bms, by = bound_ms(total, ops)
         rows[kid] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                          max_abs_err=errs[kid],
-                         lookup_ms=ops / lookups_per_s * 1e3)
-        log(f"{what}: {kid} {mode} B={lx.shape[0]} S={tiles.shape[1]} "
+                         lookup_ms=ops / lookups_per_s * 1e3,
+                         nbytes=nbytes, ops=ops)
+        log(f"{what}: {kid} {mode} B={b} S={tiles.shape[1]} "
             f"QT={qt} M={lx.shape[1]} K={lx.shape[2]}"
             + (f" fetch={fetch}" if kid == "K3" else "")
             + f": {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
             f"({by}; {total} B = {json.dumps(nbytes)}; {ops} adds); "
             f"{ops} lookups, lookup floor {rows[kid]['lookup_ms']:.4f} ms")
     if parts is not None:
-        splits, s_per = k3_splits(*tiles.shape, codes.shape[1],
-                                  topk_width(fetch), g3)
-        mms = cuda_ms(torch, lambda: merge_topk_kernel(*parts))
-        pms = cuda_ms(torch, lambda: ref.merge_topk_ref(*parts), reps=3,
-                      warm=1)
-        b, _, f = parts[0].shape
-        # each list triple read once, the top-fetch triples written once;
-        # one comparison per candidate
-        nbytes = sum(x.numel() * 4 for x in parts) + b * f * 12
-        bms, by = bound_ms(nbytes, parts[0].numel())
-        rows["merge"] = dict(ms=mms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                             max_abs_err=errs["merge"])
-        log(f"{what}: K3 merge {mode} splits={splits} s_per={s_per}: "
-            f"{mms:.4f} ms of K3's {rows['K3']['ms']:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes} B) (bitwise "
-            "equal to merge_topk_ref and to the unsplit plain K3)")
+        _, s_per = topk_splits(*tiles.shape, codes.shape[1])
+        rows["merge"] = time_merge(
+            torch, parts, f"{what}: {mode} s_per={s_per} (K3 "
+            f"{rows['K3']['ms']:.4f} ms)", errs["merge"])
+    if g3.global_state:
+        rows.update(row_form_rows(torch, held, mode, what))
+        yard = cuda_ms(torch, lambda: torch.topk(
+            pq_scan_tiled_kernel(*k1, query_tile=qt, packed=packed)
+            .reshape(b, -1), fetch, dim=1, largest=False, sorted=True))
+        rows["K3"]["yardstick_ms"] = yard
+        log(f"{what}: {mode} K1 + one torch.topk over its (B, S * BLK) "
+            f"scores (fetch {fetch}, no keep mask): {yard:.4f} ms, beside "
+            f"K3's {rows['K3']['ms']:.4f} ms (scan to rows "
+            f"{rows['rows']['ms']:.4f} + select {rows['select']['ms']:.4f})")
     return rows
+
+
+def row_form_rows(torch, held, mode, what, fetch=None):
+    """K3's candidate-row form on what hold_inputs held, its two launches
+    timed alone: the scan to rows beside scan_rows_ref and its bound
+    (k3_bound's inputs, the kept triples and the fills out), and the row
+    select at ``fetch`` (K3's when None) beside select_topk_ref, its
+    bound (each kept triple read once, the top-fetch written once) and
+    one torch.topk over the rows' distances (entries past a fill set to
+    +inf).  Returns {"rows": row, "select": row}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pq_scan import (pq_scan_rows_kernel,
+                                             select_topk_kernel)
+    k1, k3, qt, k3_fetch, errs, _, _, packed, pw = held
+    fetch = k3_fetch if fetch is None else fetch
+    b = k1[0].shape[0]
+    kw = dict(query_tile=qt, packed=packed, plan_width=pw)
+    out = {}
+    rms = cuda_ms(torch, lambda: pq_scan_rows_kernel(*k3, **kw))
+    pms = cuda_ms(torch, lambda: ref.scan_rows_ref(*k3, **kw), reps=3,
+                  warm=1)
+    rd, rp, ri, rn, _ = pq_scan_rows_kernel(*k3, **kw)
+    kept = int(rn.sum().item())
+    nbytes, ops = k3_bound(torch, k3, k3_fetch)
+    nbytes = dict(nbytes, out=kept * 12 + b * 8)
+    bms, by = bound_ms(sum(nbytes.values()), ops)
+    out["rows"] = dict(ms=rms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                       max_abs_err=errs.get("rows", 0.0),
+                       lookup_ms=None, kept=kept)
+    got = select_topk_kernel(rd, rp, ri, rn, fetch=fetch)
+    want = ref.select_topk_ref(rd, rp, ri, rn, fetch=fetch)
+    for x, y in zip(got, want):
+        check(torch.equal(x, y), f"{what}: {mode} row select at fetch "
+              f"{fetch} differs from select_topk_ref")
+    fin = torch.isfinite(want[0])
+    err = (got[0][fin] - want[0][fin]).abs().max().item()
+    sms = cuda_ms(torch, lambda: select_topk_kernel(rd, rp, ri, rn,
+                                                    fetch=fetch))
+    spms = cuda_ms(torch, lambda: ref.select_topk_ref(rd, rp, ri, rn,
+                                                      fetch=fetch),
+                   reps=3, warm=1)
+    past = (torch.arange(rd.shape[1], device=rd.device)[None, :]
+            >= rn[:, None])
+    lms = topk_ms(torch, torch.where(past, torch.inf, rd), fetch)
+    sbytes = kept * 12 + b * 4 + b * fetch * 12
+    sbms, sby = bound_ms(sbytes, kept)
+    out["select"] = dict(ms=sms, plain_ms=spms, bound_ms=sbms, bound_by=sby,
+                         max_abs_err=err, library_ms=lms)
+    log(f"{what}: {mode} B={b} rows of {rd.shape[1]} ({kept / b:.1f} kept a "
+        f"query): scan to rows {rms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}); row select at fetch {fetch} {sms:.4f} ms, "
+        f"plain {spms:.4f} ms, bound {sbms:.4f} ms ({sby}; {sbytes} B), one "
+        f"torch.topk over the rows {lms:.4f} ms (ties may come in another "
+        "order)")
+    return out
 
 
 def time_kernels(torch, index, queries, lookups_per_s):
@@ -895,10 +1126,10 @@ def kernel_json(rows, launches, gist_rows, gist_launches, plane_rows,
     """The {"kernels": [...]} entries: K1 and K3 at the main path's first
     paged batch, K3's merge at its first clustered batch, the
     global-table forms of K1 and K3 at the gist index's first paged
-    batch, K1 and K3 at each compact plane's first paged batch, and K3
-    and its merge with their selection state in global memory at the
-    wide case's first paged (K3) and grouped (merge) batch, with their
-    launches on the runs that use them."""
+    batch, K1 and K3 at each compact plane's first paged batch, and K3's
+    candidate-row form (its scan to rows, and the row select) at the
+    wide case's first paged batch, with their launches on the runs that
+    use them."""
     src = "src/repro_torch/kernels/csrc/"
     planes = []
     for b in sorted(plane_rows):
@@ -911,12 +1142,12 @@ def kernel_json(rows, launches, gist_rows, gist_launches, plane_rows,
              plane_launches[b]["pq_scan_topk_kernel"])]
     out = []
     for name, source, replaces, row, n in planes + [
-            ("pq_scan_topk_kernel[global state]", src + "pq_scan_topk.cu",
-             "src/repro/kernels/pq_scan.py:311", wide_rows["paged"]["K3"],
+            ("pq_scan_topk_kernel[candidate rows]", src + "pq_scan_topk.cu",
+             "src/repro/kernels/pq_scan.py:311", wide_rows["paged"]["rows"],
              wide_launches["pq_scan_topk_kernel"]),
-            ("merge_topk_kernel[global state]", src + "pq_scan_topk.cu",
-             "src/repro/kernels/topk.py:103", wide_rows["grouped"]["merge"],
-             wide_launches["merge_topk_kernel"])] + [
+            ("select_topk_kernel", src + "topk_select.cu",
+             "src/repro/kernels/topk.py:79", wide_rows["paged"]["select"],
+             wide_launches["select_topk_kernel"])] + [
             ("pq_scan_tiled_kernel", src + "pq_scan.cu",
              "src/repro/kernels/pq_scan.py:112", rows["paged"]["K1"],
              launches["pq_scan_tiled_kernel"]),
@@ -936,7 +1167,8 @@ def kernel_json(rows, launches, gist_rows, gist_launches, plane_rows,
                     "replaces": replaces, "launches": n,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                    "bound_by": row["bound_by"], "library_ms": None})
+                    "bound_by": row["bound_by"],
+                    "library_ms": row.get("library_ms")})
     return out
 
 
@@ -977,7 +1209,7 @@ def main_path(torch, dev, args):
                                                 bsz, fused)
     launches = launch_counts()
     log(f"main: launches over the six runs {json.dumps(launches)}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in MAIN_KERNELS),
           "a kernel of the main path was never launched")
     check_agree(torch, results, "main")
     # the sessions' CUDA graphs beside eager seil_search on the same
@@ -1437,13 +1669,17 @@ def attach_planes(torch, index, what):
 def refine_path(torch, index, q, gt, plain, lookups_per_s):
     """Two-tier sessions on the main index: both planes at refine factor 4
     in the six modes (which must agree), recall beside the single-tier
-    runs ``plain``; refine_factor 1 bitwise the plain session; then the
-    wide case (k=100, pq4 x 16: fetch 16,000, K3 and its merge with
-    their selection state in global memory) in the six modes on the
-    first WIDE_QUERIES queries, fused equal to unfused.  Then, sessions
+    runs ``plain``; refine_factor 1 bitwise the plain session; plan reuse
+    with the pq4 plane in grouped B=64 and clustered B=1024 (warmup_widths
+    first), ids and DCO equal to the plain two-tier sessions; then the
+    wide case (k=100, pq4 x 16: fetch 16,000, K3 in its candidate-row
+    form: a scan to rows and a row select) in the six modes on the first
+    WIDE_QUERIES queries, fused equal to unfused.  Then, sessions
     released, K1 and K3 held and timed at each mode's first batch at the
-    plane shapes and at the wide shape.  Returns ({plane: {mode: rows}},
-    {plane: launches}, {mode: wide rows}, wide launches)."""
+    plane shapes (and the row select at the pq4 plane's fetch 400) and at
+    the wide shape, and the device time of each stage of one wide batch
+    per mode, fused off and on.  Returns ({plane: {mode: rows}}, {plane:
+    launches}, {mode: wide rows}, wide launches)."""
     from repro_torch.core import RefineParams, recall_at_k
     from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
     from repro_torch.quant import PLANE_BACKENDS
@@ -1458,9 +1694,11 @@ def refine_path(torch, index, q, gt, plain, lookups_per_s):
                     torch, index, q, gt, mode, bsz, fused, tag=f"refine {b}",
                     floor=REFINE_FLOOR, refine=RefineParams(b, 4))
         launches[b] = launch_counts()
-        check(all(v > 0 for v in launches[b].values()),
+        check(all(launches[b][k] > 0 for k in MAIN_KERNELS),
               f"refine {b}: a kernel was never launched")
         check_agree(torch, runs, f"refine {b}")
+        if b == "pq4":
+            reuse_with_plane(torch, index, q, gt, runs)
         r = runs[("paged", False)]
         log(f"refine {b}: recall@10 {recall_at_k(r.ids.cpu(), gt):.4f} "
             f"(single tier {recall_at_k(plain[('paged', False)].ids.cpu(), gt):.4f}); "
@@ -1495,8 +1733,10 @@ def refine_path(torch, index, q, gt, plain, lookups_per_s):
     wide_launches = launch_counts()
     log(f"refine wide: launches over the six runs "
         f"{json.dumps(wide_launches)}")
-    check(all(v > 0 for v in wide_launches.values()),
-          "refine wide: a kernel was never launched")
+    check(all(wide_launches[k] > 0 for k in WIDE_KERNELS)
+          and wide_launches["merge_topk_kernel"] == 0,
+          "refine wide: a kernel of K3's candidate-row form was never "
+          "launched, or a merge ran")
     check_agree(torch, runs, "refine wide (fetch 16000)")
     rows = {b: {} for b in PLANE_BACKENDS}
     for b in PLANE_BACKENDS:
@@ -1507,6 +1747,11 @@ def refine_path(torch, index, q, gt, plain, lookups_per_s):
             rows[b][mode] = kernel_rows(torch, held, mode,
                                         f"timing: refine {b}",
                                         lookups_per_s)
+            if b == "pq4":
+                # the row select at fetch 400, for the record: the shape
+                # alone keeps K3's shared-memory form here
+                rows[b][mode].update(row_form_rows(
+                    torch, held, mode, f"timing: refine {b} rows"))
             del held
     wide_rows = {}
     for mode, bsz in RUNS:
@@ -1516,7 +1761,29 @@ def refine_path(torch, index, q, gt, plain, lookups_per_s):
         wide_rows[mode] = kernel_rows(torch, held, mode,
                                       "timing: refine wide", lookups_per_s)
         del held
+    stage_breakdown(torch, index, q[:1024].contiguous(), "stages wide",
+                    **wide)
     return rows, launches, wide_rows, wide_launches
+
+
+def reuse_with_plane(torch, index, q, gt, runs):
+    """Plan reuse with the pq4 plane at refine factor 4 in grouped B=64
+    and clustered B=1024, fused off and on, each session's width ladder
+    captured first (warmup_widths): ids and DCO counters equal to the
+    plain two-tier sessions of the same mode ``runs``."""
+    from repro_torch.core import RefineParams
+    for mode, bsz in REUSE_RUNS:
+        for fused in (False, True):
+            res = search_run(torch, index, q, gt, mode, bsz, fused,
+                             tag="refine pq4 plan_reuse", floor=REFINE_FLOOR,
+                             plan_reuse=True, refine=RefineParams("pq4", 4))
+            want = runs[(mode, fused)]
+            for f in ("ids", "approx_dco", "refine_dco", "scanned_blocks"):
+                check(torch.equal(getattr(res, f), getattr(want, f)),
+                      f"refine pq4 plan_reuse {mode} fused={int(fused)} "
+                      f"differs from the plain two-tier session on {f}")
+    log("refine pq4: plan reuse (grouped B=64, clustered B=1024, fused off "
+        "and on) equal to the plain two-tier sessions on ids and DCO")
 
 
 def multi_path(torch, dev, seed):

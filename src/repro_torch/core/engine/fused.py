@@ -112,7 +112,7 @@ def scan_blocks_topk(store: BlockStore, plan: QueryPlan, lut: torch.Tensor,
     d, _, ids, dco = ops.pq_scan_topk(
         lut_x, store.block_codes, store.block_ids, store.block_other,
         tile_idx, rank_x, slot_of, rank_u, dead, fetch=fetch, query_tile=qt,
-        packed=packed)
+        packed=packed, plan_width=s)
     if inv is not None:
         d, ids, dco = d[inv], ids[inv], dco[inv]
     return ScanOut(flat_d=d, flat_i=ids, approx_dco=dco,

@@ -164,14 +164,17 @@ class RairsIndex:
         return cache[backend]
 
     def search(self, queries, k: int, nprobe: int, k_factor: int = 10,
-               max_scan: Optional[int] = None, exec_mode: str = "paged",
-               query_tile: int = 8, *,
+               max_scan: Optional[int] = None, use_kernel: bool = False,
+               exec_mode: str = "paged", query_tile: int = 8, *,
                device: DeviceLike = None) -> SearchResult:
-        """Keyword path over the cached sessions."""
+        """Keyword path over the cached sessions, with the reference's
+        arguments in the reference's order.  ``use_kernel`` is carried in
+        the params and picks nothing: the index's device does
+        (``SearchParams``)."""
         return self.searcher(SearchParams(
             k=k, nprobe=nprobe, k_factor=k_factor, max_scan=max_scan,
-            exec_mode=exec_mode, query_tile=query_tile),
-            device=device)(queries)
+            use_kernel=use_kernel, exec_mode=exec_mode,
+            query_tile=query_tile), device=device)(queries)
 
 
 def compute_assignments(x: torch.Tensor, centroids: torch.Tensor,

@@ -18,7 +18,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pq_scan.cu", "pq_scan_topk.cu")
+SOURCES = ("pq_scan.cu", "pq_scan_topk.cu", "topk_select.cu")
 HEADERS = ("adc.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -34,10 +34,16 @@ _SIGNATURES = {
         "pq_scan_tiled_smem_bytes": ([_INT] * 5, ctypes.c_size_t),
     },
     "pq_scan_topk": {
-        "pq_scan_topk_launch": ([_VOID] * 14 + [_INT] * 15 + [_VOID], _INT),
-        "topk_merge_launch": ([_VOID] * 7 + [_INT] * 4 + [_VOID], _INT),
+        "pq_scan_topk_launch": ([_VOID] * 13 + [_INT] * 15 + [_VOID], _INT),
+        "pq_scan_rows_launch": ([_VOID] * 14 + [_INT] * 14 + [_VOID], _INT),
+        "topk_merge_launch": ([_VOID] * 6 + [_INT] * 4 + [_VOID], _INT),
         "pq_scan_topk_smem_bytes": ([_INT] * 7, ctypes.c_size_t),
-        "topk_merge_smem_bytes": ([_INT] * 2, ctypes.c_size_t),
+        "topk_merge_smem_bytes": ([_INT], ctypes.c_size_t),
+    },
+    "topk_select": {
+        "topk_select_launch": ([_VOID] * 8 + [_INT] * 4 + [_VOID], _INT),
+        "topk_select_smem_bytes": ([_INT] * 2, ctypes.c_size_t),
+        "topk_select_scratch_words": ([_INT] * 2, ctypes.c_size_t),
     },
 }
 

@@ -58,18 +58,27 @@
 //     memory through the read-only cache (adc.cuh's LdgTable) and shared
 //     memory holds only the selection state and plan slots; the shape
 //     alone picks it (kernels/pq_scan.py::query_groups).
-//   * Selection state in global memory (GS).  Each query's state is
-//     4 * 6 * FW bytes: 393 KB at FW = 16384 (fetch above 8192), more than
-//     a CTA's shared memory.  Then the six FW-wide arrays of every query
-//     live in a scratch tensor the wrapper allocates (one slice per CTA,
-//     from PyTorch's caching allocator, so CUDA-graph capture still
-//     works), and shared memory keeps the tables, the queue fills, the
-//     plan slots and the DCO counts.  The same filter, queue and bitonic
-//     network run over the global arrays in the same order, so the result
-//     is the same bitwise; a barrier orders global memory within a CTA as
-//     it orders shared memory.  The merge has the same form.  The wrapper
-//     caps the splits so that the scratch stays near 512 MiB
-//     (kernels/pq_scan.py::k3_splits).  The shape alone picks the form.
+//   * Candidate rows (GS).  Where one query's selection arrays pass a
+//     CTA's shared memory (4 * 6 * FW bytes: 393 KB at FW = 16384, fetch
+//     above 8192), a filter, a queue and a network in device memory would
+//     move tens of megabytes a query and a flush, and would filter nothing
+//     where fetch is near the kept count (a paged query of the wide
+//     two-tier case keeps ~12,200 of 17,792 planned items for fetch
+//     16,000).  So that form selects nothing: it scores as above (the
+//     staging, score_row and the DCO ballot are the same code) and appends
+//     each kept triple (d, pos, id) to its query's candidate row, with one
+//     warp-aggregated atomic per warp and query on the row's fill.  The
+//     rows are (B, cap) tensors from PyTorch's caching allocator (graph
+//     capture keeps working), cap = BLK times the query's plan width: pos
+//     is unique among a query's kept items, so a row never overflows.  The
+//     order inside a row is arbitrary, but (d, pos) is unique among its
+//     entries, so the row select that follows (csrc/topk_select.cu, one
+//     CTA per query) gives the stable top-fetch whatever the order.  This
+//     layout ("append") writes only kept items and tells the select how
+//     many there are, where a row dense by pos would need pads written
+//     first and read back.  Splits append to the same rows, so the form
+//     splits as the shared one does (topk_splits) and needs no merge.  The
+//     shape alone picks it (kernels/pq_scan.py::query_groups).
 //
 // pos = slot * BLK + lane is unique among a query's kept candidates and
 // every pad is (+inf, PAD_POS, -1), so the result is the stable selection
@@ -154,6 +163,28 @@ __device__ __forceinline__ bool push_one(const Sel& s, int q, float d, int p,
   if (off >= s.fw) return false;
   s.put(q, off, d, p, id);
   return true;
+}
+
+// Warp-aggregated append (GS): every lane of the warp calls it; the lanes
+// with `want` write their triples to consecutive entries of row b (cap
+// wide), claimed with one atomic on the row's fill rn[b].
+__device__ __forceinline__ void append_warp(float* rd, int32_t* rp,
+                                            int32_t* ri, int* rn, int b,
+                                            int cap, bool want, float d,
+                                            int p, int id) {
+  const unsigned m = __ballot_sync(FULL, want);
+  if (m == 0) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(&rn[b], __popc(m));
+  base = __shfl_sync(FULL, base, leader);
+  const int off = base + __popc(m & ((1u << lane) - 1u));
+  if (!want || off >= cap) return;  // off < cap for a plan of cap / BLK
+  const size_t o = (size_t)b * cap + off;
+  rd[o] = d;
+  rp[o] = p;
+  ri[o] = id;
 }
 
 // Put the pair (i, l) of one triple array in order: ascending if `asc`.
@@ -244,9 +275,8 @@ __host__ __device__ __forceinline__ size_t sel_array_words(int nq, int fw) {
   return 6 * (size_t)nq * fw;
 }
 
-// Point nq accumulators and queues of width fw at `p` (shared or global
-// memory: sel_array_words(nq, fw) words) and their fills at `cnt`
-// (shared memory, nq words).
+// Point nq accumulators and queues of width fw at `p` (shared memory:
+// sel_array_words(nq, fw) words) and their fills at `cnt` (nq words).
 __device__ __forceinline__ void carve(Sel& s, int* p, int* cnt, int nq,
                                       int fw, int fetch) {
   const size_t n = (size_t)nq * fw;
@@ -272,7 +302,7 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
     const int32_t* __restrict__ slot_of, const int32_t* __restrict__ rank_u,
     const uint8_t* __restrict__ dead, float* __restrict__ part_d,
     int32_t* __restrict__ part_pos, int32_t* __restrict__ part_id,
-    int32_t* __restrict__ dco, int* __restrict__ state, int M, int K,
+    int32_t* __restrict__ dco, int* __restrict__ row_n, int M, int K,
     int BLK, int MB, int S, int QT, int QS, int nlist, int FW, int fetch,
     int s_per, int vec16) {
   extern __shared__ int smem[];
@@ -282,27 +312,26 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
   const int P = max(1, NT / BLK);  // positions per round
   const int n_lut = GT ? 0 : QT * M * K;  // tables staged in shared memory
   float* slut = reinterpret_cast<float*>(smem);
-  const size_t n_sel = sel_array_words(QT, FW);
-  int* cnt = smem + n_lut + (GS ? 0 : n_sel);             // QT
+  // GS: part_* are the (B, fetch) candidate rows, row_n their fills
+  const size_t n_sel = GS ? 0 : sel_array_words(QT, FW);
+  int* cnt = smem + n_lut + n_sel;                         // QT (not GS)
   Sel sel;
-  carve(sel,
-        GS ? state + (size_t)(qi * splits + split) * n_sel : smem + n_lut,
-        cnt, QT, FW, fetch);
-  int* sslot = cnt + QT;                                   // QT * P
+  if (!GS) carve(sel, smem + n_lut, cnt, QT, FW, fetch);
+  int* sslot = cnt + (GS ? 0 : QT);                        // QT * P
   int* sdco = sslot + QT * P;                              // QT
 
   const float* glut = lut + (size_t)qi * QS * M * K;
   for (int j = tid; j < n_lut; j += NT) slut[j] = glut[j];
   const auto tabs = tables<GT>(glut, slut);
-  for (int j = tid; j < QT * FW; j += NT) {
-    sel.ad[j] = inf();
-    sel.ap[j] = PAD_POS;
-    sel.ai[j] = -1;
+  if (!GS) {
+    for (int j = tid; j < QT * FW; j += NT) {
+      sel.ad[j] = inf();
+      sel.ap[j] = PAD_POS;
+      sel.ai[j] = -1;
+    }
+    for (int q = tid; q < QT; q += NT) sel.cnt[q] = 0;
   }
-  for (int q = tid; q < QT; q += NT) {
-    sel.cnt[q] = 0;
-    sdco[q] = 0;
-  }
+  for (int q = tid; q < QT; q += NT) sdco[q] = 0;
 
   const int f_end = s1 * BLK;
   for (int f0 = s0 * BLK; f0 < f_end; f0 += NT) {
@@ -350,13 +379,17 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
           d = score_row<PACKED>(row, tabs + (size_t)q * M * K, K, MB,
                                 vec16 != 0);
           pos = sslot[q * P + p] * BLK + ln;
-          want = sel.beats(q, d, pos);
+          want = GS || sel.beats(q, d, pos);
         }
-        if (!push_warp(sel, q, want, d, pos, iid)) pend |= 1ull << q;
+        if (GS)
+          append_warp(part_d, part_pos, part_id, row_n, b, fetch, want, d,
+                      pos, iid);
+        else if (!push_warp(sel, q, want, d, pos, iid))
+          pend |= 1ull << q;
       }
     }
     __syncthreads();
-    while (__syncthreads_or(sel.any_full())) {
+    while (!GS && __syncthreads_or(sel.any_full())) {
       flush(sel);
       for (uint64_t r = pend; r; r &= r - 1) {
         const int q = __ffsll((long long)r) - 1;
@@ -370,9 +403,9 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
     }
   }
   __syncthreads();
-  if (sel.any_queued()) flush(sel);
+  if (!GS && sel.any_queued()) flush(sel);
 
-  for (int j = tid; j < QT * fetch; j += NT) {
+  for (int j = tid; !GS && j < QT * fetch; j += NT) {
     const int q = j / fetch, c = j % fetch;
     const size_t o = ((size_t)(qi * QS + q) * splits + split) * fetch + c;
     const int a = q * FW + c;
@@ -387,19 +420,18 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
 // One CTA per query: the top-F under (d, pos) of `splits` ascending lists
 // of F triples, (B, splits, F) -> (B, F).  The first list seeds the
 // accumulator; the others pass through the same filter and queue as the
-// scan.  GS: the selection arrays live in `state`, one slice per query.
-template <bool GS>
+// scan.  Where one query's selection arrays pass a CTA's shared memory
+// (fetch above 8192) the wrapper merges with the row select instead
+// (csrc/topk_select.cu).
 __global__ void __launch_bounds__(MERGE_NT) topk_merge(
     const float* __restrict__ part_d, const int32_t* __restrict__ part_pos,
     const int32_t* __restrict__ part_id, float* __restrict__ out_d,
-    int32_t* __restrict__ out_pos, int32_t* __restrict__ out_id,
-    int* __restrict__ state, int splits, int fetch, int FW) {
+    int32_t* __restrict__ out_pos, int32_t* __restrict__ out_id, int splits,
+    int fetch, int FW) {
   extern __shared__ int smem[];
   const int b = blockIdx.x, tid = threadIdx.x;
-  const size_t n_sel = sel_array_words(1, FW);
   Sel sel;
-  carve(sel, GS ? state + (size_t)b * n_sel : smem, smem + (GS ? 0 : n_sel),
-        1, FW, fetch);
+  carve(sel, smem, smem + sel_array_words(1, FW), 1, FW, fetch);
   const size_t base = (size_t)b * splits * fetch;
   for (int c = tid; c < FW; c += MERGE_NT) {
     const bool in = c < fetch;
@@ -445,65 +477,33 @@ ScanKernel scan_kernel(bool packed) {
   return packed ? pq_scan_topk<true, GT, GS> : pq_scan_topk<false, GT, GS>;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Dynamic shared memory of one scan CTA: the tables (none when they are
-// read from global memory), the selection arrays (none when they live in
-// global memory), the queue fills, and the round's staged plan slots and
-// DCO counts (layout at the top of pq_scan_topk).  The wrapper picks the
-// form and cuts a tile into query groups by it
-// (kernels/pq_scan.py::query_groups).
-size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
-                               int global_tables, int global_state) {
+// Dynamic shared memory of one scan CTA (pq_scan_topk_smem_bytes).
+size_t scan_smem_bytes(int M, int K, int QT, int FW, int BLK, bool gt,
+                       bool gs) {
   const int P = NT / BLK > 1 ? NT / BLK : 1;
-  const size_t tables = global_tables ? 0 : (size_t)QT * M * K;
-  const size_t arrays = global_state ? 0 : sel_array_words(QT, FW);
-  return sizeof(int) * (tables + arrays + QT + (size_t)QT * P + QT);
+  const size_t tables = gt ? 0 : (size_t)QT * M * K;
+  const size_t arrays = gs ? 0 : sel_array_words(QT, FW) + QT;
+  return sizeof(int) * (tables + arrays + (size_t)QT * P + QT);
 }
 
-// Dynamic shared memory of one merge CTA (one query).
-size_t topk_merge_smem_bytes(int FW, int global_state) {
-  return sizeof(int) * ((global_state ? 0 : sel_array_words(1, FW)) + 1);
-}
-
-// lut (B, M, K) f32; codes (TB, BLK, MB) u8; block_ids / block_other
-// (TB, BLK) i32; tile_idx (B / QS, S) i32; rank_of (B, nlist) i32;
-// slot_of / rank_u (B, S) i32; dead (TB, BLK) u8 or NULL; part_d /
-// part_pos / part_id (B, splits, fetch), the output itself when splits is
-// 1; dco (B,) i32, zeroed; state NULL, or (GS form) T * splits *
-// sel_array_words(QT, FW) i32 of scratch, CTA (qi, y) at slice
-// qi * splits + y.  A tile has QS query rows and this launch
-// scores QT of them (a query group, kernels/pq_scan.py::query_groups):
-// lut, rank_of, slot_of, rank_u, the part_* and dco point at the group's
-// first row of tile 0, and CTA qi takes rows qi * QS + [0, QT).  Split y
-// scans positions [y * s_per, min(S, (y + 1) * s_per)).  FW is a power of
-// two >= max(fetch, 2); BLK is a power of two; 1 <= QT <= min(QS, 64).
-// global_tables: read the tables from global memory.
-int pq_scan_topk_launch(const void* lut, const void* codes,
-                        const void* block_ids, const void* block_other,
-                        const void* tile_idx, const void* rank_of,
-                        const void* slot_of, const void* rank_u,
-                        const void* dead, void* part_d, void* part_pos,
-                        void* part_id, void* dco, void* state, int B, int M,
-                        int K, int BLK, int MB, int S, int QT, int QS,
-                        int nlist, int FW, int fetch, int packed, int splits,
-                        int s_per, int global_tables, void* stream) {
+// Launch one scan of either form: GS when row_n is not NULL (then part_*
+// are the candidate rows and `fetch` is their width).
+int launch_scan(const void* lut, const void* codes, const void* block_ids,
+                const void* block_other, const void* tile_idx,
+                const void* rank_of, const void* slot_of, const void* rank_u,
+                const void* dead, void* part_d, void* part_pos, void* part_id,
+                void* dco, void* row_n, int B, int M, int K, int BLK, int MB,
+                int S, int QT, int QS, int nlist, int FW, int fetch,
+                int packed, int splits, int s_per, int global_tables,
+                void* stream) {
   if (QT < 1 || QT > MAX_QT || QT > QS || B % QS != 0 || !pow2(BLK) ||
-      !pow2(FW) ||
-      FW < 2 || fetch < 1 || fetch > FW || splits < 1 || s_per < 1 ||
-      splits > 65535)
+      splits < 1 || s_per < 1 || splits > 65535)
     return (int)cudaErrorInvalidValue;
   const int T = B / QS;
   if (T == 0) return 0;
-  const bool gs = state != nullptr;
+  const bool gs = row_n != nullptr;
   const size_t smem =
-      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables, gs);
+      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);
   const int vec16 =
       (MB % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -526,33 +526,106 @@ int pq_scan_topk_launch(const void* lut, const void* codes,
       static_cast<const int32_t*>(rank_u), static_cast<const uint8_t*>(dead),
       static_cast<float*>(part_d), static_cast<int32_t*>(part_pos),
       static_cast<int32_t*>(part_id), static_cast<int32_t*>(dco),
-      static_cast<int*>(state), M, K, BLK, MB, S, QT, QS, nlist, FW, fetch,
+      static_cast<int*>(row_n), M, K, BLK, MB, S, QT, QS, nlist, FW, fetch,
       s_per, vec16);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" {
+
+const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Dynamic shared memory of one scan CTA: the tables (none when they are
+// read from global memory), the selection arrays and queue fills (none in
+// the candidate-row form), and the round's staged plan slots and DCO
+// counts (layout at the top of pq_scan_topk).  The wrapper picks the form
+// and cuts a tile into query groups by it
+// (kernels/pq_scan.py::query_groups).
+size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
+                               int global_tables, int global_state) {
+  return scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0,
+                         global_state != 0);
+}
+
+// Dynamic shared memory of one merge CTA (one query).
+size_t topk_merge_smem_bytes(int FW) {
+  return sizeof(int) * (sel_array_words(1, FW) + 1);
+}
+
+// lut (B, M, K) f32; codes (TB, BLK, MB) u8; block_ids / block_other
+// (TB, BLK) i32; tile_idx (B / QS, S) i32; rank_of (B, nlist) i32;
+// slot_of / rank_u (B, S) i32; dead (TB, BLK) u8 or NULL; part_d /
+// part_pos / part_id (B, splits, fetch), the output itself when splits is
+// 1; dco (B,) i32, zeroed.  A tile has QS query rows and this launch
+// scores QT of them (a query group, kernels/pq_scan.py::query_groups):
+// lut, rank_of, slot_of, rank_u, the part_* and dco point at the group's
+// first row of tile 0, and CTA qi takes rows qi * QS + [0, QT).  Split y
+// scans positions [y * s_per, min(S, (y + 1) * s_per)).  FW is a power of
+// two >= max(fetch, 2); BLK is a power of two; 1 <= QT <= min(QS, 64).
+// global_tables: read the tables from global memory.
+int pq_scan_topk_launch(const void* lut, const void* codes,
+                        const void* block_ids, const void* block_other,
+                        const void* tile_idx, const void* rank_of,
+                        const void* slot_of, const void* rank_u,
+                        const void* dead, void* part_d, void* part_pos,
+                        void* part_id, void* dco, int B, int M, int K,
+                        int BLK, int MB, int S, int QT, int QS, int nlist,
+                        int FW, int fetch, int packed, int splits, int s_per,
+                        int global_tables, void* stream) {
+  if (!pow2(FW) || FW < 2 || fetch < 1 || fetch > FW)
+    return (int)cudaErrorInvalidValue;
+  return launch_scan(lut, codes, block_ids, block_other, tile_idx, rank_of,
+                     slot_of, rank_u, dead, part_d, part_pos, part_id, dco,
+                     nullptr, B, M, K, BLK, MB, S, QT, QS, nlist, FW, fetch,
+                     packed, splits, s_per, global_tables, stream);
+}
+
+// The candidate-row form (GS): inputs, query groups and splits as
+// pq_scan_topk_launch; row_d / row_pos / row_id (B, cap) and row_n (B,)
+// i32, zeroed: each kept triple of query b is appended to row b, in no
+// particular order, and row_n[b] counts them.  cap >= BLK times the
+// number of plan slots of any query (slot_of < cap / BLK).
+int pq_scan_rows_launch(const void* lut, const void* codes,
+                        const void* block_ids, const void* block_other,
+                        const void* tile_idx, const void* rank_of,
+                        const void* slot_of, const void* rank_u,
+                        const void* dead, void* row_d, void* row_pos,
+                        void* row_id, void* row_n, void* dco, int B, int M,
+                        int K, int BLK, int MB, int S, int QT, int QS,
+                        int nlist, int cap, int packed, int splits, int s_per,
+                        int global_tables, void* stream) {
+  if (cap < 1 || row_n == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_scan(lut, codes, block_ids, block_other, tile_idx, rank_of,
+                     slot_of, rank_u, dead, row_d, row_pos, row_id, dco,
+                     row_n, B, M, K, BLK, MB, S, QT, QS, nlist, 0, cap,
+                     packed, splits, s_per, global_tables, stream);
+}
+
 // part_d / part_pos / part_id (B, splits, fetch), each list ascending by
-// (d, pos); out_d / out_pos / out_id (B, fetch); state NULL, or (GS form)
-// B * sel_array_words(1, FW) i32 of scratch.  FW as above.
+// (d, pos); out_d / out_pos / out_id (B, fetch).  FW as above, with
+// topk_merge_smem_bytes(FW) within a CTA's shared memory.
 int topk_merge_launch(const void* part_d, const void* part_pos,
                       const void* part_id, void* out_d, void* out_pos,
-                      void* out_id, void* state, int B, int splits, int fetch,
-                      int FW, void* stream) {
+                      void* out_id, int B, int splits, int fetch, int FW,
+                      void* stream) {
   if (!pow2(FW) || FW < 2 || fetch < 1 || fetch > FW || splits < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const bool gs = state != nullptr;
-  const size_t smem = topk_merge_smem_bytes(FW, gs);
-  auto kern = gs ? topk_merge<true> : topk_merge<false>;
+  const size_t smem = topk_merge_smem_bytes(FW);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(B), dim3(MERGE_NT), smem, static_cast<cudaStream_t>(stream)>>>(
+  topk_merge<<<dim3(B), dim3(MERGE_NT), smem,
+               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_d),
       static_cast<const int32_t*>(part_pos),
       static_cast<const int32_t*>(part_id), static_cast<float*>(out_d),
-      static_cast<int32_t*>(out_pos), static_cast<int32_t*>(out_id),
-      static_cast<int*>(state), splits, fetch, FW);
+      static_cast<int32_t*>(out_pos), static_cast<int32_t*>(out_id), splits,
+      fetch, FW);
   return (int)cudaGetLastError();
 }
 

@@ -65,11 +65,13 @@ def pq_scan_tiled(lut: torch.Tensor, block_codes: torch.Tensor,
 
 def pq_scan_topk(lut, block_codes, block_ids, block_other, tile_idx,
                  rank_of, slot_of, rank_u, dead=None, *, fetch: int,
-                 query_tile: int = 8, packed: bool = False):
+                 query_tile: int = 8, packed: bool = False,
+                 plan_width=None):
     """Fused scan -> top-``fetch``.  tile_idx (B // query_tile, S) pages
     per-tile scan lists exactly like ``pq_scan_tiled``; ``slot_of`` /
     ``rank_u`` (B, S) map each scan position back to the query's plan
-    slot (see ``core/engine/fused.py``).  Returns
+    slot (see ``core/engine/fused.py``), every slot below ``plan_width``
+    (the plan's width; it sizes K3's candidate rows).  Returns
     (acc_d, acc_pos, acc_id, dco)."""
     lut, block_codes = align(lut, block_codes, packed)
 
@@ -79,4 +81,5 @@ def pq_scan_topk(lut, block_codes, block_ids, block_other, tile_idx,
         lut, block_codes, i32(block_ids), i32(block_other), i32(tile_idx),
         i32(rank_of), i32(slot_of), i32(rank_u),
         None if dead is None else dead.to(torch.uint8).contiguous(),
-        query_tile=query_tile, fetch=fetch, packed=packed)
+        query_tile=query_tile, fetch=fetch, packed=packed,
+        plan_width=plan_width)

@@ -1,5 +1,5 @@
-"""Wrappers of the CUDA scan kernels (K1, K3 and its merge) and the paged
-entry (K2).
+"""Wrappers of the CUDA scan kernels (K1, K3 and its merge, the row
+select) and the paged entry (K2).
 
 Each wrapper takes its plain version (``ref.py``) only for tensors on
 the CPU.  For CUDA tensors it checks dtype, shape and contiguity,
@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .ref import merge_topk_ref, pq_scan_tiled_ref, pq_scan_topk_ref
+from .ref import (merge_topk_ref, pq_scan_tiled_ref, pq_scan_topk_ref,
+                  scan_rows_ref, select_topk_ref)
 from .topk import pow2_ceil
 
 SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
@@ -25,8 +26,6 @@ K1_THREADS = 256           # threads of a K1 CTA (NT in pq_scan.cu)
 _K1_TARGET_CTAS = 8 * 132  # two waves and more of K1 CTAs on the H100
 _K1_MIN_ITEMS = 4 * K1_THREADS   # items a K1 CTA scores at least
 K1_MAX_POSITIONS = 1024    # tile_idx entries a K1 CTA stages (pq_scan.cu)
-STATE_BUDGET = 1 << 29     # bytes of K3 selection state in global memory
-                           # that k3_splits aims a launch at
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -46,9 +45,9 @@ class QueryGroups(list):
     """The query groups of a tile, ``[(q0, q1), ...]``, one launch each,
     and the kernel form they run: ``global_tables`` is True when the
     launches read the tables from global memory (one query's tables alone
-    do not fit in a CTA's shared memory), ``global_state`` when K3 keeps
-    its selection arrays in global memory (one query's arrays do not fit
-    beside the rest of its state)."""
+    do not fit in a CTA's shared memory), ``global_state`` when K3 takes
+    its candidate-row form (one query's selection arrays do not fit beside
+    the rest of its state)."""
 
     def __init__(self, groups, global_tables: bool = False,
                  global_state: bool = False):
@@ -157,33 +156,25 @@ def k3_query_groups(m: int, k: int, qt: int, fw: int,
         max_group=MAX_QUERY_TILE, movable_state=True)
 
 
-def state_words(nq: int, fw: int) -> int:
-    """int32 words of the six FW-wide selection arrays of ``nq`` queries:
-    what a K3 CTA keeps in global memory in the global-state form."""
-    return 6 * nq * fw
-
-
-def k3_splits(t: int, s: int, blk: int, fw: int, groups) -> tuple:
-    """K3's ``(splits, s_per)`` for a tile shape and its query groups:
-    ``topk_splits``, with the splits capped in the global-state form so
-    that the launch's scratch (``t * splits`` CTAs of
-    ``state_words(groups.largest, fw)``) stays within ``STATE_BUDGET``
-    where one split allows it."""
-    splits, s_per = topk_splits(t, s, blk)
-    if groups.global_state:
-        cap = max(1, STATE_BUDGET
-                  // (4 * max(t, 1) * state_words(groups.largest, fw)))
-        if splits > cap:
-            s_per = max(1, -(-s // cap))
-            splits = max(1, -(-s // s_per))
-    return splits, s_per
-
-
-def merge_global_state(fw: int) -> bool:
-    """Whether K3's merge keeps a query's selection arrays in global
-    memory: they do not fit in a CTA's shared memory (on the card only)."""
+def merge_by_select(fw: int) -> bool:
+    """Whether K3's merge runs the row select: one query's selection
+    arrays do not fit in a CTA's shared memory (on the card only)."""
     lib = build.load("pq_scan_topk")
-    return lib.topk_merge_smem_bytes(fw, 0) > SMEM_LIMIT
+    return lib.topk_merge_smem_bytes(fw) > SMEM_LIMIT
+
+
+def select_in_global(fetch: int) -> bool:
+    """Whether the row select keeps its survivors in its scratch tensor:
+    they do not fit in a CTA's shared memory (on the card only)."""
+    lib = build.load("topk_select")
+    return lib.topk_select_smem_bytes(fetch, 0) > SMEM_LIMIT
+
+
+def row_width(s: int, blk: int, plan_width=None) -> int:
+    """Entries of a candidate row (K3's candidate-row form): BLK times the
+    plan width, at most the S scan positions of the launch.  A query keeps
+    at most one item per (plan slot, lane)."""
+    return blk * (s if plan_width is None else min(s, plan_width))
 
 
 def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
@@ -275,13 +266,59 @@ def topk_splits(t: int, s: int, blk: int) -> tuple:
     return max(1, -(-s // s_per)), s_per
 
 
+def select_topk_kernel(row_d: torch.Tensor, row_pos: torch.Tensor,
+                       row_id: torch.Tensor, row_n=None, *, fetch: int):
+    """The row select (``csrc/topk_select.cu``).  (B, W) rows of (d, pos,
+    id) triples, of which the first ``row_n[b]`` count (all W when
+    ``row_n`` is None) -> their stable top-``fetch`` under (d, pos),
+    ``(acc_d, acc_pos, acc_id)`` (B, fetch), padded with ``(+inf,
+    PAD_POS, -1)`` (see ``ref.select_topk_ref``).  One CTA per row;
+    survivors beyond a CTA's shared memory go to a scratch tensor
+    (``select_in_global``)."""
+    if row_d.device.type == "cpu":
+        return select_topk_ref(row_d, row_pos, row_id, row_n, fetch=fetch)
+    b, w = row_d.shape
+    dev = row_d.device
+    _require(row_d, "row_d", torch.float32, 2, dev)
+    for name, x in (("row_pos", row_pos), ("row_id", row_id)):
+        _require(x, name, torch.int32, 2, dev)
+        if x.shape != row_d.shape:
+            raise ValueError(f"{name} {tuple(x.shape)} != row_d "
+                             f"{tuple(row_d.shape)}")
+    if row_n is not None:
+        _require(row_n, "row_n", torch.int32, 1, dev)
+        if row_n.shape != (b,):
+            raise ValueError(f"row_n must be ({b},), got {tuple(row_n.shape)}")
+    if fetch < 1:
+        raise ValueError(f"fetch must be >= 1, got {fetch}")
+    out = (torch.empty((b, fetch), dtype=torch.float32, device=dev),
+           torch.empty((b, fetch), dtype=torch.int32, device=dev),
+           torch.empty((b, fetch), dtype=torch.int32, device=dev))
+    lib = build.load("topk_select")
+    glob = select_in_global(fetch)
+    scratch = torch.empty(b * lib.topk_select_scratch_words(fetch, int(glob)),
+                          dtype=torch.int32, device=dev)
+    err = lib.topk_select_launch(
+        row_d.data_ptr(), row_pos.data_ptr(), row_id.data_ptr(),
+        None if row_n is None else row_n.data_ptr(),
+        *(x.data_ptr() for x in out), scratch.data_ptr(), b, w, fetch,
+        int(glob), _stream(dev))
+    build.check(lib, err, "select_topk_kernel")
+    select_topk_kernel.launches += 1
+    return out
+
+
+select_topk_kernel.launches = 0
+
+
 def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
                       part_id: torch.Tensor):
     """K3's merge.  (B, splits, F) lists, each ascending by (d, pos)
     with pads ``(+inf, PAD_POS, -1)`` last -> their top-F
     ``(acc_d, acc_pos, acc_id)``, (B, F) ascending by (d, pos).  Where a
     query's selection arrays pass a CTA's shared memory (fetch above
-    8192) they live in a scratch tensor (``merge_global_state``)."""
+    8192, ``merge_by_select``) the row select merges the (B, splits * F)
+    rows instead, and the launch counts as ``select_topk_kernel``'s."""
     if part_d.device.type == "cpu":
         return merge_topk_ref(part_d, part_pos, part_id)
     b, splits, fetch = part_d.shape
@@ -295,18 +332,18 @@ def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
     if splits < 1 or fetch < 1:
         raise ValueError(f"merge_topk_kernel needs splits, fetch >= 1, got "
                          f"{tuple(part_d.shape)}")
+    fw = topk_width(fetch)
+    if merge_by_select(fw):
+        return select_topk_kernel(*(x.reshape(b, splits * fetch)
+                                    for x in (part_d, part_pos, part_id)),
+                                  fetch=fetch)
     out = (torch.empty((b, fetch), dtype=torch.float32, device=dev),
            torch.empty((b, fetch), dtype=torch.int32, device=dev),
            torch.empty((b, fetch), dtype=torch.int32, device=dev))
-    fw = topk_width(fetch)
-    state = (torch.empty(b * state_words(1, fw), dtype=torch.int32,
-                         device=dev) if merge_global_state(fw) else None)
     lib = build.load("pq_scan_topk")
     err = lib.topk_merge_launch(
         part_d.data_ptr(), part_pos.data_ptr(), part_id.data_ptr(),
-        *(x.data_ptr() for x in out),
-        None if state is None else state.data_ptr(), b, splits, fetch, fw,
-        _stream(dev))
+        *(x.data_ptr() for x in out), b, splits, fetch, fw, _stream(dev))
     build.check(lib, err, "merge_topk_kernel")
     merge_topk_kernel.launches += 1
     return out
@@ -315,32 +352,12 @@ def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
 merge_topk_kernel.launches = 0
 
 
-def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
-                        rank_of, slot_of, rank_u, dead=None, *,
-                        query_tile: int = 8, fetch: int = 64,
-                        packed: bool = False):
-    """K3.  Fused scan -> keep mask -> top-``fetch`` per query (see
-    ``ref.pq_scan_topk_ref`` for the contract).  Returns
-    ``(acc_d, acc_pos, acc_id, dco)``: (B, fetch) f32 / int32 / int32
-    ascending by (d, pos), and the (B,) int32 logical DCO.  The scan
-    runs over ``topk_splits`` ranges of positions; with more than one,
-    ``merge_topk_kernel`` merges their lists.  On the card a tile whose
-    state does not fit in shared memory, or that has more than
-    ``MAX_QUERY_TILE`` queries, is scanned in ``k3_query_groups``, one
-    launch each; every output row depends only on its own query's rows
-    and the tile's list, so the split is exact.  Where one query's
-    tables alone do not fit, the kernel reads them from global memory;
-    where its selection arrays do not fit (fetch above 8192), they live
-    in a scratch tensor, and ``k3_splits`` caps the splits."""
-    if lut.device.type == "cpu":
-        return pq_scan_topk_ref(lut, block_codes, block_ids, block_other,
-                                tile_idx, rank_of, slot_of, rank_u, dead,
-                                query_tile=query_tile, fetch=fetch,
-                                packed=packed)
+def _k3_shape(lut, block_codes, block_ids, block_other, tile_idx, rank_of,
+              slot_of, rank_u, dead, query_tile, packed):
+    """Check K3's inputs on the card; returns (b, m, k, blk, mb, s, nlist)."""
     b, m, k = lut.shape
     tb, blk, mb = block_codes.shape
     t, s = tile_idx.shape
-    nlist = rank_of.shape[1]
     dev = lut.device
     _require(lut, "lut", torch.float32, 3, dev)
     _require(block_codes, "block_codes", torch.uint8, 3, dev)
@@ -359,21 +376,126 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         raise ValueError(f"batch {b} != {t} tiles x query_tile {query_tile}")
     if blk != pow2_ceil(blk):
         raise ValueError(f"block size must be a power of 2: {blk}")
-    if fetch < 1:
-        raise ValueError(f"fetch must be >= 1, got {fetch}")
     if block_ids.shape != (tb, blk) or block_other.shape != (tb, blk):
         raise ValueError("block_ids / block_other must be (TB, BLK)")
     if slot_of.shape != (b, s) or rank_u.shape != (b, s):
         raise ValueError(f"slot_of / rank_u must be {(b, s)}")
     if rank_of.shape[0] != b:
         raise ValueError(f"rank_of must have {b} rows")
+    return b, m, k, blk, mb, s, rank_of.shape[1]
+
+
+def k3_row_groups(m: int, k: int, qt: int, blk: int) -> QueryGroups:
+    """The query groups of K3's candidate-row form for a tile of ``qt``
+    queries (``global_state`` set), by its library's
+    ``pq_scan_topk_smem_bytes`` (on the card only)."""
+    lib = build.load("pq_scan_topk")
+    groups = _library_groups(
+        qt, lambda n, g: lib.pq_scan_topk_smem_bytes(m, k, n, 0, blk, g, 1),
+        max_group=MAX_QUERY_TILE)
+    groups.global_state = True
+    return groups
+
+
+def _scan_rows(args, dims, query_tile, packed, plan_width, groups):
+    """Launch K3's candidate-row form on checked inputs (``dims`` from
+    ``_k3_shape``), one launch per query group, over ``topk_splits``
+    ranges: ``(row_d, row_pos, row_id, row_n, dco)``."""
+    lut, block_codes, block_ids, block_other, tile_idx, rank_of, slot_of, \
+        rank_u, dead = args
+    b, m, k, blk, mb, s, nlist = dims
+    dev = lut.device
+    cap = row_width(s, blk, plan_width)
+    rows = tuple(torch.empty((b, cap), dtype=dt, device=dev)
+                 for dt in (torch.float32, torch.int32, torch.int32))
+    row_n = torch.zeros((b,), dtype=torch.int32, device=dev)
+    dco = torch.zeros((b,), dtype=torch.int32, device=dev)
+    splits, s_per = topk_splits(tile_idx.shape[0], s, blk)
+    lib = build.load("pq_scan_topk")
+    for q0, q1 in groups:
+        err = lib.pq_scan_rows_launch(
+            lut.data_ptr() + 4 * q0 * m * k, block_codes.data_ptr(),
+            block_ids.data_ptr(), block_other.data_ptr(), tile_idx.data_ptr(),
+            rank_of.data_ptr() + 4 * q0 * nlist,
+            slot_of.data_ptr() + 4 * q0 * s, rank_u.data_ptr() + 4 * q0 * s,
+            None if dead is None else dead.data_ptr(),
+            *(x.data_ptr() + 4 * q0 * cap for x in rows),
+            row_n.data_ptr() + 4 * q0, dco.data_ptr() + 4 * q0, b, m, k, blk,
+            mb, s, q1 - q0, query_tile, nlist, cap, int(packed), splits,
+            s_per, int(groups.global_tables), _stream(dev))
+        build.check(lib, err, "pq_scan_topk_kernel")
+        pq_scan_topk_kernel.launches += 1
+    return rows[0], rows[1], rows[2], row_n, dco
+
+
+def pq_scan_rows_kernel(lut, block_codes, block_ids, block_other, tile_idx,
+                        rank_of, slot_of, rank_u, dead=None, *,
+                        query_tile: int = 8, packed: bool = False,
+                        plan_width=None):
+    """K3's candidate-row form alone: the scan and keep mask of
+    ``pq_scan_topk_kernel``, with every kept triple of query b appended to
+    row b (see ``ref.scan_rows_ref``).  Returns ``(row_d, row_pos, row_id,
+    row_n, dco)``: (B, W) f32 / int32 / int32 rows with
+    ``W = row_width(S, BLK, plan_width)`` (``plan_width``: the plan's
+    slots, every ``slot_of`` below it; S when None), the (B,) int32 count
+    of kept triples, and the DCO.  On the card the first ``row_n[b]``
+    entries of a row come in no particular order (the plain version's in
+    ascending pos) and the rest are not written.  Its launches count as
+    ``pq_scan_topk_kernel``'s: the same CUDA kernel."""
+    if lut.device.type == "cpu":
+        return scan_rows_ref(lut, block_codes, block_ids, block_other,
+                             tile_idx, rank_of, slot_of, rank_u, dead,
+                             query_tile=query_tile, packed=packed,
+                             plan_width=plan_width)
+    args = (lut, block_codes, block_ids, block_other, tile_idx, rank_of,
+            slot_of, rank_u, dead)
+    dims = _k3_shape(*args, query_tile, packed)
+    _, m, k, blk, _, _, _ = dims
+    return _scan_rows(args, dims, query_tile, packed, plan_width,
+                      k3_row_groups(m, k, query_tile, blk))
+
+
+def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
+                        rank_of, slot_of, rank_u, dead=None, *,
+                        query_tile: int = 8, fetch: int = 64,
+                        packed: bool = False, plan_width=None):
+    """K3.  Fused scan -> keep mask -> top-``fetch`` per query (see
+    ``ref.pq_scan_topk_ref`` for the contract).  Returns
+    ``(acc_d, acc_pos, acc_id, dco)``: (B, fetch) f32 / int32 / int32
+    ascending by (d, pos), and the (B,) int32 logical DCO.  The scan
+    runs over ``topk_splits`` ranges of positions; with more than one,
+    ``merge_topk_kernel`` merges their lists.  On the card a tile whose
+    state does not fit in shared memory, or that has more than
+    ``MAX_QUERY_TILE`` queries, is scanned in ``k3_query_groups``, one
+    launch each; every output row depends only on its own query's rows
+    and the tile's list, so the split is exact.  Where one query's
+    tables alone do not fit, the kernel reads them from global memory.
+    Where its selection arrays do not fit (fetch above 8192), K3 takes
+    its candidate-row form: the scan appends every kept triple to its
+    query's row (``pq_scan_rows_kernel``, rows ``plan_width`` slots
+    wide) and ``select_topk_kernel`` selects from each row; no merge
+    runs."""
+    if lut.device.type == "cpu":
+        return pq_scan_topk_ref(lut, block_codes, block_ids, block_other,
+                                tile_idx, rank_of, slot_of, rank_u, dead,
+                                query_tile=query_tile, fetch=fetch,
+                                packed=packed)
+    args = (lut, block_codes, block_ids, block_other, tile_idx, rank_of,
+            slot_of, rank_u, dead)
+    dims = _k3_shape(*args, query_tile, packed)
+    b, m, k, blk, mb, s, nlist = dims
+    if fetch < 1:
+        raise ValueError(f"fetch must be >= 1, got {fetch}")
+    dev = lut.device
     fw = topk_width(fetch)
     groups = k3_query_groups(m, k, query_tile, fw, blk)
+    if groups.global_state:
+        row_d, row_pos, row_id, row_n, dco = _scan_rows(
+            args, dims, query_tile, packed, plan_width, groups)
+        acc = select_topk_kernel(row_d, row_pos, row_id, row_n, fetch=fetch)
+        return acc[0], acc[1], acc[2], dco
     lib = build.load("pq_scan_topk")
-    splits, s_per = k3_splits(t, s, blk, fw, groups)
-    state = (torch.empty(t * splits * state_words(groups.largest, fw),
-                         dtype=torch.int32, device=dev)
-             if groups.global_state else None)
+    splits, s_per = topk_splits(tile_idx.shape[0], s, blk)
     acc = tuple(torch.empty((b, fetch), dtype=dt, device=dev)
                 for dt in (torch.float32, torch.int32, torch.int32))
     part = acc if splits == 1 else tuple(
@@ -388,9 +510,7 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
             slot_of.data_ptr() + 4 * q0 * s, rank_u.data_ptr() + 4 * q0 * s,
             None if dead is None else dead.data_ptr(),
             *(x.data_ptr() + 4 * q0 * splits * fetch for x in part),
-            dco.data_ptr() + 4 * q0,
-            None if state is None else state.data_ptr(), b, m, k, blk, mb, s,
-            q1 - q0,
+            dco.data_ptr() + 4 * q0, b, m, k, blk, mb, s, q1 - q0,
             query_tile, nlist, fw, fetch, int(packed), splits, s_per,
             int(groups.global_tables), _stream(dev))
         build.check(lib, err, "pq_scan_topk_kernel")
@@ -402,7 +522,8 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
 
 pq_scan_topk_kernel.launches = 0
 
-KERNELS = (pq_scan_tiled_kernel, pq_scan_topk_kernel, merge_topk_kernel)
+KERNELS = (pq_scan_tiled_kernel, pq_scan_topk_kernel, merge_topk_kernel,
+           select_topk_kernel)
 
 
 def reset_launch_counts() -> None:

@@ -260,15 +260,16 @@ def test_k3_query_groups_match_whole_plain_and_pallas(mode, qt, m, k, b):
 
 
 # ---------------------------------------------------------------------------
-# K3's selection state in global memory (fetch above 8192)
+# K3's candidate-row form (fetch above 8192)
 # ---------------------------------------------------------------------------
 def _k3_smem_gs(m, k, fw, blk):
     """pq_scan_topk.cu's pq_scan_topk_smem_bytes with its global-state
-    flag, written out: tables, six FW-wide selection arrays (none in the
-    global-state form), a queue fill, the round's plan slots and DCO."""
+    flag, written out: tables, six FW-wide selection arrays and a queue
+    fill (none in the candidate-row form), the round's plan slots and
+    DCO."""
     p = max(1, tpq.TOPK_THREADS // blk)
     return lambda n, g, gs=0: 4 * ((0 if g else n * m * k)
-                                   + (0 if gs else 6 * n * fw) + n + n * p
+                                   + (0 if gs else 6 * n * fw + n) + n * p
                                    + n)
 
 
@@ -310,24 +311,6 @@ def test_query_groups_moves_state_only_when_given():
     assert g == [(0, 8)] and g.global_state and not g.global_tables
 
 
-@pytest.mark.parametrize("t_,s,qt,want", [
-    (1024, 556, 1, (1, 556)),      # paged B=1024: 402 MB at one split
-    (128, 4448, 8, (1, 4448)),     # clustered B=1024: 402 MB at one split
-    (8, 35584, 8, (21, 1695)),     # grouped B=64: 24 MiB a split
-    (2, 300, 4, (9, 34))])         # few tiles: topk_splits' own count
-def test_k3_splits_cap_the_global_state(t_, s, qt, want):
-    fw = 16384
-    gs = tpq.QueryGroups([(0, qt)], global_state=True)
-    assert tpq.k3_splits(t_, s, 32, fw, gs) == want
-    splits, s_per = want
-    assert splits == max(1, -(-s // s_per))
-    scratch = 4 * t_ * splits * tpq.state_words(qt, fw)
-    assert scratch <= tpq.STATE_BUDGET or splits == 1
-    # the shared-memory form keeps topk_splits
-    assert tpq.k3_splits(t_, s, 32, 128, tpq.QueryGroups([(0, qt)])) == \
-        tpq.topk_splits(t_, s, 32)
-
-
 def _wide_store_plan(seed, b=8, s=360, tb=400, blk=32, m=16, nlist=10,
                      nid=20000):
     """A plan of b queries over s of tb blocks with integer LUTs (every
@@ -351,7 +334,7 @@ def _wide_store_plan(seed, b=8, s=360, tb=400, blk=32, m=16, nlist=10,
 
 @pytest.mark.parametrize("mode", ["paged", "grouped", "clustered"])
 def test_plain_k3_and_merge_above_fetch_8192(mode):
-    """At fetch 9000 (FW 16384: the global-state form on the card) the
+    """At fetch 9000 (FW 16384: the candidate-row form on the card) the
     port's fused scan, through the plain K3, equals the reference's
     non-kernel path (unfused scan, then the stable top-fetch) bitwise:
     integer LUTs make every sum exact.  And the plain merge of the

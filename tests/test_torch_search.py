@@ -209,3 +209,40 @@ def test_searcher_rejects_unported_features(rairs_index, unit_data):
         SearchParams(exec_mode="nope")
     with pytest.raises(ValueError, match="nprobe"):
         tidx.searcher(SearchParams(nprobe=999), device="cpu")
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("call", ["positional", "keyword"])
+def test_index_search_takes_use_kernel(rairs_index, unit_data, mode, call):
+    """``RairsIndex.search`` takes the reference's arguments in the
+    reference's order, ``use_kernel`` included: by position and by
+    keyword it answers as the session with the same params and as the
+    reference's ``RairsIndex.search``."""
+    from repro_torch.core import Searcher
+    _, q, _ = unit_data
+    q = np.asarray(q[:32])
+    tidx = convert(rairs_index)
+    tq = torch.from_numpy(np.array(q))
+    if call == "positional":
+        got = tidx.search(tq, 10, 8, 10, None, True, mode, 8, device="cpu")
+    else:
+        got = tidx.search(tq, k=10, nprobe=8, k_factor=10, max_scan=None,
+                          use_kernel=True, exec_mode=mode, query_tile=8,
+                          device="cpu")
+    sess = Searcher(tidx, SearchParams(k=10, nprobe=8, k_factor=10,
+                                       use_kernel=True, exec_mode=mode,
+                                       query_tile=8))(tq)
+    want = rairs_index.search(jnp.asarray(q), 10, 8, 10, None, True, mode, 8)
+    keep = np.setdiff1d(np.arange(q.shape[0]),
+                        _near_tie_rows(rairs_index, q, 8))
+    assert len(keep) >= q.shape[0] - 2
+    for f in ("ids", "approx_dco", "refine_dco", "scanned_blocks",
+              "dropped_blocks"):
+        assert torch.equal(getattr(got, f), getattr(sess, f)), f
+        np.testing.assert_array_equal(getattr(got, f).numpy()[keep],
+                                      np.asarray(getattr(want, f))[keep],
+                                      err_msg=f)
+    assert torch.equal(got.dists, sess.dists)
+    np.testing.assert_allclose(got.dists.numpy()[keep],
+                               np.asarray(want.dists)[keep],
+                               rtol=1e-5, atol=1e-5)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a K3 CTA spends its time, on one NVIDIA H100.
 
-    python3 tools/k3_phases.py [--seed 0] [--n 1000000]
+    python3 tools/k3_phases.py [--seed 0] [--n 1000000] [--wide]
 
 Compiles a copy of ``src/repro_torch/kernels/csrc/pq_scan_topk.cu`` with
 ``clock64`` counters added (thread 0 of each scan CTA records them;
@@ -17,6 +17,11 @@ a CTA, so their sum is the CTA's time; CTAs on one SM overlap.  Each
 mode runs twice: as built, and "alone", with the launch asking for
 more shared memory than two CTAs can share, so that each CTA has its
 SM to itself and its phases show what they cost without neighbours.
+With ``--wide`` it runs chip_smoke.py's wide two-tier shape instead
+(k 100, k_factor 10, the pq4 plane at refine factor 16: fetch 16,000),
+where K3 takes its candidate-row form: the counters then time the scan
+to rows (no flush runs; the row select that follows is not counted, but
+is in the K3 time).
 """
 from __future__ import annotations
 
@@ -48,17 +53,18 @@ PROBES = (
      "    __syncthreads();\n    Tb = clock64();\n    ph[1] += Tb - Ta;\n"
      "    const int f = f0 + tid;"),
     ("    }\n    __syncthreads();\n"
-     "    while (__syncthreads_or(sel.any_full())) {\n      flush(sel);\n",
+     "    while (!GS && __syncthreads_or(sel.any_full())) {\n"
+     "      flush(sel);\n",
      "    }\n    __syncthreads();\n    Tc = clock64();\n    ph[2] += Tc - Tb;\n"
      "    ph[6]++;\n"
-     "    while (__syncthreads_or(sel.any_full())) {\n"
+     "    while (!GS && __syncthreads_or(sel.any_full())) {\n"
      "      const long long Tn = clock64();\n"
      "      flush(sel);\n      ph[8] += clock64() - Tn;\n      ph[7]++;\n"),
     ("      __syncthreads();\n    }\n  }\n  __syncthreads();\n"
-     "  if (sel.any_queued()) flush(sel);\n",
+     "  if (!GS && sel.any_queued()) flush(sel);\n",
      "      __syncthreads();\n    }\n    ph[3] += clock64() - Tc;\n  }\n"
      "  __syncthreads();\n  const long long Te = clock64();\n"
-     "  if (sel.any_queued()) flush(sel);\n"),
+     "  if (!GS && sel.any_queued()) flush(sel);\n"),
     ("    if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);\n}",
      "    if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);\n"
      "  if (tid == 0 && g_phase) {\n"
@@ -72,9 +78,9 @@ PROBES = (
 )
 # one CTA per SM: 120,000 B of shared memory, more than half of an SM's
 ALONE = (("  const size_t smem =\n"
-          "      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables, gs);\n",
+          "      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);\n",
           "  const size_t smem0 =\n"
-          "      pq_scan_topk_smem_bytes(M, K, QT, FW, BLK, global_tables, gs);\n"
+          "      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);\n"
           "  const size_t smem = smem0 > 120000 ? smem0 : 120000;\n"),)
 
 
@@ -110,6 +116,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--wide", action="store_true",
+                    help="the wide two-tier shape (fetch 16,000)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -137,11 +145,17 @@ def main() -> int:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0].split(", ")
     print(f"phases: {card}, {limit} W, SM clock {mhz} MHz", flush=True)
+    params = {}
+    current["lib"] = libs["as built"]
+    if args.wide:
+        from repro_torch.core import RefineParams
+        params = dict(cs.WIDE, refine=RefineParams("pq4", 16))
     for mode, bsz in cs.RUNS:
-        _, k3, qt, fetch = cs.mode_inputs(index, q[:bsz].contiguous(), mode)
+        _, k3, qt, fetch, pw = cs.mode_inputs(index, q[:bsz].contiguous(),
+                                              mode, **params)
         tiles = k3[4]
         splits, _ = pq_scan.topk_splits(*tiles.shape, k3[1].shape[1])
-        kw = dict(query_tile=qt, fetch=fetch)
+        kw = dict(query_tile=qt, fetch=fetch, packed=bool(params))
         want = ref.pq_scan_topk_ref(*k3, **kw)
         for how, lib in libs.items():
             current["lib"] = lib
@@ -149,13 +163,13 @@ def main() -> int:
                               dtype=torch.int64, device=dev)
             if lib.set_phase_buffer(buf.data_ptr()):
                 raise SystemExit("k3_phases: set_phase_buffer failed")
-            got = pq_scan.pq_scan_topk_kernel(*k3, **kw)
+            got = pq_scan.pq_scan_topk_kernel(*k3, **kw, plan_width=pw)
             torch.cuda.synchronize()
             lib.set_phase_buffer(None)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise SystemExit(f"k3_phases: probed K3 differs in {mode}")
             ms = cs.cuda_ms(torch, lambda: pq_scan.pq_scan_topk_kernel(
-                *k3, **kw))
+                *k3, **kw, plan_width=pw))
             rows = buf.reshape(-1, len(FIELDS)).double().cpu().T.tolist()
             parts = []
             for name, vals in zip(FIELDS, rows):
