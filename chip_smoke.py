@@ -18,8 +18,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 one row select); the row select alone (rows up to
                 336,000 entries, fills with garbage past them, -0.0
                 beside +0.0, fetch up to 40000); K3's merge on random
-                sorted lists (fetch up to 40000: above 8192 through the
-                row select); K2's tile-row check;
+                sorted lists (tie-heavy and random f32, 30% pads or most
+                entries pads, at 64 x 66 x 100 / 400, 1024 x 5 x 100 /
+                400 and the path's shapes, timed beside torch.topk at the
+                former; fetch up to 40000: where the lists pass shared
+                memory through the row select); K2's tile-row check;
   4. main     — a SIFT1M-shaped corpus (n x 128, made on the card from
                 --seed), a RAIRS index built on the card (IVF4096,
                 PQ64x4, block 32, rair + SEIL), exact top-10 ground
@@ -42,9 +45,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 index searched on the card and on the CPU;
   5. timing   — each kernel, bitwise against its plain version at the
                 shapes of each exec mode's first batch (main path and
-                gist index), then both timed (CUDA events) beside the
-                kernel's bound and lookup floor on this card (K3's merge
-                also alone where K3 splits), and the union fill of
+                gist index), then both timed (CUDA events; a kernel by
+                replays of a CUDA graph of its calls, graph_ms, so no
+                host work counts) beside the kernel's bound and lookup
+                floor on this card (K3's merge also alone where K3
+                splits, beside torch.topk), and the union fill of
                 grouped and clustered mode; the device time of each
                 search stage for one batch of each exec mode, fused off
                 and on;
@@ -60,9 +65,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 K3 takes its candidate-row form (a scan to rows and a row
                 select, no merge); K1 and K3 held and timed at each
                 mode's first batch at the plane shapes (and the row
-                select alone at the pq4 plane's fetch 400) and the wide
-                shape (its two launches alone too, a torch.topk beside
-                the select, K1 + one torch.topk beside K3), and the
+                select alone at the pq4 plane's fetch 400; K1 + one
+                torch.topk beside K3) and the wide shape (its two
+                launches alone too, a torch.topk beside the select, K1 +
+                one torch.topk beside K3), and the
                 device time of each stage of one wide batch per mode;
      multi    — an m-assignment index (80,000 x 128, IVF1024, PQ64x4,
                 multi_m=3) built on the card, in the six modes;
@@ -81,7 +87,6 @@ from __future__ import annotations
 import argparse
 import gc
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -137,20 +142,53 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
-    """Median milliseconds of fn() over CUDA events."""
+    """Milliseconds a call of fn() takes on the card: CUDA events around
+    ``reps`` calls made back to back, over ``reps``.  The host prepares a
+    call while the card runs the one before, so a call whose kernels take
+    longer than its host work is timed by its kernels (one call alone
+    between two events would count the host work before its first
+    launch as well)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    times = []
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
     for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def graph_ms(torch, fn, calls: int = 10, reps: int = 5) -> float:
+    """Milliseconds of the card's work in one call of fn(), with no host
+    work: ``calls`` calls captured in one CUDA graph (after two eager
+    warm-up calls), the graph replayed ``reps`` times between CUDA
+    events.  A kernel's wrapper spends tens of microseconds on the host,
+    as long as a small kernel runs; the sessions replay graphs, so this
+    is the time the path sees."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        g.replay()
+    e.record()
+    e.synchronize()
+    del g
+    return s.elapsed_time(e) / (reps * calls)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +286,8 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
 
 def check_kernels(torch, dev, seed):
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import (launch_counts, merge_topk_kernel,
+    from repro_torch.kernels.pq_scan import (launch_counts, merge_by_select,
+                                             merge_topk_kernel,
                                              pq_scan_paged_kernel,
                                              pq_scan_tiled_kernel,
                                              reset_launch_counts)
@@ -414,48 +453,77 @@ def check_kernels(torch, dev, seed):
     log(f"kernels: row select bitwise equal to select_topk_ref in {n_sel} "
         "cases (rows up to 336000 entries, fetch 1 to 40000, -0.0 beside "
         "+0.0)")
-    # the merge alone: random ascending lists, tie-heavy, with pads; above
-    # fetch 8192 it runs the row select over the concatenated lists
+    # the merge alone: random ascending lists, tie-heavy (integer
+    # distances, -0.0 beside +0.0) or random f32, 30% pads or pad-heavy
+    # (each list holds fewer real entries than fetch); the shapes of a
+    # 4-CTA-a-SM split (66 lists of 100 / 400 at B=64, 5 lists at B=1024)
+    # and of the path's (fewer lists) among them, the former timed; where
+    # the keys of one query pass a CTA's shared memory it runs the row
+    # select over the concatenated lists
     n_merge = 0
-    for b, splits, fetch in ((1, 2, 1), (7, 5, 100), (64, 66, 100),
-                             (1024, 5, 100), (16, 3, 200), (3, 300, 37),
-                             (8, 3, 9000), (64, 21, 16000), (4, 3, 40000)):
-        parts = sorted_lists(torch, g, dev, b, splits, fetch)
+    for b, splits, fetch, pads, ints in (
+            (1, 2, 1, 0.3, True), (7, 5, 100, 0.3, True),
+            (64, 66, 100, 0.3, True), (64, 66, 100, 0.7, True),
+            (64, 66, 400, 0.3, True), (64, 66, 400, 0.6, True),
+            (1024, 5, 100, 0.3, True), (1024, 5, 400, 0.3, True),
+            (1024, 5, 400, 0.9, True), (64, 99, 100, 0.3, True),
+            (64, 33, 400, 0.6, True), (1024, 2, 400, 0.3, True),
+            (1024, 3, 100, 0.3, True), (16, 3, 200, 1.0, True),
+            (3, 300, 37, 0.3, True), (2, 6, 3000, 0.3, True),
+            (8, 3, 9000, 0.3, True), (64, 21, 16000, 0.3, True),
+            (4, 3, 40000, 0.3, True), (64, 66, 100, 0.3, False),
+            (64, 66, 400, 0.3, False), (1024, 5, 100, 0.3, False),
+            (1024, 5, 400, 0.3, False)):
+        parts = sorted_lists(torch, g, dev, b, splits, fetch, pads, ints)
         reset_launch_counts()
         got = merge_topk_kernel(*parts)
         used = launch_counts()
         want = ref.merge_topk_ref(*parts)
         torch.cuda.synchronize()
-        select = fetch > 8192
+        select = merge_by_select(splits, fetch)
+        check(not select or splits * fetch > 26400,
+              f"merge b={b} splits={splits} fetch={fetch}: the row select "
+              "at a shape the path merges with topk_merge")
         check(used["merge_topk_kernel"] == int(not select)
               and used["select_topk_kernel"] == int(select),
               f"merge b={b} splits={splits} fetch={fetch}: launches "
               f"{json.dumps(used)}")
         for name, x, y in zip(("acc_d", "acc_pos", "acc_id"), got, want):
             check(torch.equal(x, y), f"merge b={b} splits={splits} "
-                  f"fetch={fetch}: {name} differs")
+                  f"fetch={fetch} pads={pads} ints={ints}: {name} differs")
+        check(torch.equal(torch.signbit(got[0]), torch.signbit(want[0])),
+              f"merge b={b} splits={splits} fetch={fetch}: signs of zero "
+              "differ")
         if (b, splits, fetch) == (64, 21, 16000):
             time_merge(torch, parts, "timing: the wide grouped batch's "
                        "merge shape")
+        if not ints:
+            time_merge(torch, parts, "timing: the merge on random f32 "
+                       "lists at the shapes of a 4-CTA-a-SM split")
         n_merge += 1
     log(f"kernels: K3 merge bitwise equal to plain version in {n_merge} "
-        "cases (fetch 9000, 16000 and 40000 through the row select, rows "
-        "up to 336000 entries)")
+        "cases (64 x 66 x 100 / 400, 1024 x 5 x 100 / 400 and the path's "
+        "shapes, with 30% and with most entries pads, tie-heavy with -0.0 "
+        "beside +0.0 and random f32; fetch 9000, 16000 and 40000 through "
+        "the row select, rows up to 336000 entries)")
 
 
 def time_merge(torch, parts, what, err=0.0):
     """K3's merge on (B, splits, fetch) lists, timed beside its plain
-    version, its bound (each list triple read once, the top-fetch
-    written once; one comparison a candidate) and one torch.topk over the
-    flattened distances.  Returns the kernel row (``err``: its max abs
-    error, held elsewhere)."""
+    version, its bound (each list's d and pos read once, the ids of the
+    real survivors only, the top-fetch written once; one comparison a
+    candidate) and one torch.topk over the flattened distances.  Returns
+    the kernel row (``err``: its max abs error, held elsewhere)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.pq_scan import merge_topk_kernel
+    from repro_torch.kernels.topk import PAD_POS
     b, splits, fetch = parts[0].shape
-    ms = cuda_ms(torch, lambda: merge_topk_kernel(*parts))
+    ms = graph_ms(torch, lambda: merge_topk_kernel(*parts))
     pms = cuda_ms(torch, lambda: ref.merge_topk_ref(*parts), reps=3, warm=1)
     lms = topk_ms(torch, parts[0].reshape(b, -1), fetch)
-    nbytes = sum(x.numel() * 4 for x in parts) + b * fetch * 12
+    reals = (parts[1] != PAD_POS).reshape(b, -1).sum(dim=1)
+    survivors = int(reals.clamp(max=fetch).sum().item())
+    nbytes = parts[0].numel() * 8 + survivors * 4 + b * fetch * 12
     bms, by = bound_ms(nbytes, parts[0].numel())
     log(f"{what}: K3 merge B={b}, {splits} lists of {fetch}: "
         f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; "
@@ -515,9 +583,9 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
     from repro_torch.core.engine import fused_scan_args
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pq_scan import (k3_query_groups, launch_counts,
+                                             merge_by_select,
                                              pq_scan_topk_kernel,
-                                             reset_launch_counts, topk_splits,
-                                             topk_width)
+                                             reset_launch_counts, topk_width)
     from repro_torch.kernels.topk import PAD_POS
     from repro_torch.quant import pack_nibbles
     store, plan, lut, rank_of, sel, live = synth_plan(
@@ -540,14 +608,15 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
     kw = dict(query_tile=qt, fetch=fetch, packed=packed)
     fw, blk = topk_width(fetch), codes_a.shape[1]
     groups = k3_query_groups(lut_a.shape[1], k, qt, fw, blk)
-    splits, s_per = topk_splits(*tiles.shape, blk)
+    splits, s_per = k3_grid(groups, tiles, lut_a.shape[1], k, fw, blk, packed)
     reset_launch_counts()
     got = pq_scan_topk_kernel(*args, **kw, plan_width=s)
     used = launch_counts()
+    merged = splits > 1 and not groups.global_state
+    by_select = merged and merge_by_select(splits, fetch)
     want_used = {"pq_scan_topk_kernel": len(groups),
-                 "merge_topk_kernel": int(splits > 1
-                                          and not groups.global_state),
-                 "select_topk_kernel": int(groups.global_state)}
+                 "merge_topk_kernel": int(merged and not by_select),
+                 "select_topk_kernel": int(groups.global_state or by_select)}
     check(all(used[n] == want_used.get(n, 0) for n in used),
           f"K3 {mode} qt={qt} fetch={fetch}: launches {json.dumps(used)}, "
           f"want {json.dumps(want_used)}")
@@ -564,6 +633,15 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
         bool((p[1] == PAD_POS).any())
         for p in split_parts(torch, args, kw, splits, s_per))
     return splits, short, groups
+
+
+def k3_grid(groups, tiles, m, k, fw, blk, packed):
+    """K3's (splits, s_per) over ``tiles`` in ``groups``' form, as its
+    wrapper picks them (kernels/pq_scan.py::k3_wave_splits)."""
+    from repro_torch.kernels.pq_scan import k3_wave_splits
+    return k3_wave_splits(groups, *tiles.shape, m, k,
+                          0 if groups.global_state else fw, blk, packed,
+                          tiles.device)
 
 
 def hold_rows(torch, args, kw, plan_width, what):
@@ -610,16 +688,22 @@ def split_parts(torch, args, kw, splits, s_per):
                  for i in range(3))
 
 
-def sorted_lists(torch, g, dev, b, splits, fetch):
+def sorted_lists(torch, g, dev, b, splits, fetch, pads=0.3, ints=True):
     """(B, splits, fetch) (d, pos, id) lists, each ascending by (d, pos)
-    with pads last: integer distances, pos unique in a row, 30% pads."""
+    with pads last: integer distances (zeros of either sign; random f32
+    in [0, 1) unless ``ints``), pos unique in a row, a share ``pads`` of
+    the entries pads."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.topk import PAD_POS
     n = splits * fetch
-    d = torch.randint(0, 4, (b, n), generator=g, device=dev).float()
+    d = torch.randint(-1, 4, (b, n), generator=g, device=dev).float()
+    neg = torch.rand(b, n, generator=g, device=dev) < 0.5
+    d = torch.where((d == 0) & neg, -0.0, d)
+    if not ints:
+        d = torch.rand(b, n, generator=g, device=dev)
     pos = torch.rand(b, 4 * n, generator=g, device=dev).argsort(dim=1)[:, :n]
     idx = torch.randint(-1, 50, (b, n), generator=g, device=dev)
-    pad = torch.rand(b, n, generator=g, device=dev) < 0.3
+    pad = torch.rand(b, n, generator=g, device=dev) < pads
     d = torch.where(pad, torch.inf, d)
     pos = torch.where(pad, PAD_POS, pos).int()
     idx = torch.where(pad, -1, idx).int()
@@ -882,9 +966,9 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
     inputs or None, (K1's groups, K3's groups), packed, plan_width)``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pq_scan import (
-        k1_query_groups, k3_query_groups, launch_counts, merge_topk_kernel,
-        pq_scan_tiled_kernel, pq_scan_topk_kernel, reset_launch_counts,
-        scan_splits, topk_splits, topk_width)
+        k1_query_groups, k3_query_groups, k3_wave, launch_counts,
+        merge_by_select, merge_topk_kernel, pq_scan_tiled_kernel,
+        pq_scan_topk_kernel, reset_launch_counts, scan_splits, topk_width)
     k1, k3, qt, fetch, pw = inputs
     if packed:            # the tables as ops pads them for a packed plane
         lut, _ = ops.align(k1[0], k1[1], True)
@@ -894,7 +978,9 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
     fw = topk_width(fetch)
     g1 = k1_query_groups(m, k, qt, scan_splits(t, s, blk)[1])
     g3 = k3_query_groups(m, k, qt, fw, blk)
-    splits, s_per = topk_splits(t, s, blk)
+    splits, s_per = k3_grid(g3, tiles, m, k, fw, blk, packed)
+    wave = k3_wave(g3, m, k, 0 if g3.global_state else fw, blk, packed,
+                   tiles.device)
     shape = (f"{what} {mode} B={b} S={s} QT={qt} M={m} K={k} fetch={fetch}"
              + (" packed" if packed else ""))
     if global_tables is not None:
@@ -904,8 +990,9 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
               f"{g3.global_tables}, want {global_tables}")
     check(g3.global_state == global_state, f"{shape}: K3 candidate-row form "
           f"{g3.global_state}, want {global_state}")
+    by_select = splits > 1 and merge_by_select(splits, fetch)
     k3_launches = ({"pq_scan_topk_kernel": len(g3), "select_topk_kernel": 1}
-                   if global_state else
+                   if global_state or by_select else
                    {"pq_scan_topk_kernel": len(g3),
                     "merge_topk_kernel": int(splits > 1)})
     errs = {}
@@ -956,7 +1043,8 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
         f"(query groups {list(g3)}, "
         f"{'global' if g3.global_tables else 'shared-memory'} tables, "
         + ("candidate rows and the row select" if g3.global_state else
-           f"shared-memory selection state, {splits} splits")
+           "shared-memory selection state")
+        + f", {splits} splits, {wave} CTAs a wave"
         + f") launched as required and bitwise equal to their plain "
         f"versions at the {mode} batch B={b} S={s} QT={qt} M={m} K={k} "
         f"fetch={fetch}"
@@ -967,18 +1055,17 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
 
 
 def time_held(torch, held, what, lookups_per_s):
-    """Time K1 and K3 on what hold_kernels held (median of 5), beside
+    """Time K1 and K3 on what hold_kernels held (graph replays), beside
     the lookup floor; no plain version, no bound."""
     from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
                                              pq_scan_topk_kernel)
     k1, k3, qt, fetch = held[:4]
     packed = held[7]
     lut, _, tiles = k1
-    k1_ms = cuda_ms(torch, lambda: pq_scan_tiled_kernel(
-        *k1, query_tile=qt, packed=packed), reps=5, warm=1)
-    k3_ms = cuda_ms(torch, lambda: pq_scan_topk_kernel(
-        *k3, query_tile=qt, fetch=fetch, packed=packed, plan_width=held[8]),
-        reps=5, warm=1)
+    k1_ms = graph_ms(torch, lambda: pq_scan_tiled_kernel(
+        *k1, query_tile=qt, packed=packed))
+    k3_ms = graph_ms(torch, lambda: pq_scan_topk_kernel(
+        *k3, query_tile=qt, fetch=fetch, packed=packed, plan_width=held[8]))
     lookups = lut.shape[0] * tiles.shape[1] * k1[1].shape[1] * lut.shape[1]
     log(f"{what}: K1 {k1_ms:.4f} ms (lookup floor "
         f"{lookups / lookups_per_s * 1e3:.4f} ms), K3 {k3_ms:.4f} ms at "
@@ -986,11 +1073,11 @@ def time_held(torch, held, what, lookups_per_s):
 
 
 def topk_ms(torch, d, fetch):
-    """CUDA-event ms of one torch.topk of the ``fetch`` smallest of each
-    row of ``d``, sorted: the library call beside a selection kernel
+    """Device ms (graph_ms) of one torch.topk of the ``fetch`` smallest of
+    each row of ``d``, sorted: the library call beside a selection kernel
     (ties may come in another order; the port never calls it)."""
-    return cuda_ms(torch, lambda: torch.topk(d, min(fetch, d.shape[1]), dim=1,
-                                             largest=False, sorted=True))
+    return graph_ms(torch, lambda: torch.topk(
+        d, min(fetch, d.shape[1]), dim=1, largest=False, sorted=True))
 
 
 def kernel_rows(torch, held, mode, what, lookups_per_s):
@@ -999,12 +1086,12 @@ def kernel_rows(torch, held, mode, what, lookups_per_s):
     alone where K3 splits (with one torch.topk over its lists beside
     it).  In K3's candidate-row form also its two launches alone, the
     scan to rows and the row select (with one torch.topk over the rows
-    beside it), and K1 followed by one torch.topk over K1's scores, the
-    yardstick of a fused scan.  Returns {"K1" | "K3" | "merge" | "rows" |
+    beside it).  At fetch 400 and above also K1 followed by one
+    torch.topk over K1's scores, the yardstick of a fused scan.  Returns {"K1" | "K3" | "merge" | "rows" |
     "select": row}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.pq_scan import (pq_scan_tiled_kernel,
-                                             pq_scan_topk_kernel, topk_splits)
+                                             pq_scan_topk_kernel, topk_width)
     k1, k3, qt, fetch, errs, parts, (_, g3), packed, pw = held
     lx, codes, tiles = k1
     b = lx.shape[0]
@@ -1015,7 +1102,7 @@ def kernel_rows(torch, held, mode, what, lookups_per_s):
             ("K3", pq_scan_topk_kernel, ref.pq_scan_topk_ref, k3,
              dict(query_tile=qt, fetch=fetch, packed=packed),
              k3_bound(torch, k3, fetch))):
-        ms = cuda_ms(torch, lambda: (fn(*args, **kw, plan_width=pw)
+        ms = graph_ms(torch, lambda: (fn(*args, **kw, plan_width=pw)
                                      if kid == "K3" else fn(*args, **kw)))
         pms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1)
         total = sum(nbytes.values())
@@ -1031,20 +1118,23 @@ def kernel_rows(torch, held, mode, what, lookups_per_s):
             f"({by}; {total} B = {json.dumps(nbytes)}; {ops} adds); "
             f"{ops} lookups, lookup floor {rows[kid]['lookup_ms']:.4f} ms")
     if parts is not None:
-        _, s_per = topk_splits(*tiles.shape, codes.shape[1])
+        _, s_per = k3_grid(g3, tiles, lx.shape[1], lx.shape[2],
+                           topk_width(fetch), codes.shape[1], packed)
         rows["merge"] = time_merge(
             torch, parts, f"{what}: {mode} s_per={s_per} (K3 "
             f"{rows['K3']['ms']:.4f} ms)", errs["merge"])
     if g3.global_state:
         rows.update(row_form_rows(torch, held, mode, what))
-        yard = cuda_ms(torch, lambda: torch.topk(
+    if fetch >= 400:
+        yard = graph_ms(torch, lambda: torch.topk(
             pq_scan_tiled_kernel(*k1, query_tile=qt, packed=packed)
             .reshape(b, -1), fetch, dim=1, largest=False, sorted=True))
         rows["K3"]["yardstick_ms"] = yard
         log(f"{what}: {mode} K1 + one torch.topk over its (B, S * BLK) "
             f"scores (fetch {fetch}, no keep mask): {yard:.4f} ms, beside "
-            f"K3's {rows['K3']['ms']:.4f} ms (scan to rows "
-            f"{rows['rows']['ms']:.4f} + select {rows['select']['ms']:.4f})")
+            f"K3's {rows['K3']['ms']:.4f} ms"
+            + (f" (scan to rows {rows['rows']['ms']:.4f} + select "
+               f"{rows['select']['ms']:.4f})" if g3.global_state else ""))
     return rows
 
 
@@ -1053,8 +1143,8 @@ def row_form_rows(torch, held, mode, what, fetch=None):
     timed alone: the scan to rows beside scan_rows_ref and its bound
     (k3_bound's inputs, the kept triples and the fills out), and the row
     select at ``fetch`` (K3's when None) beside select_topk_ref, its
-    bound (each kept triple read once, the top-fetch written once) and
-    one torch.topk over the rows' distances (entries past a fill set to
+    bound (each kept entry's d and pos read once, the survivors' ids, the
+    top-fetch written once) and one torch.topk over the rows' distances (entries past a fill set to
     +inf).  Returns {"rows": row, "select": row}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.pq_scan import (pq_scan_rows_kernel,
@@ -1064,7 +1154,7 @@ def row_form_rows(torch, held, mode, what, fetch=None):
     b = k1[0].shape[0]
     kw = dict(query_tile=qt, packed=packed, plan_width=pw)
     out = {}
-    rms = cuda_ms(torch, lambda: pq_scan_rows_kernel(*k3, **kw))
+    rms = graph_ms(torch, lambda: pq_scan_rows_kernel(*k3, **kw))
     pms = cuda_ms(torch, lambda: ref.scan_rows_ref(*k3, **kw), reps=3,
                   warm=1)
     rd, rp, ri, rn, _ = pq_scan_rows_kernel(*k3, **kw)
@@ -1082,7 +1172,7 @@ def row_form_rows(torch, held, mode, what, fetch=None):
               f"{fetch} differs from select_topk_ref")
     fin = torch.isfinite(want[0])
     err = (got[0][fin] - want[0][fin]).abs().max().item()
-    sms = cuda_ms(torch, lambda: select_topk_kernel(rd, rp, ri, rn,
+    sms = graph_ms(torch, lambda: select_topk_kernel(rd, rp, ri, rn,
                                                     fetch=fetch))
     spms = cuda_ms(torch, lambda: ref.select_topk_ref(rd, rp, ri, rn,
                                                       fetch=fetch),
@@ -1090,7 +1180,9 @@ def row_form_rows(torch, held, mode, what, fetch=None):
     past = (torch.arange(rd.shape[1], device=rd.device)[None, :]
             >= rn[:, None])
     lms = topk_ms(torch, torch.where(past, torch.inf, rd), fetch)
-    sbytes = kept * 12 + b * 4 + b * fetch * 12
+    # d and pos of each kept entry, the fills, the survivors' ids, the output
+    survivors = int(rn.clamp(max=fetch).sum().item())
+    sbytes = kept * 8 + b * 4 + survivors * 4 + b * fetch * 12
     sbms, sby = bound_ms(sbytes, kept)
     out["select"] = dict(ms=sms, plain_ms=spms, bound_ms=sbms, bound_by=sby,
                          max_abs_err=err, library_ms=lms)
@@ -1124,7 +1216,8 @@ def time_kernels(torch, index, queries, lookups_per_s):
 def kernel_json(rows, launches, gist_rows, gist_launches, plane_rows,
                 plane_launches, wide_rows, wide_launches):
     """The {"kernels": [...]} entries: K1 and K3 at the main path's first
-    paged batch, K3's merge at its first clustered batch, the
+    paged batch, K3's merge at its first grouped batch (where most of its
+    launches run), the
     global-table forms of K1 and K3 at the gist index's first paged
     batch, K1 and K3 at each compact plane's first paged batch, and K3's
     candidate-row form (its scan to rows, and the row select) at the
@@ -1155,7 +1248,7 @@ def kernel_json(rows, launches, gist_rows, gist_launches, plane_rows,
              "src/repro/kernels/pq_scan.py:311", rows["paged"]["K3"],
              launches["pq_scan_topk_kernel"]),
             ("merge_topk_kernel", src + "pq_scan_topk.cu",
-             "src/repro/kernels/topk.py:103", rows["clustered"]["merge"],
+             "src/repro/kernels/topk.py:103", rows["grouped"]["merge"],
              launches["merge_topk_kernel"]),
             ("pq_scan_tiled_kernel[global tables]", src + "pq_scan.cu",
              "src/repro/kernels/pq_scan.py:112", gist_rows["paged"]["K1"],
@@ -1394,13 +1487,13 @@ def eager_run(torch, index, q, mode, bsz, fused, want):
     same_d = torch.equal(got.dists, want.dists)
     sess = session(index, mode, bsz, fused)
     qb = q[:bsz].contiguous()
-    graph_ms = cuda_ms(torch, lambda: sess(qb))
+    replay_ms = cuda_ms(torch, lambda: sess(qb))
     eager_ms = cuda_ms(torch, lambda: batch(0))
     log(f"graphs: {mode:9s} B={bsz:4d} fused={int(fused)}: eager "
         f"seil_search loop qps={q.shape[0] / dt:.1f} over the session's "
         f"batches; same ids and counters as the session, distances "
         f"{'bitwise equal' if same_d else 'not bitwise equal'}; one "
-        f"batch (CUDA events, median of 10): graph replay {graph_ms:.4f} "
+        f"batch (CUDA events, 10 back to back): graph replay {replay_ms:.4f} "
         f"ms, eager {eager_ms:.4f} ms")
 
 

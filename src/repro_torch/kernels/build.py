@@ -36,9 +36,10 @@ _SIGNATURES = {
     "pq_scan_topk": {
         "pq_scan_topk_launch": ([_VOID] * 13 + [_INT] * 15 + [_VOID], _INT),
         "pq_scan_rows_launch": ([_VOID] * 14 + [_INT] * 14 + [_VOID], _INT),
-        "topk_merge_launch": ([_VOID] * 6 + [_INT] * 4 + [_VOID], _INT),
+        "topk_merge_launch": ([_VOID] * 6 + [_INT] * 3 + [_VOID], _INT),
         "pq_scan_topk_smem_bytes": ([_INT] * 7, ctypes.c_size_t),
-        "topk_merge_smem_bytes": ([_INT], ctypes.c_size_t),
+        "topk_merge_smem_bytes": ([_INT] * 2, ctypes.c_size_t),
+        "pq_scan_topk_ctas_per_sm": ([_INT] * 3 + [ctypes.c_size_t], _INT),
     },
     "topk_select": {
         "topk_select_launch": ([_VOID] * 8 + [_INT] * 4 + [_VOID], _INT),

@@ -23,19 +23,30 @@
 // The design:
 //   * Split.  The grid is (T, splits): CTA (tile, split) scans positions
 //     [split * s_per, (split + 1) * s_per) of its tile, with splits taken
-//     from the shape alone (kernels/pq_scan.py::topk_splits) for about
-//     4 x 132 CTAs in flight.  Each CTA writes its sorted top-F of every
-//     query to a (B, splits, F) scratch and adds its DCO counts into a
-//     zeroed (B,) int32 (integer atomics: exact in any order).  topk_merge,
-//     one CTA per query, merges the splits' lists; with splits == 1 the
-//     scan writes the output and no merge runs.  Exact: a member of the
-//     global top-F is in the top-F of its own split.
+//     from the shape alone (kernels/pq_scan.py::k3_wave_splits): as many
+//     CTAs as the card holds at once (pq_scan_topk_ctas_per_sm), one full
+//     wave, or two where that cuts a tile 8 ways or more (a partial wave
+//     costs a whole CTA's time; see k3_wave_splits).  Each CTA writes its
+//     sorted top-F of every query to a (B, splits, F) scratch and adds its
+//     DCO counts into a zeroed (B,) int32 (integer atomics: exact in any
+//     order).  topk_merge,
+//     one CTA per query, merges the splits' lists by counting (no queue,
+//     no network; see its comment); with splits == 1 the scan writes the
+//     output and no merge runs.  Exact: a member of the global top-F is in
+//     the top-F of its own split.
 //   * Plan first.  A round stages slot_of of its positions for the tile's
-//     QT queries in shared memory.  A lane whose position no query of the
-//     tile plans reads nothing else (tile_idx, block_ids, codes): with
-//     BLK >= 32 a warp is one position, so the skip is warp-uniform.
-//     block_other and rank_of are read only for valid items, and the DCO
-//     is one ballot and one shared add per warp and query.
+//     QT queries, and tile_idx of the positions, in shared memory.  A lane
+//     whose position no query of the tile plans reads nothing else
+//     (block_ids, codes): with BLK >= 32 a warp is one position, so the
+//     skip is warp-uniform.  A planned item's id, co-list and code row are
+//     requested together, so scoring waits on two loads in a row (those
+//     and rank_of), not four; rank_of is read only for valid items, and
+//     the DCO is one ballot and one shared add per warp and query.  A
+//     round has two barriers: after its staging, and at its end, whose OR
+//     says whether a push filled a queue.  (Staging the next round during
+//     this one, with cp.async into a second buffer, was tried: a little
+//     faster with the tables in shared memory, about twice as slow with
+//     global tables.)
 //   * Filter, queue, merge (the thread-queue / block-select scheme of
 //     Johnson, Douze and Jegou, "Billion-scale similarity search with
 //     GPUs", 2017).  Each query keeps a sorted accumulator of FW triples
@@ -47,7 +58,11 @@
 //     (FW wide) and merged into its accumulator: one min against the
 //     reversed queue, then log2(FW) half-cleaner stages.  A candidate that
 //     found its queue full is rescored and tried again against the new
-//     key.  A round is NT items (NT / BLK positions), one per thread.
+//     key.  A queue is sorted only as wide as its fill, and an accumulator
+//     that holds only pads takes the sorted queue without a merge: where a
+//     split keeps fewer than FW items of a query (the grouped batches, 66
+//     splits), its last flush is one narrow sort a query.  A round is NT
+//     items (NT / BLK positions), one per thread.
 //     Network stages that pair elements less than 64 apart stay inside a
 //     warp and end in __syncwarp, not a block barrier.
 //   * Scoring as in K1.  score_row (adc.cuh), the ascending-m f32 sum; the
@@ -92,7 +107,7 @@ namespace {
 
 constexpr int PAD_POS = 1 << 30;
 constexpr int NT = 256;        // threads of a scan CTA (TOPK_THREADS)
-constexpr int MERGE_NT = 128;  // threads of a merge CTA
+constexpr int MERGE_NT = 256;  // threads of a merge CTA
 constexpr int MAX_QT = 64;     // query bitmasks are one 64-bit word
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int ACROSS = 1 << 30;  // stage_sync: the next step crosses warps
@@ -112,6 +127,7 @@ struct Sel {
   int* qp;
   int* qi;
   int* cnt;   // nq queue fills; may pass FW when a push found it full
+  int* w;     // flush: nq sort widths, nq merge widths, and their maxima
   int nq, fw, lw, fetch;  // lw = log2(fw)
 
   __device__ __forceinline__ bool beats(int q, float d, int p) const {
@@ -126,11 +142,6 @@ struct Sel {
     qi[o] = id;
   }
   // Read between barriers: cnt changes only outside them.
-  __device__ __forceinline__ bool any_full() const {
-    for (int q = 0; q < nq; ++q)
-      if (cnt[q] >= fw) return true;
-    return false;
-  }
   __device__ __forceinline__ bool any_queued() const {
     for (int q = 0; q < nq; ++q)
       if (cnt[q] > 0) return true;
@@ -140,9 +151,13 @@ struct Sel {
 
 // Warp-aggregated push: every lane of the warp calls it; the lanes with
 // `want` take consecutive slots of query q's queue.  Returns false for a
-// lane whose slot lay past the queue's end (retry after a flush).
+// lane whose slot lay past the queue's end (retry after a flush).  Sets
+// `full` in every lane of a warp whose push filled the queue: a queue is
+// full after a round iff some push of the round filled it, so the round's
+// end needs no second barrier to read the fills.
 __device__ __forceinline__ bool push_warp(const Sel& s, int q, bool want,
-                                          float d, int p, int id) {
+                                          float d, int p, int id,
+                                          bool& full) {
   const unsigned m = __ballot_sync(FULL, want);
   if (m == 0) return true;
   const int lane = threadIdx.x & 31;
@@ -150,6 +165,7 @@ __device__ __forceinline__ bool push_warp(const Sel& s, int q, bool want,
   int base = 0;
   if (lane == leader) base = atomicAdd(&s.cnt[q], __popc(m));
   base = __shfl_sync(FULL, base, leader);
+  full |= base + __popc(m) >= s.fw;
   if (!want) return true;
   const int off = base + __popc(m & ((1u << lane) - 1u));
   if (off >= s.fw) return false;
@@ -158,12 +174,14 @@ __device__ __forceinline__ bool push_warp(const Sel& s, int q, bool want,
 }
 
 __device__ __forceinline__ bool push_one(const Sel& s, int q, float d, int p,
-                                         int id) {
+                                         int id, bool& full) {
   const int off = atomicAdd(&s.cnt[q], 1);
+  full |= off + 1 >= s.fw;
   if (off >= s.fw) return false;
   s.put(q, off, d, p, id);
   return true;
 }
+
 
 // Warp-aggregated append (GS): every lane of the warp calls it; the lanes
 // with `want` write their triples to consecutive entries of row b (cap
@@ -203,19 +221,20 @@ __device__ __forceinline__ void order_pair(float* d, int* p, int* id, int i,
   }
 }
 
-// One compare-exchange stage at distance jj over the nq arrays of width
-// fw (lw = log2 fw) that have something queued: pair c of array q orders
-// (i, i + jj), i = 2 * jj * (c / jj) + c % jj, ascending where i & k is 0
-// (k = 0: all ascending).  Thread tid takes pairs tid, tid + nt, ...: for
-// jj <= 32 the 32 pairs of a warp touch one aligned run of 64 elements,
-// so stages that narrow need only __syncwarp between them.
+// One compare-exchange stage at distance jj over the first w[q] elements
+// of each of the nq arrays of stride fw (lw = log2 fw), skipping an array
+// whose w[q] is below k: pair c of array q orders (i, i + jj),
+// i = 2 * jj * (c / jj) + c % jj, ascending where i & k is 0 (k = 0: all
+// ascending).  Thread tid takes pairs tid, tid + nt, ...: for jj <= 32 the
+// 32 pairs of a warp touch one aligned run of 64 elements, so stages that
+// narrow need only __syncwarp between them.
 __device__ __forceinline__ void bitonic_stage(float* d, int* p, int* id,
-                                              const int* cnt, int nq, int lw,
+                                              const int* w, int nq, int lw,
                                               int k, int jj) {
   const int half = nq << (lw - 1), cmask = (1 << (lw - 1)) - 1;
   for (int t = threadIdx.x; t < half; t += blockDim.x) {
     const int q = t >> (lw - 1), c = t & cmask;
-    if (cnt[q] == 0) continue;
+    if (2 * c >= w[q] || k > w[q]) continue;
     const int i = ((c & ~(jj - 1)) << 1) | (c & (jj - 1));
     const int o = q << lw;
     order_pair(d + o, p + o, id + o, i, i + jj, (i & k) == 0);
@@ -234,39 +253,57 @@ __device__ __forceinline__ void stage_sync(int jj, int next) {
 
 // Merge every non-empty queue into its accumulator.  All threads call it,
 // after a barrier; it ends with one.  Afterwards every queue is empty and
-// each accumulator holds the top FW of its old contents and its queue.
+// each accumulator holds the top FW of its old contents and its queue.  A
+// queue is sorted only as wide as its fill (the next power of two; pads
+// after the fill), and only as many stages as the widest queue needs; an
+// accumulator that holds only pads takes its sorted queue as it is, and
+// only the others merge (where a split keeps fewer than FW items a query,
+// its one flush sorts each queue at its fill's width and merges nothing).
 __device__ void flush(const Sel& s) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int fw = s.fw, lw = s.lw, n = s.nq << lw;
+  const int fw = s.fw, lw = s.lw, nq = s.nq, n = nq << lw;
+  int* sw = s.w;             // sort widths
+  int* mw = s.w + nq;        // merge widths: FW, or 0 for no merge
+  int* wmax = s.w + 2 * nq;  // the largest of each, zero between flushes
+  for (int q = tid; q < nq; q += nt) {
+    const int c = min(s.cnt[q], fw);
+    sw[q] = c == 0 ? 0 : c <= 2 ? 2 : 1 << (32 - __clz(c - 1));
+    mw[q] = c > 0 && s.ap[q << lw] != PAD_POS ? fw : 0;
+    atomicMax(&wmax[0], sw[q]);
+    atomicMax(&wmax[1], mw[q]);
+  }
   // pad each queue past its fill
   for (int j = tid; j < n; j += nt)
     if ((j & (fw - 1)) >= s.cnt[j >> lw]) s.put(0, j, inf(), PAD_POS, -1);
   __syncthreads();
+  const int ws = wmax[0], wm = wmax[1];
   // bitonic sort of each queue, ascending
-  for (int k = 2; k <= fw; k <<= 1) {
+  for (int k = 2; k <= ws; k <<= 1) {
     for (int jj = k >> 1; jj > 0; jj >>= 1) {
-      bitonic_stage(s.qd, s.qp, s.qi, s.cnt, s.nq, lw, k, jj);
-      stage_sync(jj, jj > 1 ? jj >> 1 : (k < fw ? k : ACROSS));
+      bitonic_stage(s.qd, s.qp, s.qi, sw, nq, lw, k, jj);
+      stage_sync(jj, jj > 1 ? jj >> 1 : (k < ws ? k : ACROSS));
     }
   }
-  // min(acc[i], queue[FW - 1 - i]) is the top FW of the two, bitonic
+  // min(acc[i], queue[FW - 1 - i]) is the top FW of the two, bitonic; an
+  // accumulator of pads takes the sorted queue
   for (int j = tid; j < n; j += nt) {
     const int q = j >> lw;
-    if (s.cnt[q] == 0) continue;
-    const int o = (q << lw) + fw - 1 - (j & (fw - 1));
-    if (lex_less(s.qd[o], s.qp[o], s.ad[j], s.ap[j])) {
+    if (sw[q] == 0) continue;
+    const int o = mw[q] ? (q << lw) + fw - 1 - (j & (fw - 1)) : j;
+    if (!mw[q] || lex_less(s.qd[o], s.qp[o], s.ad[j], s.ap[j])) {
       s.ad[j] = s.qd[o];
       s.ap[j] = s.qp[o];
       s.ai[j] = s.qi[o];
     }
   }
   __syncthreads();
-  // bitonic merge of each accumulator: log2(FW) half-cleaner stages
-  for (int jj = fw >> 1; jj > 0; jj >>= 1) {
-    bitonic_stage(s.ad, s.ap, s.ai, s.cnt, s.nq, lw, 0, jj);
+  // bitonic merge of each accumulator that merged: log2(FW) half-cleaners
+  for (int jj = wm >> 1; jj > 0; jj >>= 1) {
+    bitonic_stage(s.ad, s.ap, s.ai, mw, nq, lw, 0, jj);
     stage_sync(jj, jj > 1 ? jj >> 1 : ACROSS);
   }
-  for (int q = tid; q < s.nq; q += nt) s.cnt[q] = 0;
+  for (int q = tid; q < nq; q += nt) s.cnt[q] = 0;
+  if (tid < 2) wmax[tid] = 0;
   __syncthreads();
 }
 
@@ -275,8 +312,14 @@ __host__ __device__ __forceinline__ size_t sel_array_words(int nq, int fw) {
   return 6 * (size_t)nq * fw;
 }
 
+// Words of the fills and flush widths of nq queries (Sel::cnt, Sel::w).
+__host__ __device__ __forceinline__ size_t sel_count_words(int nq) {
+  return 3 * (size_t)nq + 2;
+}
+
 // Point nq accumulators and queues of width fw at `p` (shared memory:
-// sel_array_words(nq, fw) words) and their fills at `cnt` (nq words).
+// sel_array_words(nq, fw) words) and their fills and flush widths at `cnt`
+// (sel_count_words(nq) words).
 __device__ __forceinline__ void carve(Sel& s, int* p, int* cnt, int nq,
                                       int fw, int fetch) {
   const size_t n = (size_t)nq * fw;
@@ -287,6 +330,7 @@ __device__ __forceinline__ void carve(Sel& s, int* p, int* cnt, int nq,
   s.qp = p + 4 * n;
   s.qi = p + 5 * n;
   s.cnt = cnt;
+  s.w = cnt + nq;
   s.nq = nq;
   s.fw = fw;
   s.lw = __ffs(fw) - 1;
@@ -314,11 +358,12 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
   float* slut = reinterpret_cast<float*>(smem);
   // GS: part_* are the (B, fetch) candidate rows, row_n their fills
   const size_t n_sel = GS ? 0 : sel_array_words(QT, FW);
-  int* cnt = smem + n_lut + n_sel;                         // QT (not GS)
+  int* cnt = smem + n_lut + n_sel;  // sel_count_words(QT) (not GS)
   Sel sel;
   if (!GS) carve(sel, smem + n_lut, cnt, QT, FW, fetch);
-  int* sslot = cnt + (GS ? 0 : QT);                        // QT * P
-  int* sdco = sslot + QT * P;                              // QT
+  int* sslot = cnt + (GS ? 0 : sel_count_words(QT));  // QT * P
+  int* stile = sslot + QT * P;                          // P
+  int* sdco = stile + P;                                // QT
 
   const float* glut = lut + (size_t)qi * QS * M * K;
   for (int j = tid; j < n_lut; j += NT) slut[j] = glut[j];
@@ -329,16 +374,21 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
       sel.ap[j] = PAD_POS;
       sel.ai[j] = -1;
     }
-    for (int q = tid; q < QT; q += NT) sel.cnt[q] = 0;
+    for (int j = tid; j < (int)sel_count_words(QT); j += NT) sel.cnt[j] = 0;
   }
   for (int q = tid; q < QT; q += NT) sdco[q] = 0;
 
   const int f_end = s1 * BLK;
   for (int f0 = s0 * BLK; f0 < f_end; f0 += NT) {
     const int sr = f0 / BLK;  // first position of the round
-    for (int j = tid; j < QT * P; j += NT) {
+    // the round's plan: slot_of of the tile's queries and tile_idx at its
+    // P positions (-1 / 0 past the split)
+    for (int j = tid; j < QT * P + P; j += NT) {
       const int q = j / P, s = sr + j % P;
-      sslot[j] = s < s1 ? slot_of[(size_t)(qi * QS + q) * S + s] : -1;
+      if (q < QT)
+        sslot[j] = s < s1 ? slot_of[(size_t)(qi * QS + q) * S + s] : -1;
+      else
+        stile[j % P] = s < s1 ? tile_idx[(size_t)qi * S + s] : 0;
     }
     __syncthreads();
     const int f = f0 + tid;
@@ -351,17 +401,20 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
     bool is_dead = false;
     const uint8_t* row = nullptr;
     if (plan) {
-      const int blk = tile_idx[(size_t)qi * S + s];
+      // the item's id, co-list, tombstone and code row are requested at
+      // once (the row into L1): only rank_of waits on another load.  With
+      // global tables the row is left to score_row: their reads want L1
+      const int blk = stile[p];
       const size_t item = (size_t)blk * BLK + ln;
+      row = codes + item * MB;
+      if (!GT) asm volatile("prefetch.global.L1 [%0];" ::"l"(row));
       iid = block_ids[item];
-      if (iid >= 0) {
-        oth = block_other[item];
-        is_dead = dead != nullptr && dead[item] != 0;
-        row = codes + item * MB;
-      }
+      oth = block_other[item];
+      is_dead = dead != nullptr && dead[item] != 0;
     }
     if (iid < 0) plan = 0;  // item_ok needs a valid item
     uint64_t pend = 0;      // queries whose queue was full for this item
+    bool full = false;      // a push of this thread's filled a queue
     if (__any_sync(FULL, plan != 0)) {
       for (int q = 0; q < QT; ++q) {
         const bool ok = (plan >> q) & 1ull;
@@ -384,22 +437,25 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
         if (GS)
           append_warp(part_d, part_pos, part_id, row_n, b, fetch, want, d,
                       pos, iid);
-        else if (!push_warp(sel, q, want, d, pos, iid))
+        else if (!push_warp(sel, q, want, d, pos, iid, full))
           pend |= 1ull << q;
       }
     }
-    __syncthreads();
-    while (!GS && __syncthreads_or(sel.any_full())) {
+    // the round's last barrier: its plan may be overwritten, and every
+    // thread learns whether a queue is full
+    bool again = __syncthreads_or(full);
+    while (!GS && again) {
       flush(sel);
+      full = false;
       for (uint64_t r = pend; r; r &= r - 1) {
         const int q = __ffsll((long long)r) - 1;
         const float d = score_row<PACKED>(row, tabs + (size_t)q * M * K, K,
                                           MB, vec16 != 0);
         const int pos = sslot[q * P + p] * BLK + ln;
-        if (!sel.beats(q, d, pos) || push_one(sel, q, d, pos, iid))
+        if (!sel.beats(q, d, pos) || push_one(sel, q, d, pos, iid, full))
           pend &= ~(1ull << q);
       }
-      __syncthreads();
+      again = __syncthreads_or(full);
     }
   }
   __syncthreads();
@@ -417,55 +473,237 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
     if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);
 }
 
+// (d, pos) as one 64-bit key that orders as lex_less does: the f32 bits
+// made monotone (-0.0 taken as +0.0), then pos (>= 0) below them.
+__device__ __forceinline__ uint64_t merge_key(float d, int pos) {
+  uint32_t u = __float_as_uint(d);
+  if (u == 0x80000000u) u = 0;
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (uint64_t)u << 32 | (uint32_t)pos;
+}
+
+// Entries of the ascending run keys[0, n) below x; top is the largest
+// power of two <= n.  One shared-memory read a step, log2(n) + 1 steps.
+__device__ __forceinline__ int count_below(const uint64_t* keys, int n,
+                                           int top, uint64_t x) {
+  int lo = 0;
+  for (int step = top; step > 0; step >>= 1)
+    if (lo + step <= n && keys[lo + step - 1] < x) lo += step;
+  return lo;
+}
+
 // One CTA per query: the top-F under (d, pos) of `splits` ascending lists
-// of F triples, (B, splits, F) -> (B, F).  The first list seeds the
-// accumulator; the others pass through the same filter and queue as the
-// scan.  Where one query's selection arrays pass a CTA's shared memory
-// (fetch above 8192) the wrapper merges with the row select instead
-// (csrc/topk_select.cu).
+// of F triples, (B, splits, F) -> (B, F).  No queue, no network: every
+// list is sorted and every real key is unique (pos is unique among a
+// query's real entries; all pads are (+inf, PAD_POS, -1), the largest
+// key), so the F-th key T of the union is found by counting, and each
+// entry up to it is placed by counting.
+//   1. load: the lists' keys into shared memory (splits * F words of 64
+//      bits; the wrapper takes the row select where they do not fit).
+//   2. search: T is the largest v with fewer than F keys below it.  It is
+//      fixed MERGE_BITS bits a round from the top: each round counts the
+//      keys below 2^MERGE_BITS - 1 candidates for the next bits, one
+//      binary search a (candidate, list) pair, MERGE_ILP in flight a
+//      thread, summed in registers and then with one shared atomic a warp
+//      and candidate into one of three buffers (one barrier a round).  A
+//      round whose first rejected candidate has exactly F keys below it
+//      ends the search: with distinct distances that comes after a few
+//      rounds, not sixteen.
+//   3. survivors: the keys below the end of the search (T, and T itself
+//      unless it is the pad key) are the first c_l of each list l: at
+//      most F, F when T is real.  They are gathered in list order.
+//   4. rank and output: a survivor's place is the number of survivors
+//      below it (their keys are unique); its triple is copied from the
+//      input (d keeps its sign of zero), and the places past the last
+//      survivor get pads.
+// Where the lists' keys pass a CTA's shared memory the wrapper merges with
+// the row select instead (csrc/topk_select.cu).
+constexpr int MERGE_BITS = 4;
+constexpr int MERGE_PIVOTS = (1 << MERGE_BITS) - 1;
+constexpr int MERGE_ILP = 4;
+// Lists placed directly, with no search: an entry costs a binary search in
+// each other list, so the direct path grows with the lists and the search
+// does not; up to 6 lists of 100 or 400 it is the faster of the two
+// (tools/k3_phases.py --merge-paths).
+constexpr int MERGE_DIRECT = 6;
+
 __global__ void __launch_bounds__(MERGE_NT) topk_merge(
     const float* __restrict__ part_d, const int32_t* __restrict__ part_pos,
     const int32_t* __restrict__ part_id, float* __restrict__ out_d,
     int32_t* __restrict__ out_pos, int32_t* __restrict__ out_id, int splits,
-    int fetch, int FW) {
+    int fetch) {
   extern __shared__ int smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  Sel sel;
-  carve(sel, smem, smem + sel_array_words(1, FW), 1, FW, fetch);
-  const size_t base = (size_t)b * splits * fetch;
-  for (int c = tid; c < FW; c += MERGE_NT) {
-    const bool in = c < fetch;
-    sel.ad[c] = in ? part_d[base + c] : inf();
-    sel.ap[c] = in ? part_pos[base + c] : PAD_POS;
-    sel.ai[c] = in ? part_id[base + c] : -1;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int n = splits * fetch, top = 1 << (31 - __clz(fetch));
+  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);  // splits * fetch
+  uint64_t* skey = keys + n;                            // fetch survivors
+  int* sidx = reinterpret_cast<int*>(skey + fetch);     // their entries
+  int* cnt = sidx + fetch;                              // 3 * MERGE_PIVOTS
+  int* run = cnt + 3 * MERGE_PIVOTS;                    // splits: c_l
+  int* off = run + splits;                              // splits: offsets
+  int* n_surv = off + splits;
+  const size_t base = (size_t)b * n;
+  const uint64_t pad = merge_key(inf(), PAD_POS);
+
+  // 1. load
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(part_d + base) |
+                     reinterpret_cast<uintptr_t>(part_pos + base)) % 16 == 0) {
+    const float4* d4 = reinterpret_cast<const float4*>(part_d + base);
+    const int4* p4 = reinterpret_cast<const int4*>(part_pos + base);
+#pragma unroll 2
+    for (int e = tid; e < n / 4; e += MERGE_NT) {
+      const float4 d = d4[e];
+      const int4 q = p4[e];
+      keys[4 * e] = merge_key(d.x, q.x);
+      keys[4 * e + 1] = merge_key(d.y, q.y);
+      keys[4 * e + 2] = merge_key(d.z, q.z);
+      keys[4 * e + 3] = merge_key(d.w, q.w);
+    }
+  } else {
+    for (int e = tid; e < n; e += MERGE_NT)
+      keys[e] = merge_key(part_d[base + e], part_pos[base + e]);
   }
-  if (tid == 0) sel.cnt[0] = 0;
+  for (int j = tid; j < 3 * MERGE_PIVOTS; j += MERGE_NT) cnt[j] = 0;
+  if (tid == 0) *n_surv = 0;
   __syncthreads();
-  const int n = (splits - 1) * fetch;
-  for (int f0 = 0; f0 < n; f0 += MERGE_NT) {
-    const int f = f0 + tid;
-    float d = inf();
-    int p = PAD_POS, id = -1;
-    if (f < n) {
-      d = part_d[base + fetch + f];
-      p = part_pos[base + fetch + f];
-      id = part_id[base + fetch + f];
+
+  int ns;  // real entries placed; the places from ns on get pads
+  if (splits <= MERGE_DIRECT) {
+    // Few lists (the clustered batches): no search.  A real entry's place
+    // is its index plus the keys below it in the other lists (real keys
+    // are unique); the pads are counted out, not placed.
+    int reals = 0;
+    for (int e = tid; e < n; e += MERGE_NT) {
+      const uint64_t key = keys[e];
+      if (key == pad) continue;
+      ++reals;
+      const int l = e / fetch;
+      int r = e - l * fetch;
+      for (int o = 0; o < splits && r < fetch; ++o)
+        if (o != l)
+          r += count_below(keys + (size_t)o * fetch, fetch, top, key);
+      if (r < fetch) {
+        const size_t at = (size_t)b * fetch + r;
+        out_d[at] = part_d[base + e];
+        out_pos[at] = part_pos[base + e];
+        out_id[at] = part_id[base + e];
+      }
     }
-    bool pend = !push_warp(sel, 0, f < n && sel.beats(0, d, p), d, p, id);
+    for (int w = 16; w > 0; w >>= 1) reals += __shfl_xor_sync(FULL, reals, w);
+    if (lane == 0 && reals) atomicAdd(n_surv, reals);
     __syncthreads();
-    while (__syncthreads_or(sel.any_full())) {
-      flush(sel);
-      if (pend && (!sel.beats(0, d, p) || push_one(sel, 0, d, p, id)))
-        pend = false;
+    ns = min(*n_surv, fetch);
+  } else {
+    // 2. search.  Thread (slot, piv) counts, for candidate piv + 1, the keys
+    // below it in lists slot, slot + MERGE_NT / 16, ...; a half-warp holds
+    // one slot's 16 candidates (15 used), so a shuffle adds two slots and
+    // each warp adds one count a candidate.  The round ends early when the
+    // first candidate rejected has exactly fetch keys below it: they are
+    // the survivors, whatever the bits below.
+    const int piv = tid & 15, slot = tid >> 4;
+    uint64_t v = 0, end = 0;
+    for (int shift = 64 - MERGE_BITS, r = 0; shift >= 0;
+         shift -= MERGE_BITS, ++r) {
+      int* c = cnt + (r % 3) * MERGE_PIVOTS;
+      const uint64_t x = v | (uint64_t)(piv + 1) << shift;
+      int below = 0;
+      for (int l0 = slot; l0 < splits; l0 += MERGE_ILP * (MERGE_NT / 16)) {
+        const uint64_t* k[MERGE_ILP];
+        int lo[MERGE_ILP];
+  #pragma unroll
+        for (int u = 0; u < MERGE_ILP; ++u) {
+          const int l = min(l0 + u * (MERGE_NT / 16), splits - 1);
+          k[u] = keys + (size_t)l * fetch;
+          lo[u] = 0;
+        }
+        for (int step = top; step > 0; step >>= 1)
+  #pragma unroll
+          for (int u = 0; u < MERGE_ILP; ++u)
+            if (lo[u] + step <= fetch && k[u][lo[u] + step - 1] < x)
+              lo[u] += step;
+  #pragma unroll
+        for (int u = 0; u < MERGE_ILP; ++u)
+          if (l0 + u * (MERGE_NT / 16) < splits) below += lo[u];
+      }
+      below += __shfl_xor_sync(FULL, below, 16);
+      if (lane < MERGE_PIVOTS && below) atomicAdd(&c[piv], below);
+      if (tid < MERGE_PIVOTS) cnt[((r + 1) % 3) * MERGE_PIVOTS + tid] = 0;
       __syncthreads();
+      // the candidates with fewer than fetch keys below them are a prefix
+      const int cl = lane < MERGE_PIVOTS ? c[lane] : 0;
+      const int j = __popc(__ballot_sync(FULL, lane < MERGE_PIVOTS &&
+                                                    cl < fetch));
+      const int cj = __shfl_sync(FULL, cl, j & 31);
+      if (j < MERGE_PIVOTS && cj == fetch) {
+        end = v | (uint64_t)(j + 1) << shift;
+        break;
+      }
+      v |= (uint64_t)j << shift;
+    }
+
+    // 3. survivors
+    if (end == 0) end = v == pad ? pad : v + 1;
+    for (int l = tid; l < splits; l += MERGE_NT)
+      run[l] = count_below(keys + (size_t)l * fetch, fetch, top, end);
+    __syncthreads();
+    if (tid < 32) {  // exclusive prefix sum of run over the lists
+      const int per = (splits + 31) / 32, l0 = min(splits, lane * per),
+                l1 = min(splits, l0 + per);
+      int s = 0;
+      for (int l = l0; l < l1; ++l) s += run[l];
+      int inc = s;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, inc, o);
+        if (lane >= o) inc += y;
+      }
+      for (int l = l0, at = inc - s; l < l1; ++l) {
+        off[l] = at;
+        at += run[l];
+      }
+      if (lane == 31) *n_surv = inc;
+    }
+    __syncthreads();
+    for (int l = tid >> 5; l < splits; l += MERGE_NT / 32)
+      for (int i = lane; i < run[l]; i += 32) {
+        skey[off[l] + i] = keys[(size_t)l * fetch + i];
+        sidx[off[l] + i] = l * fetch + i;
+      }
+    __syncthreads();
+
+    // 4. rank and output
+    ns = *n_surv;
+    for (int j0 = tid; j0 < ns; j0 += 2 * MERGE_NT) {
+      const int j1 = j0 + MERGE_NT;
+      const uint64_t k0 = skey[j0], k1 = j1 < ns ? skey[j1] : 0;
+      int r0 = 0, r1 = 0;
+      for (int s = 0; s < ns; ++s) {
+        const uint64_t ks = skey[s];
+        r0 += ks < k0;
+        r1 += ks < k1;
+      }
+      for (int h = 0; h < 2; ++h) {
+        const int j = h ? j1 : j0;
+        if (j >= ns) break;
+        const size_t o = (size_t)b * fetch + (h ? r1 : r0);
+        const size_t in = base + sidx[j];
+        out_d[o] = part_d[in];
+        out_pos[o] = part_pos[in];
+        out_id[o] = part_id[in];
+      }
     }
   }
-  if (sel.any_queued()) flush(sel);
-  for (int c = tid; c < fetch; c += MERGE_NT) {
-    out_d[(size_t)b * fetch + c] = sel.ad[c];
-    out_pos[(size_t)b * fetch + c] = sel.ap[c];
-    out_id[(size_t)b * fetch + c] = sel.ai[c];
+  for (int c = ns + tid; c < fetch; c += MERGE_NT) {
+    const size_t o = (size_t)b * fetch + c;
+    out_d[o] = inf();
+    out_pos[o] = PAD_POS;
+    out_id[o] = -1;
   }
+}
+
+// Dynamic shared memory of one merge CTA (topk_merge's layout).
+size_t merge_smem_bytes(int splits, int fetch) {
+  return 8 * ((size_t)splits * fetch + fetch) +
+         4 * ((size_t)fetch + 3 * MERGE_PIVOTS + 2 * (size_t)splits + 1);
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
@@ -482,8 +720,8 @@ size_t scan_smem_bytes(int M, int K, int QT, int FW, int BLK, bool gt,
                        bool gs) {
   const int P = NT / BLK > 1 ? NT / BLK : 1;
   const size_t tables = gt ? 0 : (size_t)QT * M * K;
-  const size_t arrays = gs ? 0 : sel_array_words(QT, FW) + QT;
-  return sizeof(int) * (tables + arrays + (size_t)QT * P + QT);
+  const size_t arrays = gs ? 0 : sel_array_words(QT, FW) + sel_count_words(QT);
+  return sizeof(int) * (tables + arrays + (size_t)QT * P + P + QT);
 }
 
 // Launch one scan of either form: GS when row_n is not NULL (then part_*
@@ -551,9 +789,30 @@ size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
                          global_state != 0);
 }
 
-// Dynamic shared memory of one merge CTA (one query).
-size_t topk_merge_smem_bytes(int FW) {
-  return sizeof(int) * (sel_array_words(1, FW) + 1);
+// Scan CTAs of the given form and dynamic shared memory that one SM holds
+// at once (registers, threads and shared memory all counted), or a
+// negative cudaError_t.  kernels/pq_scan.py::k3_wave_splits cuts a tile
+// into as many splits as fill the card once at this occupancy.
+int pq_scan_topk_ctas_per_sm(int packed, int global_tables, int global_state,
+                             size_t smem) {
+  const ScanKernel kern =
+      global_tables
+          ? (global_state ? scan_kernel<true, true>(packed != 0)
+                          : scan_kernel<true, false>(packed != 0))
+          : (global_state ? scan_kernel<false, true>(packed != 0)
+                          : scan_kernel<false, false>(packed != 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, NT, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Dynamic shared memory of one merge CTA (one query) over `splits` lists
+// of `fetch`.
+size_t topk_merge_smem_bytes(int splits, int fetch) {
+  return merge_smem_bytes(splits, fetch);
 }
 
 // lut (B, M, K) f32; codes (TB, BLK, MB) u8; block_ids / block_other
@@ -606,16 +865,17 @@ int pq_scan_rows_launch(const void* lut, const void* codes,
 }
 
 // part_d / part_pos / part_id (B, splits, fetch), each list ascending by
-// (d, pos); out_d / out_pos / out_id (B, fetch).  FW as above, with
-// topk_merge_smem_bytes(FW) within a CTA's shared memory.
+// (d, pos) with pads (+inf, PAD_POS, -1) last and pos unique among a
+// query's other entries; out_d / out_pos / out_id (B, fetch), with
+// topk_merge_smem_bytes(splits, fetch) within a CTA's shared memory.
 int topk_merge_launch(const void* part_d, const void* part_pos,
                       const void* part_id, void* out_d, void* out_pos,
-                      void* out_id, int B, int splits, int fetch, int FW,
+                      void* out_id, int B, int splits, int fetch,
                       void* stream) {
-  if (!pow2(FW) || FW < 2 || fetch < 1 || fetch > FW || splits < 1)
+  if (fetch < 1 || splits < 1 || (size_t)splits * fetch > (1u << 30))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t smem = topk_merge_smem_bytes(FW);
+  const size_t smem = merge_smem_bytes(splits, fetch);
   cudaError_t err = cudaFuncSetAttribute(
       topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -625,7 +885,7 @@ int topk_merge_launch(const void* part_d, const void* part_pos,
       static_cast<const int32_t*>(part_pos),
       static_cast<const int32_t*>(part_id), static_cast<float*>(out_d),
       static_cast<int32_t*>(out_pos), static_cast<int32_t*>(out_id), splits,
-      fetch, FW);
+      fetch);
   return (int)cudaGetLastError();
 }
 

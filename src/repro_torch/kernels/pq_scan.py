@@ -9,6 +9,8 @@ from kernel to plain version on the card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
@@ -17,10 +19,10 @@ from .ref import (merge_topk_ref, pq_scan_tiled_ref, pq_scan_topk_ref,
 from .topk import pow2_ceil
 
 SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
-_TARGET_CTAS = 4 * 132     # enough CTAs in flight for the H100's 132 SMs
 _MAX_GRID_Y = 65535
 TOPK_THREADS = 256         # threads of a K3 scan CTA (NT in pq_scan_topk.cu)
 _MIN_ROUNDS = 4            # rounds of TOPK_THREADS items a K3 split scans
+_FINE_SPLITS = 8           # splits a tile from which K3 takes two waves
 MAX_QUERY_TILE = 64        # K3 keeps a group's queries in 64-bit masks
 K1_THREADS = 256           # threads of a K1 CTA (NT in pq_scan.cu)
 _K1_TARGET_CTAS = 8 * 132  # two waves and more of K1 CTAs on the H100
@@ -156,11 +158,12 @@ def k3_query_groups(m: int, k: int, qt: int, fw: int,
         max_group=MAX_QUERY_TILE, movable_state=True)
 
 
-def merge_by_select(fw: int) -> bool:
-    """Whether K3's merge runs the row select: one query's selection
-    arrays do not fit in a CTA's shared memory (on the card only)."""
+def merge_by_select(splits: int, fetch: int) -> bool:
+    """Whether K3's merge of ``splits`` lists of ``fetch`` runs the row
+    select: one query's list keys do not fit in a CTA's shared memory
+    (on the card only)."""
     lib = build.load("pq_scan_topk")
-    return lib.topk_merge_smem_bytes(fw) > SMEM_LIMIT
+    return lib.topk_merge_smem_bytes(splits, fetch) > SMEM_LIMIT
 
 
 def select_in_global(fetch: int) -> bool:
@@ -252,18 +255,67 @@ def topk_width(fetch: int) -> int:
     return max(pow2_ceil(max(fetch, 1)), 32)
 
 
-def topk_splits(t: int, s: int, blk: int) -> tuple:
+def topk_splits(t: int, s: int, blk: int, target: int) -> tuple:
     """How K3 splits a tile's S scan positions over the grid's second
-    dimension, from the shape alone: ``(splits, s_per)``.  Enough CTAs
-    for about ``_TARGET_CTAS`` in flight, but at least ``_MIN_ROUNDS``
-    rounds of ``TOPK_THREADS`` items each.  Split ``y`` scans positions
-    ``[y * s_per, min(s, (y + 1) * s_per))``; the ranges cover ``[0, s)``
-    exactly and none is empty (one empty range when s is 0)."""
+    dimension, from the shape alone: ``(splits, s_per)``.  As many splits
+    as keep the ``t`` tiles' CTAs within ``target`` (whole waves of the
+    CTAs the card holds at once, ``k3_wave_splits``: a partial wave costs
+    a whole CTA's time), but at least ``_MIN_ROUNDS`` rounds of ``TOPK_THREADS``
+    items each.  Split ``y`` scans positions ``[y * s_per, min(s, (y +
+    1) * s_per))``; the ranges cover ``[0, s)`` exactly and none is
+    empty (one empty range when s is 0)."""
     per_round = max(1, TOPK_THREADS // blk)       # positions in a round
-    splits = max(1, min(-(-_TARGET_CTAS // max(t, 1)),
+    splits = max(1, min(target // max(t, 1),
                         s // (_MIN_ROUNDS * per_round), _MAX_GRID_Y))
     s_per = max(1, -(-s // splits))
     return max(1, -(-s // s_per)), s_per
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_ctas(packed: bool, global_tables: bool, global_state: bool,
+             smem: int, device_index: int) -> int:
+    """K3 CTAs of this form and shared memory that the card holds at once
+    (``pq_scan_topk_ctas_per_sm`` times the SMs)."""
+    lib = build.load("pq_scan_topk")
+    with torch.cuda.device(device_index):
+        per_sm = lib.pq_scan_topk_ctas_per_sm(
+            int(packed), int(global_tables), int(global_state), smem)
+    if per_sm < 1:
+        raise RuntimeError(f"K3: occupancy query failed ({per_sm}) for "
+                           f"{smem} B of shared memory")
+    props = torch.cuda.get_device_properties(device_index)
+    return per_sm * props.multi_processor_count
+
+
+def k3_wave(groups: QueryGroups, m: int, k: int, fw: int, blk: int,
+            packed: bool, device) -> int:
+    """K3 CTAs of the launches in ``groups`` (``k3_query_groups`` or
+    ``k3_row_groups``; ``fw`` 0 for the candidate-row form) that the card
+    holds at once, by the shared memory of the largest group (on the card
+    only)."""
+    lib = build.load("pq_scan_topk")
+    smem = lib.pq_scan_topk_smem_bytes(m, k, groups.largest, fw, blk,
+                                       int(groups.global_tables),
+                                       int(groups.global_state))
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _k3_ctas(packed, groups.global_tables, groups.global_state, smem,
+                    index)
+
+
+def k3_wave_splits(groups: QueryGroups, t: int, s: int, m: int, k: int,
+                   fw: int, blk: int, packed: bool, device) -> tuple:
+    """``topk_splits`` of K3's launches in ``groups`` for one full wave of
+    ``k3_wave`` CTAs.  Where one wave cuts a tile into ``_FINE_SPLITS``
+    splits or more (few tiles: grouped batches), two waves: the splits of
+    such a tile differ in how much of it is planned (the densest CTA of a
+    grouped pq4 batch at fetch 400 takes twice the mean), and a second
+    wave lets the card even them out; with many tiles (clustered) one
+    wave is faster (``tools/k3_phases.py --waves``).  Returns ``(splits,
+    s_per)``."""
+    wave = k3_wave(groups, m, k, fw, blk, packed, device)
+    waves = 2 if wave // max(t, 1) >= _FINE_SPLITS else 1
+    return topk_splits(t, s, blk, waves * wave)
 
 
 def select_topk_kernel(row_d: torch.Tensor, row_pos: torch.Tensor,
@@ -314,11 +366,14 @@ select_topk_kernel.launches = 0
 def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
                       part_id: torch.Tensor):
     """K3's merge.  (B, splits, F) lists, each ascending by (d, pos)
-    with pads ``(+inf, PAD_POS, -1)`` last -> their top-F
-    ``(acc_d, acc_pos, acc_id)``, (B, F) ascending by (d, pos).  Where a
-    query's selection arrays pass a CTA's shared memory (fetch above
-    8192, ``merge_by_select``) the row select merges the (B, splits * F)
-    rows instead, and the launch counts as ``select_topk_kernel``'s."""
+    with pads ``(+inf, PAD_POS, -1)`` last and pos unique among a query's
+    other entries -> their top-F ``(acc_d, acc_pos, acc_id)``, (B, F)
+    ascending by (d, pos).  One CTA per query finds the F-th key by
+    counting and places each entry up to it by counting
+    (``csrc/pq_scan_topk.cu``).  Where a query's keys pass a CTA's shared
+    memory (``merge_by_select``: splits * F above about 28,000) the row
+    select merges the (B, splits * F) rows instead, and the launch counts
+    as ``select_topk_kernel``'s."""
     if part_d.device.type == "cpu":
         return merge_topk_ref(part_d, part_pos, part_id)
     b, splits, fetch = part_d.shape
@@ -332,8 +387,7 @@ def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
     if splits < 1 or fetch < 1:
         raise ValueError(f"merge_topk_kernel needs splits, fetch >= 1, got "
                          f"{tuple(part_d.shape)}")
-    fw = topk_width(fetch)
-    if merge_by_select(fw):
+    if merge_by_select(splits, fetch):
         return select_topk_kernel(*(x.reshape(b, splits * fetch)
                                     for x in (part_d, part_pos, part_id)),
                                   fetch=fetch)
@@ -343,7 +397,7 @@ def merge_topk_kernel(part_d: torch.Tensor, part_pos: torch.Tensor,
     lib = build.load("pq_scan_topk")
     err = lib.topk_merge_launch(
         part_d.data_ptr(), part_pos.data_ptr(), part_id.data_ptr(),
-        *(x.data_ptr() for x in out), b, splits, fetch, fw, _stream(dev))
+        *(x.data_ptr() for x in out), b, splits, fetch, _stream(dev))
     build.check(lib, err, "merge_topk_kernel")
     merge_topk_kernel.launches += 1
     return out
@@ -399,8 +453,8 @@ def k3_row_groups(m: int, k: int, qt: int, blk: int) -> QueryGroups:
 
 def _scan_rows(args, dims, query_tile, packed, plan_width, groups):
     """Launch K3's candidate-row form on checked inputs (``dims`` from
-    ``_k3_shape``), one launch per query group, over ``topk_splits``
-    ranges: ``(row_d, row_pos, row_id, row_n, dco)``."""
+    ``_k3_shape``), one launch per query group, over
+    ``k3_wave_splits`` ranges: ``(row_d, row_pos, row_id, row_n, dco)``."""
     lut, block_codes, block_ids, block_other, tile_idx, rank_of, slot_of, \
         rank_u, dead = args
     b, m, k, blk, mb, s, nlist = dims
@@ -410,7 +464,8 @@ def _scan_rows(args, dims, query_tile, packed, plan_width, groups):
                  for dt in (torch.float32, torch.int32, torch.int32))
     row_n = torch.zeros((b,), dtype=torch.int32, device=dev)
     dco = torch.zeros((b,), dtype=torch.int32, device=dev)
-    splits, s_per = topk_splits(tile_idx.shape[0], s, blk)
+    splits, s_per = k3_wave_splits(groups, tile_idx.shape[0], s, m, k, 0,
+                                   blk, packed, dev)
     lib = build.load("pq_scan_topk")
     for q0, q1 in groups:
         err = lib.pq_scan_rows_launch(
@@ -463,7 +518,7 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     ``ref.pq_scan_topk_ref`` for the contract).  Returns
     ``(acc_d, acc_pos, acc_id, dco)``: (B, fetch) f32 / int32 / int32
     ascending by (d, pos), and the (B,) int32 logical DCO.  The scan
-    runs over ``topk_splits`` ranges of positions; with more than one,
+    runs over ``k3_wave_splits`` ranges of positions; with more than one,
     ``merge_topk_kernel`` merges their lists.  On the card a tile whose
     state does not fit in shared memory, or that has more than
     ``MAX_QUERY_TILE`` queries, is scanned in ``k3_query_groups``, one
@@ -495,7 +550,8 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         acc = select_topk_kernel(row_d, row_pos, row_id, row_n, fetch=fetch)
         return acc[0], acc[1], acc[2], dco
     lib = build.load("pq_scan_topk")
-    splits, s_per = topk_splits(tile_idx.shape[0], s, blk)
+    splits, s_per = k3_wave_splits(groups, tile_idx.shape[0], s, m, k, fw,
+                                   blk, packed, dev)
     acc = tuple(torch.empty((b, fetch), dtype=dt, device=dev)
                 for dt in (torch.float32, torch.int32, torch.int32))
     part = acc if splits == 1 else tuple(

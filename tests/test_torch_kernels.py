@@ -220,6 +220,32 @@ def test_plain_k3_matches_pallas_kernel_interpret():
     assert ttopk.PAD_POS == J_PAD_POS
 
 
+@pytest.mark.parametrize("fetch", [100, 400])
+def test_plain_k3_packed_plane_matches_pallas_kernel_interpret(fetch):
+    """The plain K3 on a nibble-packed plane (the two-tier search's pq4
+    shape: M 16 in 8 code bytes) against the Pallas kernel in interpret
+    mode, at the planes' fetch 400 (FW 512) and at 100: all four outputs
+    bitwise, tie-heavy, dead tile on; two tiles of two queries with 896
+    planned items each, so that most of them keep more than fetch 400
+    and one keeps fewer (pads)."""
+    d = synth(29, b=4, s=7, tb=10, blk=128, m=16, tie_heavy=True)
+    b, s = d["blocks"].shape
+    slot_of = np.where(d["valid"], np.arange(s)[None, :], -1).astype(np.int32)
+    dead = (~d["live"][np.maximum(d["ids"], 0)] & (d["ids"] >= 0)
+            ).astype(np.uint8)
+    tiles = d["blocks"][::2]            # query tile 2: row 0's list
+    args = (d["lut"], j_pack(d["codes"]), d["ids"], d["other"], tiles,
+            d["rank_of"], slot_of, d["ranks"], dead)
+    want = jpq.pq_scan_topk_kernel(*map(jnp.asarray, args), query_tile=2,
+                                   fetch=fetch, interpret=True, packed=True)
+    got = tref.pq_scan_topk_ref(*map(t, args), query_tile=2, fetch=fetch,
+                                packed=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the selection bites: a query keeps more items than fetch
+    assert ((got[1] < ttopk.PAD_POS).sum(axis=1) == fetch).any()
+
+
 def test_plain_k3_pads_short_streams():
     """fetch beyond the candidate stream pads with (+inf, PAD_POS, -1)."""
     d = synth(8, b=2, s=1, tb=3, blk=8)

@@ -237,17 +237,32 @@ def test_select_over_split_lists_is_the_merge(b, splits, f):
         assert torch.equal(x, y)
 
 
-# the candidate-row form splits like the shared one (about 4 x 132 CTAs);
-# its scratch is the rows: 12 bytes an entry and a fill a row
+# the candidate-row form splits like the shared one, for the waves of its
+# own occupancy (6 CTAs a SM on the H100's 132 SMs: one wave of 792 CTAs,
+# two where one wave cuts a tile 8 ways or more); its scratch is the rows:
+# 12 bytes an entry and a fill a row.  The ids keep the names these cases
+# were first collected under.
 @pytest.mark.parametrize("t_,qt,s,blk,pw,splits,rows_bytes", [
     (1024, 1, 556, 32, 556, 1, 1024 * (12 * 17792 + 4)),  # wide paged
-    (128, 8, 4448, 32, 556, 5, 1024 * (12 * 17792 + 4)),  # wide clustered
-    (8, 8, 35584, 32, 556, 66, 64 * (12 * 17792 + 4)),    # wide grouped
+    (128, 8, 4448, 32, 556, 6, 1024 * (12 * 17792 + 4)),  # wide clustered
+    (8, 8, 35584, 32, 556, 198, 64 * (12 * 17792 + 4)),   # wide grouped
     (2, 4, 300, 32, 300, 9, 8 * (12 * 9600 + 4)),         # few tiles
-    (8, 1, 400, 32, None, 12, 8 * (12 * 12800 + 4))])     # no plan width
-def test_row_form_splits_and_scratch_from_the_shape(t_, qt, s, blk, pw,
-                                                    splits, rows_bytes):
-    got, s_per = tpq.topk_splits(t_, s, blk)
+    (8, 1, 400, 32, None, 12, 8 * (12 * 12800 + 4))],     # no plan width
+    ids=["1024-1-556-32-556-1-218632192", "128-8-4448-32-556-5-218632192",
+         "8-8-35584-32-556-66-13664512", "2-4-300-32-300-9-921632",
+         "8-1-400-32-None-12-1228832"])
+def test_row_form_splits_and_scratch_from_the_shape(monkeypatch, t_, qt, s,
+                                                    blk, pw, splits,
+                                                    rows_bytes):
+    class Lib:
+        @staticmethod
+        def pq_scan_topk_smem_bytes(m, k, n, fw, blk, gt, gs):
+            return 40000
+    monkeypatch.setattr(tpq.build, "load", lambda stem: Lib)
+    monkeypatch.setattr(tpq, "_k3_ctas", lambda *a: 6 * 132)
+    groups = tpq.QueryGroups([(0, qt)], global_state=True)
+    got, s_per = tpq.k3_wave_splits(groups, t_, s, 16, 16, 0, blk, True,
+                                    "cuda:0")
     assert got == splits and splits == max(1, -(-s // s_per))
     assert t_ * qt * (12 * tpq.row_width(s, blk, pw) + 4) == rows_bytes
     assert tpq.row_width(s, blk, pw) == blk * min(s, pw or s)

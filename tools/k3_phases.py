@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Where a K3 CTA spends its time, on one NVIDIA H100.
 
-    python3 tools/k3_phases.py [--seed 0] [--n 1000000] [--wide]
+    python3 tools/k3_phases.py [--seed 0] [--n 1000000]
+                               [--wide | --plane pq4|binary]
+                               [--built-only] [--waves N]
+    python3 tools/k3_phases.py --merge-paths [--seed 0]
 
 Compiles a copy of ``src/repro_torch/kernels/csrc/pq_scan_topk.cu`` with
 ``clock64`` counters added (thread 0 of each scan CTA records them;
@@ -10,18 +13,41 @@ and runs the copy once at the first batch of each exec mode, bitwise
 against the plain version.  Per CTA it reports, in microseconds at the
 SM clock nvidia-smi reads: set-up (tables into shared memory), staging
 of the rounds' plan slots, scoring and queueing, flushes (sort + merge
-of full queues, with retries; "networks" is the part spent in the sort
-and merge networks themselves), and the final flush and write-out; and
-the number of rounds and flushes.  Phases run one after another within
-a CTA, so their sum is the CTA's time; CTAs on one SM overlap.  Each
-mode runs twice: as built, and "alone", with the launch asking for
-more shared memory than two CTAs can share, so that each CTA has its
-SM to itself and its phases show what they cost without neighbours.
+of full queues, with retries and the round's closing barrier;
+"networks" is the part spent in the sort and merge networks
+themselves), and the final flush and write-out; and the number of
+rounds and flushes.  Phases run one after another within a CTA, so
+their sum is the CTA's time; CTAs on one SM overlap, so a phase also
+holds the time its warp waited for the others' issue.  Each mode runs
+twice: as built, and "alone", with the launch asking for more shared
+memory than two CTAs can share, so that each CTA has its SM to itself
+(``--built-only`` skips that run).  K3's time is that of the card's
+work alone: calls captured in a CUDA graph and replayed (``device_ms``).
+
 With ``--wide`` it runs chip_smoke.py's wide two-tier shape instead
 (k 100, k_factor 10, the pq4 plane at refine factor 16: fetch 16,000),
 where K3 takes its candidate-row form: the counters then time the scan
 to rows (no flush runs; the row select that follows is not counted, but
-is in the K3 time).
+is in the K3 time).  With ``--plane pq4|binary`` it runs chip_smoke.py's
+two-tier shape (the main index, ``refine=RefineParams(plane, 4)``: fetch
+400 over the plane's packed codes).  ``--waves N`` cuts K3 into N full
+waves of CTAs instead of the number its wrapper picks from the shape
+(the tool replaces ``k3_wave_splits`` for the run).
+
+``--merge-paths`` builds no index: it times the merge alone on random
+sorted lists, B=1024 with 2 to 8 lists and B=64 with 66, fetch 100 and
+400 (random f32 and tie-heavy lists with 30% pads), bitwise against
+its plain version, with its phases per CTA.  Where the source places
+the entries of few lists directly (``MERGE_DIRECT``), a second copy
+with that path compiled out times the search at the same lists.
+
+Where K3 splits, its merge (``topk_merge``) is timed too, alone and
+beside one ``torch.topk`` over the same lists, with its phases per CTA
+(one query each).  The probes of the scan round and of the merge come
+in one set per design of each (``ROUND_PROBES``, ``MERGE_PROBES``), the
+first whose anchors all match is used, so a copy of this tool placed in
+an unpacked parent commit (under ``build/``) times that commit's kernel
+alike.
 """
 from __future__ import annotations
 
@@ -38,7 +64,8 @@ FIELDS = ("setup", "stage", "score", "flush", "tail", "total", "rounds",
 
 # (anchor in pq_scan_topk.cu, text that replaces it)
 PROBES = (
-    ("namespace {\n", "namespace {\n__device__ long long* g_phase;\n"),
+    ("namespace {\n", "namespace {\n__device__ long long* g_phase;\n"
+     "__device__ long long* g_merge;\n"),
     ("  extern __shared__ int smem[];\n  const int qi = blockIdx.x,",
      "  extern __shared__ int smem[];\n"
      "  long long T0 = clock64(), Tb = 0, Tc = 0, ph[9] = {0};\n"
@@ -49,22 +76,6 @@ PROBES = (
     ("    const int sr = f0 / BLK;  // first position of the round\n",
      "    const int sr = f0 / BLK;  // first position of the round\n"
      "    const long long Ta = clock64();\n"),
-    ("    __syncthreads();\n    const int f = f0 + tid;",
-     "    __syncthreads();\n    Tb = clock64();\n    ph[1] += Tb - Ta;\n"
-     "    const int f = f0 + tid;"),
-    ("    }\n    __syncthreads();\n"
-     "    while (!GS && __syncthreads_or(sel.any_full())) {\n"
-     "      flush(sel);\n",
-     "    }\n    __syncthreads();\n    Tc = clock64();\n    ph[2] += Tc - Tb;\n"
-     "    ph[6]++;\n"
-     "    while (!GS && __syncthreads_or(sel.any_full())) {\n"
-     "      const long long Tn = clock64();\n"
-     "      flush(sel);\n      ph[8] += clock64() - Tn;\n      ph[7]++;\n"),
-    ("      __syncthreads();\n    }\n  }\n  __syncthreads();\n"
-     "  if (!GS && sel.any_queued()) flush(sel);\n",
-     "      __syncthreads();\n    }\n    ph[3] += clock64() - Tc;\n  }\n"
-     "  __syncthreads();\n  const long long Te = clock64();\n"
-     "  if (!GS && sel.any_queued()) flush(sel);\n"),
     ("    if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);\n}",
      "    if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);\n"
      "  if (tid == 0 && g_phase) {\n"
@@ -74,14 +85,125 @@ PROBES = (
     ('extern "C" {\n',
      'extern "C" {\n'
      "int set_phase_buffer(void* p) {\n"
-     "  return (int)cudaMemcpyToSymbol(g_phase, &p, sizeof(p));\n}\n"),
+     "  return (int)cudaMemcpyToSymbol(g_phase, &p, sizeof(p));\n}\n"
+     "int set_merge_buffer(void* p) {\n"
+     "  return (int)cudaMemcpyToSymbol(g_merge, &p, sizeof(p));\n}\n"),
+)
+# A scan round's stage / score / flush probes, one set per design of the
+# round (the first whose anchors all match is used): (design, probes).
+ROUND_PROBES = (
+    ("plan staged in the round, two barriers a round", (
+        ("    __syncthreads();\n    const int f = f0 + tid;",
+         "    __syncthreads();\n    Tb = clock64();\n    ph[1] += Tb - Ta;\n"
+         "    const int f = f0 + tid;"),
+        ("    bool again = __syncthreads_or(full);\n"
+         "    while (!GS && again) {\n      flush(sel);\n",
+         "    Tc = clock64();\n    ph[2] += Tc - Tb;\n    ph[6]++;\n"
+         "    bool again = __syncthreads_or(full);\n"
+         "    while (!GS && again) {\n"
+         "      const long long Tn = clock64();\n"
+         "      flush(sel);\n      ph[8] += clock64() - Tn;\n"
+         "      ph[7]++;\n"),
+        ("      again = __syncthreads_or(full);\n    }\n  }\n"
+         "  __syncthreads();\n  if (!GS && sel.any_queued()) flush(sel);\n",
+         "      again = __syncthreads_or(full);\n    }\n"
+         "    ph[3] += clock64() - Tc;\n  }\n"
+         "  __syncthreads();\n  const long long Te = clock64();\n"
+         "  if (!GS && sel.any_queued()) flush(sel);\n"),
+    )),
+    ("plan staged in the round, three barriers a round", (
+        ("    __syncthreads();\n    const int f = f0 + tid;",
+         "    __syncthreads();\n    Tb = clock64();\n    ph[1] += Tb - Ta;\n"
+         "    const int f = f0 + tid;"),
+        ("    }\n    __syncthreads();\n"
+         "    while (!GS && __syncthreads_or(sel.any_full())) {\n"
+         "      flush(sel);\n",
+         "    }\n    __syncthreads();\n    Tc = clock64();\n"
+         "    ph[2] += Tc - Tb;\n    ph[6]++;\n"
+         "    while (!GS && __syncthreads_or(sel.any_full())) {\n"
+         "      const long long Tn = clock64();\n"
+         "      flush(sel);\n      ph[8] += clock64() - Tn;\n"
+         "      ph[7]++;\n"),
+        ("      __syncthreads();\n    }\n  }\n  __syncthreads();\n"
+         "  if (!GS && sel.any_queued()) flush(sel);\n",
+         "      __syncthreads();\n    }\n    ph[3] += clock64() - Tc;\n"
+         "  }\n  __syncthreads();\n  const long long Te = clock64();\n"
+         "  if (!GS && sel.any_queued()) flush(sel);\n"),
+    )),
+)
+# The merge's phases, one probe set per design of topk_merge: (design,
+# fields, probes).  Thread 0 of each merge CTA writes its fields to
+# g_merge; a field named "n_..." is a count, the others clocks.
+MERGE_PROBES = (
+    ("placement by counting", ("load", "search", "survivors",
+                               "placement and output", "total", "n_placed"), (
+        ("  const uint64_t pad = merge_key(inf(), PAD_POS);\n",
+         "  const uint64_t pad = merge_key(inf(), PAD_POS);\n"
+         "  long long T0 = clock64(), Tm = 0, mp[6] = {0};\n"),
+        ("  int ns;  // real entries placed",
+         "  mp[0] = clock64() - T0;\n  Tm = clock64();\n"
+         "  int ns;  // real entries placed"),
+        ("    // 3. survivors\n",
+         "    mp[1] = clock64() - Tm;\n    Tm = clock64();\n"
+         "    // 3. survivors\n"),
+        ("    // 4. rank and output\n",
+         "    mp[2] = clock64() - Tm;\n    Tm = clock64();\n"
+         "    // 4. rank and output\n"),
+        ("    out_id[o] = -1;\n  }\n}\n",
+         "    out_id[o] = -1;\n  }\n"
+         "  if (tid == 0 && g_merge) {\n    mp[3] = clock64() - Tm;\n"
+         "    mp[4] = clock64() - T0;\n    mp[5] = ns;\n"
+         "    for (int i = 0; i < 6; ++i) g_merge[6 * (size_t)b + i] = mp[i];\n"
+         "  }\n}\n"),
+    )),
+    ("queue and network", ("seed", "filter", "flush", "final flush",
+                           "output", "total", "n_rounds", "n_flushes"), (
+        ("  const int b = blockIdx.x, tid = threadIdx.x;\n  Sel sel;\n",
+         "  const int b = blockIdx.x, tid = threadIdx.x;\n  Sel sel;\n"
+         "  long long T0 = clock64(), Tf = 0, mp[8] = {0};\n"),
+        ("  if (tid == 0) sel.cnt[0] = 0;\n  __syncthreads();\n",
+         "  if (tid == 0) sel.cnt[0] = 0;\n  __syncthreads();\n"
+         "  mp[0] = clock64() - T0;\n"),
+        ("    while (__syncthreads_or(sel.any_full())) {\n      flush(sel);\n",
+         "    mp[6]++;\n"
+         "    while (__syncthreads_or(sel.any_full())) {\n"
+         "      Tf = clock64();\n      flush(sel);\n"
+         "      mp[2] += clock64() - Tf;\n      mp[7]++;\n"),
+        ("  if (sel.any_queued()) flush(sel);\n"
+         "  for (int c = tid; c < fetch; c += MERGE_NT) {\n",
+         "  mp[1] = clock64() - T0 - mp[0] - mp[2];\n  Tf = clock64();\n"
+         "  if (sel.any_queued()) flush(sel);\n  mp[3] = clock64() - Tf;\n"
+         "  Tf = clock64();\n"
+         "  for (int c = tid; c < fetch; c += MERGE_NT) {\n"),
+        ("    out_id[(size_t)b * fetch + c] = sel.ai[c];\n  }\n}\n",
+         "    out_id[(size_t)b * fetch + c] = sel.ai[c];\n  }\n"
+         "  if (tid == 0 && g_merge) {\n    mp[4] = clock64() - Tf;\n"
+         "    mp[5] = clock64() - T0;\n"
+         "    for (int i = 0; i < 8; ++i) g_merge[8 * (size_t)b + i] = mp[i];\n"
+         "  }\n}\n"),
+    )),
 )
 # one CTA per SM: 120,000 B of shared memory, more than half of an SM's
+# the merge with its direct placement compiled out: every list count
+# takes the search
+SEARCH_ONLY = (("constexpr int MERGE_DIRECT = 6;",
+                "constexpr int MERGE_DIRECT = 0;"),)
 ALONE = (("  const size_t smem =\n"
           "      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);\n",
           "  const size_t smem0 =\n"
           "      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);\n"
           "  const size_t smem = smem0 > 120000 ? smem0 : 120000;\n"),)
+
+
+def matching(build, sets, what):
+    """The entry of ``sets`` whose probes (its last item) all have their
+    anchor once in pq_scan_topk.cu."""
+    text = (build.CSRC / "pq_scan_topk.cu").read_text()
+    for entry in sets:
+        if all(text.count(anchor) == 1 for anchor, _ in entry[-1]):
+            return entry
+    raise SystemExit(f"k3_phases: no probe set matches {what} in "
+                     "pq_scan_topk.cu")
 
 
 def build_probed(build, name, probes):
@@ -109,15 +231,130 @@ def build_probed(build, name, probes):
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib.set_phase_buffer.argtypes = [ctypes.c_void_p]
     lib.set_phase_buffer.restype = ctypes.c_int
+    lib.set_merge_buffer.argtypes = [ctypes.c_void_p]
+    lib.set_merge_buffer.restype = ctypes.c_int
     return lib
+
+
+def device_ms(torch, fn, calls: int = 10, reps: int = 5) -> float:
+    """Milliseconds of the card's work in one call of fn(), with no host
+    work: ``calls`` calls captured in one CUDA graph (after two eager
+    warm-up calls), replayed ``reps`` times between CUDA events (as
+    chip_smoke.py's graph_ms; kept here so that the tool times a parent
+    commit's kernels alike)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        g.replay()
+    e.record()
+    e.synchronize()
+    del g
+    return s.elapsed_time(e) / (reps * calls)
+
+
+def summary(buf, fields, mhz) -> str:
+    """Mean and max of each field over the CTAs that wrote ``buf``:
+    microseconds at ``mhz``, or counts (``rounds``, ``flushes``,
+    ``n_...``)."""
+    rows = buf.reshape(-1, len(fields)).double().cpu().T.tolist()
+    parts = []
+    for name, vals in zip(fields, rows):
+        count = name in ("rounds", "flushes") or name.startswith("n_")
+        scale = 1.0 if count else float(mhz)
+        parts.append(f"{name} mean {statistics.fmean(vals) / scale:.2f} "
+                     f"max {max(vals) / scale:.2f}")
+    return ", ".join(parts)
+
+
+def sm_clock(torch) -> str:
+    """The card's SM clock in MHz, as nvidia-smi reads it while a spin
+    kernel keeps the card busy (an idle card reads its lowest clock);
+    printed with the card's name and power limit."""
+    torch.cuda._sleep(2 * 10 ** 9)        # about a second of spinning
+    card, limit, mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].split(", ")
+    torch.cuda.synchronize()
+    print(f"phases: {card}, {limit} W, SM clock {mhz} MHz", flush=True)
+    return mhz
+
+
+def merge_paths(torch, cs, build, pq_scan, ref, current, probes, mfields,
+                seed) -> int:
+    """``--merge-paths``: the merge alone at few and many lists, as built
+    and (where the source has a direct path) with the search only."""
+    variants = {"as built": probes}
+    text = (build.CSRC / "pq_scan_topk.cu").read_text()
+    if text.count(SEARCH_ONLY[0][0]) == 1:
+        variants["search only"] = probes + SEARCH_ONLY
+    libs = {how: build_probed(build, f"merge_{i}", p)
+            for i, (how, p) in enumerate(variants.items())}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(1024, n, f) for f in (100, 400) for n in (2, 3, 4, 5, 6, 8)]
+    shapes += [(64, 66, 100), (64, 66, 400)]
+    mhz = sm_clock(torch)
+    for b, splits, fetch in shapes:
+        for kind, pads, ints in (("random f32", 0.0, False),
+                                 ("tie-heavy, 30% pads", 0.3, True)):
+            parts = cs.sorted_lists(torch, g, dev, b, splits, fetch,
+                                    pads=pads, ints=ints)
+            want = ref.merge_topk_ref(*parts)
+            flat = parts[0].reshape(b, -1)
+            tms = device_ms(torch, lambda: torch.topk(
+                flat, fetch, dim=1, largest=False, sorted=True))
+            for how, lib in libs.items():
+                current["lib"] = lib
+                mbuf = torch.zeros(b * len(mfields), dtype=torch.int64,
+                                   device=dev)
+                if lib.set_merge_buffer(mbuf.data_ptr()):
+                    raise SystemExit("k3_phases: set_merge_buffer failed")
+                got = pq_scan.merge_topk_kernel(*parts)
+                torch.cuda.synchronize()
+                lib.set_merge_buffer(None)
+                if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise SystemExit(f"k3_phases: merge ({how}) differs at "
+                                     f"{b} x {splits} x {fetch}, {kind}")
+                ms = device_ms(torch, lambda: pq_scan.merge_topk_kernel(
+                    *parts))
+                print(f"merge paths: B={b} {splits} lists of {fetch} "
+                      f"({kind}) {how}: {ms:.4f} ms, one torch.topk "
+                      f"{tms:.4f} ms (us per CTA; counts): "
+                      + summary(mbuf, mfields, mhz), flush=True)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--wide", action="store_true",
-                    help="the wide two-tier shape (fetch 16,000)")
+    shape = ap.add_mutually_exclusive_group()
+    shape.add_argument("--wide", action="store_true",
+                       help="the wide two-tier shape (fetch 16,000)")
+    shape.add_argument("--plane", choices=("pq4", "binary"),
+                       help="the two-tier shape over this plane (fetch 400)")
+    ap.add_argument("--built-only", action="store_true",
+                    help="skip the runs with each CTA alone on its SM")
+    ap.add_argument("--waves", type=int, default=0,
+                    help="cut K3 into this many full waves of CTAs (default: "
+                    "as the wrapper picks them from the shape)")
+    ap.add_argument("--merge-paths", action="store_true",
+                    help="time the merge alone at few and many lists (no "
+                    "index), with and without its direct path")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -128,58 +365,91 @@ def main() -> int:
     from repro_torch.core import IndexConfig, build_index
     from repro_torch.data import make_dataset
     from repro_torch.kernels import build, pq_scan, ref
+    if args.waves:          # N full waves, not the shape's choice
+        def fixed_waves(groups, t, s, m, k, fw, blk, packed, device):
+            wave = pq_scan.k3_wave(groups, m, k, fw, blk, packed, device)
+            return pq_scan.topk_splits(t, s, blk, args.waves * wave)
+        pq_scan.k3_wave_splits = fixed_waves
 
-    libs = {"as built": build_probed(build, "phases", PROBES),
-            "alone": build_probed(build, "phases_alone", PROBES + ALONE)}
+    round_design, rprobes = matching(build, ROUND_PROBES, "the scan round")
+    design, mfields, mprobes = matching(build, MERGE_PROBES, "topk_merge")
+    probes = PROBES + rprobes + mprobes
+    print(f"phases: scan rounds: {round_design}; merge: {design}",
+          flush=True)
     stock = build.load
     current = {}
     build.load = lambda stem: (current["lib"] if stem == "pq_scan_topk"
                                else stock(stem))
+    if args.merge_paths:
+        return merge_paths(torch, cs, build, pq_scan, ref, current, probes,
+                           mfields, args.seed)
+    libs = {"as built": build_probed(build, "phases", probes),
+            "alone": build_probed(build, "phases_alone", probes + ALONE)}
     dev = torch.device("cuda")
     x, q, _ = make_dataset("sift1m", args.seed, n=args.n, n_queries=1024,
                            device=dev)
     index = build_index(x, IndexConfig(**cs.INDEX), device=dev,
                         generator=torch.Generator().manual_seed(args.seed))
-    card, limit, mhz = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0].split(", ")
-    print(f"phases: {card}, {limit} W, SM clock {mhz} MHz", flush=True)
+    mhz = sm_clock(torch)
     params = {}
     current["lib"] = libs["as built"]
-    if args.wide:
+    if args.wide or args.plane:
         from repro_torch.core import RefineParams
-        params = dict(cs.WIDE, refine=RefineParams("pq4", 16))
+        params = (dict(cs.WIDE, refine=RefineParams("pq4", 16)) if args.wide
+                  else dict(refine=RefineParams(args.plane, 4)))
+        if args.plane:
+            index.plane(args.plane)       # attach it (trains its codec)
     for mode, bsz in cs.RUNS:
         _, k3, qt, fetch, pw = cs.mode_inputs(index, q[:bsz].contiguous(),
                                               mode, **params)
         tiles = k3[4]
-        splits, _ = pq_scan.topk_splits(*tiles.shape, k3[1].shape[1])
+        m, k, blk = k3[0].shape[1], k3[0].shape[2], k3[1].shape[1]
+        fw = pq_scan.topk_width(fetch)
+        groups = pq_scan.k3_query_groups(m, k, qt, fw, blk)
+        if hasattr(pq_scan, "k3_wave_splits"):
+            splits, s_per = pq_scan.k3_wave_splits(
+                groups, *tiles.shape, m, k, 0 if groups.global_state else fw,
+                blk, bool(params), dev)
+        else:                # a tree that splits K3 by the shape alone
+            splits, s_per = pq_scan.topk_splits(*tiles.shape, blk)
         kw = dict(query_tile=qt, fetch=fetch, packed=bool(params))
         want = ref.pq_scan_topk_ref(*k3, **kw)
         for how, lib in libs.items():
+            if how == "alone" and args.built_only:
+                continue
             current["lib"] = lib
             buf = torch.zeros(tiles.shape[0] * splits * len(FIELDS),
                               dtype=torch.int64, device=dev)
-            if lib.set_phase_buffer(buf.data_ptr()):
+            mbuf = torch.zeros(k3[0].shape[0] * len(mfields),
+                               dtype=torch.int64, device=dev)
+            if (lib.set_phase_buffer(buf.data_ptr())
+                    or lib.set_merge_buffer(mbuf.data_ptr())):
                 raise SystemExit("k3_phases: set_phase_buffer failed")
             got = pq_scan.pq_scan_topk_kernel(*k3, **kw, plan_width=pw)
             torch.cuda.synchronize()
             lib.set_phase_buffer(None)
+            lib.set_merge_buffer(None)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise SystemExit(f"k3_phases: probed K3 differs in {mode}")
-            ms = cs.cuda_ms(torch, lambda: pq_scan.pq_scan_topk_kernel(
+            ms = device_ms(torch, lambda: pq_scan.pq_scan_topk_kernel(
                 *k3, **kw, plan_width=pw))
             rows = buf.reshape(-1, len(FIELDS)).double().cpu().T.tolist()
-            parts = []
-            for name, vals in zip(FIELDS, rows):
-                scale = 1.0 if name in ("rounds", "flushes") else float(mhz)
-                parts.append(f"{name} mean "
-                             f"{statistics.fmean(vals) / scale:.2f} "
-                             f"max {max(vals) / scale:.2f}")
+            parts = [summary(buf, FIELDS, mhz)]
             print(f"phases: {mode} {how} B={bsz} QT={qt} S={tiles.shape[1]}"
-                  f" splits={splits} CTAs={len(rows[0])} K3 {ms:.4f} ms "
-                  "(us per CTA; counts): " + ", ".join(parts), flush=True)
+                  f" fetch={fetch} splits={splits} CTAs={len(rows[0])} K3 "
+                  f"{ms:.4f} ms (us per CTA; counts): " + ", ".join(parts),
+                  flush=True)
+            if splits > 1 and how == "as built":
+                parts = cs.split_parts(torch, k3, kw, splits, s_per)
+                mms = device_ms(torch, lambda: pq_scan.merge_topk_kernel(
+                    *parts))
+                flat = parts[0].reshape(bsz, -1)
+                tms = device_ms(torch, lambda: torch.topk(
+                    flat, fetch, dim=1, largest=False, sorted=True))
+                print(f"phases: {mode} merge ({design}) B={bsz} "
+                      f"{splits} lists of {fetch}: {mms:.4f} ms alone, one "
+                      f"torch.topk over the lists {tms:.4f} ms (us per CTA; "
+                      "counts): " + summary(mbuf, mfields, mhz), flush=True)
     return 0
 
 
