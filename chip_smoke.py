@@ -7,10 +7,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. device   — card name, and name + power limit from nvidia-smi;
   2. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc;
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                bitwise, over a sweep of shapes and layouts: K1 at every
-                instantiation and grid choice (long S, K 4 / 16 / 256,
-                QT 1 to 64, query groups, global tables at M 256 K 256,
-                packed with odd Mc); K3 also split over the grid (few
+                bitwise, over a sweep of shapes and layouts: K1 in every
+                form and grid choice (long S, K 4 / 16 / 256, QT 1 to
+                64, query groups, packed with odd Mc; the compact-plane
+                form at MB 8 / 16, QT 1 / 8 / 64, odd S; the staged form
+                for global tables at M 256 / 232 / 250 / 470 / 3701, K
+                256 / 128 / 16, QT 1 / 3 / 8, a short last range, two
+                passes a split), each launch in the form its shape
+                names; K3 also split over the grid (few
                 tiles, long S, sparse plans), in query groups and with
                 global tables, and in its candidate-row form (fetch
                 9000, 16000, the plan width, 40000: one scan to rows
@@ -45,7 +49,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 index searched on the card and on the CPU;
   5. timing   — each kernel, bitwise against its plain version at the
                 shapes of each exec mode's first batch (main path and
-                gist index), then both timed (CUDA events; a kernel by
+                gist and nbits=8 indexes; K1 in the form each path
+                must take: fast, packed on the planes, staged on the
+                gist index, generic at nbits=8, by its launches by
+                form), then both timed (CUDA events; a kernel by
                 replays of a CUDA graph of its calls, graph_ms, so no
                 host work counts) beside the kernel's bound and lookup
                 floor on this card (K3's merge also alone where K3
@@ -238,21 +245,45 @@ K1_CASES = (
     (1, 4, 300, 32, 64, 256, False),
     (8, 8, 40, 32, 64, 256, False),      # 512 KB of tables: three groups
     (1, 2, 300, 32, 256, 256, False),    # 256 KB for one query: global
-    (8, 8, 300, 32, 256, 256, False),    # tables, the whole tile at once
-    (64, 64, 40, 32, 256, 256, False),
+    (8, 8, 300, 32, 256, 256, False),    # tables, staged in ranges, at
+    (64, 64, 40, 32, 256, 256, False),   # most 8 queries a launch
     (1, 2, 300, 24, 64, 16, False),      # BLK not a power of two
     (1, 2, 300, 32, 63, 16, True),       # packed, odd Mc
     (8, 16, 300, 32, 15, 16, True),
 )
+# K1 cases of the compact-plane and staged forms, and the form each must
+# take: (query_tile, B, S, BLK, M, K, packed, form[, TB]); TB = 400
+K1_FORM_CASES = (
+    (1, 4, 301, 32, 16, 16, True, "packed"),     # pq4: MB 8, odd S
+    (8, 16, 301, 32, 16, 16, True, "packed"),
+    (64, 128, 77, 32, 16, 16, True, "packed"),
+    (1, 4, 301, 32, 32, 16, True, "packed"),     # binary: MB 16
+    (8, 16, 301, 32, 32, 16, True, "packed"),
+    (64, 128, 77, 32, 32, 16, True, "packed"),
+    (4, 8, 301, 32, 32, 16, True, "generic"),    # QT 4: the generic loop
+    (1, 4, 301, 24, 16, 16, True, "generic"),    # BLK 24: the generic loop
+    (1, 3, 301, 32, 256, 256, False, "staged"),  # M 256, K 256
+    (8, 16, 301, 32, 256, 256, False, "staged"),
+    (3, 6, 129, 32, 256, 256, False, "staged"),  # QT 3
+    (1, 2, 77, 32, 232, 256, False, "staged"),   # M 232: one query's last
+    (8, 8, 77, 32, 232, 256, False, "staged"),   # range of 16 is short
+    (1, 2, 77, 32, 250, 256, False, "staged"),   # M 250: short last ranges,
+    (8, 8, 77, 32, 250, 256, False, "staged"),   # rows read byte by byte
+    (8, 8, 40, 32, 470, 128, False, "staged"),   # K 128
+    (1, 2, 40, 32, 3701, 16, True, "staged"),    # packed, odd Mc
+    (8, 8, 1100, 32, 256, 256, False, "staged"),  # 34 splits of a tile
+    (8, 8, 9, 4096, 256, 256, False, "staged", 20),  # two passes a split
+)
 
 
-def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
+def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, form=None, tb=400):
     """K1 on random tables, codes and tile lists, bitwise against its
-    plain version; the case must cover what its comment says."""
+    plain version; the case must cover what its comment says and (where
+    ``form`` is given) every launch must take that form."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pq_scan import (k1_query_groups,
+    from repro_torch.kernels.pq_scan import (k1_plan, launch_counts,
                                              pq_scan_tiled_kernel,
-                                             scan_splits)
+                                             reset_launch_counts)
     from repro_torch.quant import pack_nibbles
     lut = torch.randn(b, m, k, generator=g, device=dev)
     codes = torch.randint(0, k, (tb, blk, m), generator=g,
@@ -261,17 +292,21 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
         codes = torch.from_numpy(pack_nibbles(codes.cpu().numpy())).to(dev)
     tiles = torch.randint(0, tb, (b // qt, s), generator=g, device=dev).int()
     lut_a, codes_a = ops.align(lut, codes, packed)
-    splits, s_per = scan_splits(b // qt, s, blk)
-    groups = k1_query_groups(lut_a.shape[1], k, qt, s_per)
-    before = pq_scan_tiled_kernel.launches
+    groups, s_per = k1_plan(b // qt, s, blk, lut_a.shape[1], k, qt)
+    splits = -(-s // s_per)
+    reset_launch_counts()
     out = pq_scan_tiled_kernel(lut_a, codes_a, tiles, query_tile=qt,
                                packed=packed)
+    used = launch_counts(forms=True)
     want = ref.pq_scan_tiled_ref(lut_a, codes_a, tiles, query_tile=qt,
                                  packed=packed)
     torch.cuda.synchronize()
     name = f"K1 qt={qt} B={b} S={s} blk={blk} m={m} k={k} packed={packed}"
-    check(pq_scan_tiled_kernel.launches - before == len(groups),
+    check(used["pq_scan_tiled_kernel"] == len(groups),
           f"{name}: not one launch per query group")
+    check(form is None or used[f"pq_scan_tiled_kernel[{form}]"]
+          == len(groups), f"{name}: launches by form {json.dumps(used)}, "
+          f"want {form}")
     check(s < 300 or splits > 1, f"{name}: long S ran one split")
     one_query = 4 * lut_a.shape[1] * k + 4 * s_per
     check(groups.global_tables == (one_query > 232448),
@@ -279,6 +314,8 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, tb=400):
           "of shared memory per query")
     check(4 * qt * lut_a.shape[1] * k <= 232448 or len(groups) > 1
           or groups.global_tables, f"{name}: oversize tables in one group")
+    check(not groups.global_tables or groups.largest <= 8,
+          f"{name}: a staged launch of {groups.largest} queries")
     check(torch.equal(out, want),
           f"{name} ({splits} splits of {s_per}, groups {groups}): max err "
           f"{(out - want).abs().max().item()}")
@@ -328,6 +365,13 @@ def check_kernels(torch, dev, seed):
     log(f"kernels: K1 bitwise equal to plain version in {n_k1} more cases "
         "(long S, K 4 / 16 / 256, QT 1 / 8 / 16 / 32 / 64, query groups, "
         "global tables at M 256 K 256, BLK 24 / 128, packed with odd Mc)")
+    for case in K1_FORM_CASES:
+        k1_case(torch, g, dev, *case)
+    log(f"kernels: K1 bitwise equal to plain version, each launch in its "
+        f"form, in {len(K1_FORM_CASES)} cases (packed MB 8 / 16 at QT 1 / 8 "
+        "/ 64, odd S; staged at M 256 / 232 / 250 / 470 / 3701 packed, "
+        "K 256 / 128 / 16, QT 1 / 3 / 8, short last ranges, two passes a "
+        "split)")
     # K2: per-query rows under query_tile > 1 must raise
     lut = torch.randn(4, 16, 16, generator=g, device=dev)
     codes = torch.randint(0, 16, (9, 32, 16), generator=g,
@@ -942,21 +986,22 @@ def lookup_rate(torch) -> float:
 
 
 def hold_kernels(torch, index, queries, mode, what, global_tables=None,
-                 global_state=False, **params):
+                 global_state=False, form=None, **params):
     """hold_inputs at one batch of ``mode`` as the search path makes it
     (``params`` override SEARCH; with ``refine``, over the compact
     plane's packed codes)."""
     sess = index.searcher(**dict(SEARCH, **params), device=index.device)
     return hold_inputs(torch, mode_inputs(index, queries, mode, **params),
                        mode, what, global_tables, global_state,
-                       packed=sess._scan_state()[2])
+                       packed=sess._scan_state()[2], form=form)
 
 
 def hold_inputs(torch, inputs, mode, what, global_tables=None,
-                global_state=False, packed=False):
+                global_state=False, packed=False, form=None):
     """K1 and K3 on ``inputs`` (mode_inputs' tuple; ``packed`` codes of a
     compact plane), with the launch counts set to 0 before each: each
-    launched once per query group, in the table form ``global_tables``
+    launched once per query group, K1 in the form ``form`` names (when
+    given: every launch), in the table form ``global_tables``
     names (when given) and K3 in the form ``global_state`` names (its
     candidate-row form: one scan per query group and one row select),
     and bitwise equal to its plain version; in that form the scan to rows
@@ -966,9 +1011,9 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
     inputs or None, (K1's groups, K3's groups), packed, plan_width)``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pq_scan import (
-        k1_query_groups, k3_query_groups, k3_wave, launch_counts,
-        merge_by_select, merge_topk_kernel, pq_scan_tiled_kernel,
-        pq_scan_topk_kernel, reset_launch_counts, scan_splits, topk_width)
+        k1_plan, k3_query_groups, k3_wave, launch_counts, merge_by_select,
+        merge_topk_kernel, pq_scan_tiled_kernel, pq_scan_topk_kernel,
+        reset_launch_counts, topk_width)
     k1, k3, qt, fetch, pw = inputs
     if packed:            # the tables as ops pads them for a packed plane
         lut, _ = ops.align(k1[0], k1[1], True)
@@ -976,7 +1021,7 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
     lut, codes, tiles = k1
     (b, m, k), (t, s), blk = lut.shape, tiles.shape, codes.shape[1]
     fw = topk_width(fetch)
-    g1 = k1_query_groups(m, k, qt, scan_splits(t, s, blk)[1])
+    g1, _ = k1_plan(t, s, blk, m, k, qt)
     g3 = k3_query_groups(m, k, qt, fw, blk)
     splits, s_per = k3_grid(g3, tiles, m, k, fw, blk, packed)
     wave = k3_wave(g3, m, k, 0 if g3.global_state else fw, blk, packed,
@@ -1010,6 +1055,12 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
                   for name, n in used.items()),
               f"{kid} at {shape}: launches {json.dumps(used)}, want "
               f"{json.dumps(want_launches)}")
+        if kid == "K1":
+            k1_forms = {f: n for f, n in pq_scan_tiled_kernel.forms.items()
+                        if n}
+            check(form is None or k1_forms == {form: len(g1)},
+                  f"K1 at {shape}: launches by form {k1_forms}, want "
+                  f"{len(g1)} {form}")
         want = plain(*args, **kw)
         if kid == "K1":
             got, want = (got,), (want,)
@@ -1038,8 +1089,8 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
         fin = torch.isfinite(k3_want[0])
         errs["merge"] = (got[0][fin] - k3_want[0][fin]).abs().max().item()
         del got
-    form = "global" if g1.global_tables else "shared-memory"
-    log(f"{what}: K1 (query groups {list(g1)}, {form} tables) and K3 "
+    log(f"{what}: K1 (query groups {list(g1)}, launches by form "
+        f"{json.dumps(k1_forms)}) and K3 "
         f"(query groups {list(g3)}, "
         f"{'global' if g3.global_tables else 'shared-memory'} tables, "
         + ("candidate rows and the row select" if g3.global_state else
@@ -1203,7 +1254,7 @@ def time_kernels(torch, index, queries, lookups_per_s):
     rows = {}
     for mode, bsz in RUNS:
         held = hold_kernels(torch, index, queries[:bsz].contiguous(), mode,
-                            "timing", global_tables=False)
+                            "timing", global_tables=False, form="fast")
         if mode != "paged":
             log(f"timing: K1 {mode} union fill "
                 f"{union_fill(index, queries[:bsz], mode):.4f}: the share of "
@@ -1213,12 +1264,14 @@ def time_kernels(torch, index, queries, lookups_per_s):
     return rows
 
 
-def kernel_json(rows, launches, gist_rows, gist_launches, plane_rows,
-                plane_launches, wide_rows, wide_launches):
+def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
+                nbits8_launches, plane_rows, plane_launches, wide_rows,
+                wide_launches):
     """The {"kernels": [...]} entries: K1 and K3 at the main path's first
     paged batch, K3's merge at its first grouped batch (where most of its
     launches run), the
     global-table forms of K1 and K3 at the gist index's first paged
+    batch, K1 and K3 in query groups at the nbits=8 index's first paged
     batch, K1 and K3 at each compact plane's first paged batch, and K3's
     candidate-row form (its scan to rows, and the row select) at the
     wide case's first paged batch, with their launches on the runs that
@@ -1255,7 +1308,14 @@ def kernel_json(rows, launches, gist_rows, gist_launches, plane_rows,
              gist_launches["pq_scan_tiled_kernel"]),
             ("pq_scan_topk_kernel[global tables]", src + "pq_scan_topk.cu",
              "src/repro/kernels/pq_scan.py:311", gist_rows["paged"]["K3"],
-             gist_launches["pq_scan_topk_kernel"])]:
+             gist_launches["pq_scan_topk_kernel"]),
+            ("pq_scan_tiled_kernel[nbits8 query groups]", src + "pq_scan.cu",
+             "src/repro/kernels/pq_scan.py:112", nbits8_rows["paged"]["K1"],
+             nbits8_launches["pq_scan_tiled_kernel"]),
+            ("pq_scan_topk_kernel[nbits8 query groups]",
+             src + "pq_scan_topk.cu", "src/repro/kernels/pq_scan.py:311",
+             nbits8_rows["paged"]["K3"],
+             nbits8_launches["pq_scan_topk_kernel"])]:
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": n,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -1301,9 +1361,12 @@ def main_path(torch, dev, args):
             results[(mode, fused)] = search_run(torch, index, q, gt, mode,
                                                 bsz, fused)
     launches = launch_counts()
-    log(f"main: launches over the six runs {json.dumps(launches)}")
+    forms = launch_counts(forms=True)
+    log(f"main: launches over the six runs {json.dumps(forms)}")
     check(all(launches[k] > 0 for k in MAIN_KERNELS),
           "a kernel of the main path was never launched")
+    check(forms["pq_scan_tiled_kernel[fast]"] == launches[
+        "pq_scan_tiled_kernel"], "main: a K1 launch left the fast form")
     check_agree(torch, results, "main")
     # the sessions' CUDA graphs beside eager seil_search on the same
     # batches, and one traced batch per mode
@@ -1351,12 +1414,12 @@ def main_path(torch, dev, args):
     held_reuse = {mode: hold_inputs(torch, reuse_inputs(torch, index, q,
                                                         mode, bsz),
                                     mode, "main, plan reuse",
-                                    global_tables=False)
+                                    global_tables=False, form="fast")
                   for mode, bsz in REUSE_RUNS}
     release_sessions(torch, "main")
     held = hold_kernels(torch, index, q[:1024].contiguous(), "clustered",
                         "main, clustered qt=64", global_tables=False,
-                        query_tile=64)
+                        form="fast", query_tile=64)
     return index, q, gt, launches, held, held_reuse, results
 
 
@@ -1557,7 +1620,7 @@ def six_runs(torch, index, q, gt, tag):
             reset_launch_counts()
             results[(mode, bsz, fused)] = search_run(
                 torch, index, q, gt, mode, bsz, fused, tag=tag)
-            used = launch_counts()
+            used = launch_counts(forms=True)
             kern = "pq_scan_topk_kernel" if fused else "pq_scan_tiled_kernel"
             check(used[kern] > 0, f"{tag} {mode} fused={int(fused)} never "
                   f"launched {kern}")
@@ -1627,8 +1690,10 @@ def nbits8_path(torch, dev, seed, lookups_per_s):
     """An nbits=8 index (PQ64x8: 64 KB of tables per query) built on the
     card and searched in every exec mode, fused off and on; at
     query_tile 8 K1's and K3's tables pass a CTA's shared memory, so
-    they run in query groups.  Then K1 and K3 are held and timed at each
-    mode's first batch."""
+    they run in query groups (K1's generic form).  Then K1 and K3 are
+    held at each mode's first batch and timed beside their plain
+    versions, bounds and lookup floors.  Returns ({mode: rows}, launches
+    of the six runs)."""
     from repro_torch.core import IndexConfig, build_index, ground_truth
     from repro_torch.data import make_dataset
     x, q, _ = make_dataset("sift1m", seed, n=NBITS8_N, n_queries=1024,
@@ -1640,13 +1705,19 @@ def nbits8_path(torch, dev, seed, lookups_per_s):
     gt = ground_truth(x, q, 10, device=dev)
     log(f"nbits8: sift1m-shaped n={x.shape[0]} IVF1024 PQ64x8 built in "
         f"{time.perf_counter() - t0:.2f} s")
-    six_runs(torch, index, q, gt, "nbits8")
+    launches = six_runs(torch, index, q, gt, "nbits8")
+    check(launches["pq_scan_tiled_kernel[generic]"]
+          == launches["pq_scan_tiled_kernel"],
+          "nbits8: a K1 launch left the generic form")
+    rows = {}
     for mode, bsz in RUNS:
         held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
-                            "nbits8", global_tables=False)
-        time_held(torch, held, f"timing: nbits8 {mode}", lookups_per_s)
+                            "nbits8", global_tables=False, form="generic")
+        rows[mode] = kernel_rows(torch, held, mode, "timing: nbits8",
+                                 lookups_per_s)
         del held
     persist_path(torch, dev, index, q)
+    return rows, launches
 
 
 def gist_path(torch, dev, seed, lookups_per_s):
@@ -1669,10 +1740,13 @@ def gist_path(torch, dev, seed, lookups_per_s):
         f"queries={q.shape[0]} IVF1024 PQ256x8 built in "
         f"{time.perf_counter() - t0:.2f} s")
     launches = six_runs(torch, index, q, gt, "gist")
+    check(launches["pq_scan_tiled_kernel[staged]"]
+          == launches["pq_scan_tiled_kernel"] > 0,
+          "gist: a K1 launch left the staged form")
     rows = {}
     for mode, bsz in RUNS:
         held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
-                            "gist", global_tables=True)
+                            "gist", global_tables=True, form="staged")
         rows[mode] = kernel_rows(torch, held, mode, "timing: gist",
                                  lookups_per_s)
         del held
@@ -1786,9 +1860,12 @@ def refine_path(torch, index, q, gt, plain, lookups_per_s):
                 runs[(mode, fused)] = search_run(
                     torch, index, q, gt, mode, bsz, fused, tag=f"refine {b}",
                     floor=REFINE_FLOOR, refine=RefineParams(b, 4))
-        launches[b] = launch_counts()
+        launches[b] = launch_counts(forms=True)
         check(all(launches[b][k] > 0 for k in MAIN_KERNELS),
               f"refine {b}: a kernel was never launched")
+        check(launches[b]["pq_scan_tiled_kernel[packed]"]
+              == launches[b]["pq_scan_tiled_kernel"],
+              f"refine {b}: a K1 launch left the packed form")
         check_agree(torch, runs, f"refine {b}")
         if b == "pq4":
             reuse_with_plane(torch, index, q, gt, runs)
@@ -1836,7 +1913,7 @@ def refine_path(torch, index, q, gt, plain, lookups_per_s):
         for mode, bsz in RUNS:
             held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
                                 f"refine {b}", global_tables=False,
-                                refine=RefineParams(b, 4))
+                                form="packed", refine=RefineParams(b, 4))
             rows[b][mode] = kernel_rows(torch, held, mode,
                                         f"timing: refine {b}",
                                         lookups_per_s)
@@ -1850,7 +1927,7 @@ def refine_path(torch, index, q, gt, plain, lookups_per_s):
     for mode, bsz in RUNS:
         held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
                             "refine wide", global_tables=False,
-                            global_state=True, **wide)
+                            global_state=True, form="packed", **wide)
         wide_rows[mode] = kernel_rows(torch, held, mode,
                                       "timing: refine wide", lookups_per_s)
         del held
@@ -2039,10 +2116,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     ip_path(torch, dev, args.seed)
     multi_path(torch, dev, args.seed)
-    nbits8_path(torch, dev, args.seed, rate)
+    nbits8 = nbits8_path(torch, dev, args.seed, rate)
     gist_rows, gist_launches = gist_path(torch, dev, args.seed, rate)
     small_reference(torch, dev, args.seed)
-    kernels = kernel_json(rows, launches, gist_rows, gist_launches, *refine)
+    kernels = kernel_json(rows, launches, gist_rows, gist_launches, *nbits8,
+                          *refine)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -73,13 +73,13 @@ class GraphExe:
         with torch.cuda.stream(side):
             fn(*inputs)
         torch.cuda.current_stream().wait_stream(side)
-        before = launch_counts()
+        before = launch_counts(forms=True)
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph, pool=pool):
                 self.outputs = fn(*inputs)
         finally:
-            after = launch_counts()
+            after = launch_counts(forms=True)
             self.launches = {k: after[k] - before[k] for k in after}
             add_launch_counts({k: -n for k, n in self.launches.items()})
 

@@ -12,10 +12,11 @@
 #include <cstdint>
 
 // Tables in global memory, read through the read-only data cache (__ldg):
-// the form K1 and K3 take when one query's tables do not fit in a CTA's
-// shared memory (e.g. M = 256 at K = 256: 256 KB).  It indexes and offsets
-// like a pointer to shared memory, so the sums below serve both, in the
-// same order.
+// the form K3 takes when one query's tables do not fit in a CTA's shared
+// memory (e.g. M = 256 at K = 256: 256 KB; K1 stages them in ranges
+// instead, pq_scan.cu's pq_scan_staged).  It indexes and offsets like a
+// pointer to shared memory, so the sums below serve both, in the same
+// order.
 struct LdgTable {
   const float* p;
   __device__ __forceinline__ float operator[](int i) const {
@@ -116,6 +117,42 @@ __device__ __forceinline__ void score_regs(float (&acc)[QC],
 #pragma unroll
       for (int q = 0; q < QC; ++q)
         acc[q] = acc[q] + *reinterpret_cast<const float*>(e + 4 * q * MB * K);
+    }
+  }
+}
+
+// The same sum for a nibble-packed row held in registers (MB / 4 code
+// words; byte c holds subquantizer 2c in its lo nibble, 2c + 1 in its hi
+// nibble) at K = 16, for QC queries whose tables lie 2 * MB * K floats
+// apart from `ql`.  Each code word gives two offset words, one for the lo
+// and one for the hi nibbles, each byte an entry's byte offset within its
+// table (code * 4 < 64); each byte is extracted once (one PRMT) for all QC
+// queries.  The adds take lo, then hi, byte by byte: ascending m.
+template <int QC, int MB>
+__device__ __forceinline__ void score_packed(float (&acc)[QC],
+                                             const uint32_t (&row)[MB / 4],
+                                             const float* ql) {
+  constexpr int K = 16, M = 2 * MB;
+  static_assert(MB % 4 == 0, "whole code words");
+  const char* base = reinterpret_cast<const char*>(ql);
+#pragma unroll
+  for (int q = 0; q < QC; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int v = 0; v < MB / 4; ++v) {
+    const uint32_t lo = (row[v] & 0x0F0F0F0Fu) << 2;
+    const uint32_t hi = (row[v] >> 2) & 0x3C3C3C3Cu;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * v + j;
+      const char* el = base + __byte_perm(lo, 0, 0x4440 | j) + 4 * (2 * c) * K;
+#pragma unroll
+      for (int q = 0; q < QC; ++q)
+        acc[q] = acc[q] + *reinterpret_cast<const float*>(el + 4 * q * M * K);
+      const char* eh =
+          base + __byte_perm(hi, 0, 0x4440 | j) + 4 * (2 * c + 1) * K;
+#pragma unroll
+      for (int q = 0; q < QC; ++q)
+        acc[q] = acc[q] + *reinterpret_cast<const float*>(eh + 4 * q * M * K);
     }
   }
 }

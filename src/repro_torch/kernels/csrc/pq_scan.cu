@@ -35,16 +35,33 @@
 //     query groups, one launch each (kernels/pq_scan.py::query_groups): a
 //     launch scores QT of the tile's QS rows, whose pointers the wrapper has
 //     advanced to the group's first row.
-// Any other shape (K up to 256, packed planes, odd widths, QT not 1 or a
-// multiple of 8) runs through the generic instantiation of the same loop:
-// runtime K and MB, the row read in 16-byte pieces (or bytes), each piece's
-// bytes extracted once for a chunk of up to 8 queries.
+//   * The compact planes (nibble-packed, K = 16, MB = 8 or 16 code bytes:
+//     M 16 and 32) have an instantiation of the same shape
+//     (pq_scan_packed): the row in registers (one uint2 or uint4), each
+//     code word turned into two offset words, lo and hi nibbles (adc.cuh's
+//     score_packed), the next row loaded while this one is scored.
+// Any other shape that keeps its tables in shared memory (K up to 256, odd
+// widths, QT not 1 or a multiple of 8, rows not aligned) runs through the
+// generic instantiation of the same loop: runtime K and MB, the row read in
+// 16-byte pieces (or bytes), each piece's bytes extracted once for a chunk
+// of up to 8 queries.
 // Where one query's tables alone pass a CTA's shared memory (M = 256 at
-// K = 256 is 256 KB), the generic loop reads them from global memory
-// through the read-only cache (adc.cuh's LdgTable), in the same order, and
-// shared memory holds only the staged positions: the whole tile is one
-// launch, and a tile's tables (2 MB for 8 such queries) stay in the L2.
-// The shape alone picks this form (kernels/pq_scan.py::query_groups).
+// K = 256 is 256 KB), the staged form (pq_scan_staged) holds the tables of
+// its (at most 8) queries for 8 subquantizers at a time (16 for one query)
+// in shared memory; cp.async brings the next range in while the current
+// one is scored.  A tile's tables are interleaved by query in shared
+// memory, so one 16-byte read serves four queries' lookups.  Each thread
+// carries the sums of its IPT items for every query in registers from one
+// range to the next, so each sum is still one accumulator over ascending
+// m.  A CTA's items (at most a pass of IPT x NT, sized by
+// kernels/pq_scan.py::staged_splits) are scored against each range once,
+// and a tile's splits are adjacent in launch order (a 1-D grid, split
+// fastest), so a tile's tables come from device memory about once and
+// from the L2 for its other splits.  At K = 256 a warp's 32 codes fall on
+// about 3 distinct entries of the busiest bank: the lookups, not the
+// bytes, set the pace.
+// kernels/pq_scan.py::k1_form picks the form from the shape alone and the
+// launch checks that the shape allows it.
 // Entries of tile_idx must lie in [0, TB): callers clamp padding to 0.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,6 +73,14 @@ namespace {
 constexpr int NT = 256;           // threads of a CTA (K1_THREADS)
 constexpr int MAX_POSITIONS = 1024;  // tile_idx entries a CTA stages
 constexpr int FAST_K = 16, FAST_MB = 64;
+// The staged form: a range holds the tables of SR subquantizers (SR1 for
+// a launch of one query), each table SK floats apart (any K <= SK), of at
+// most SQ queries; a thread carries IPT items through a pass
+// (kernels/pq_scan.py's K1_STAGED_*).
+constexpr int SR = 8, SR1 = 16, SK = 256, SQ = 8, IPT = 8;
+
+// The forms, as kernels/pq_scan.py::K1_FORMS numbers them.
+enum Form { GENERIC = 0, FAST = 1, PACKED = 2, STAGED = 3 };
 
 // Stage tile_idx[tile, s0:s1] into `sidx`.  Ends with a barrier.
 __device__ __forceinline__ void stage_positions(int* sidx,
@@ -107,25 +132,70 @@ __global__ void __launch_bounds__(NT) pq_scan_fast(
   }
 }
 
-// Every other shape: runtime K and MB, packed or not; queries in chunks of
-// up to QC; tables in shared memory, or in global memory (GT).  Two CTAs
-// per SM at least: left alone, ptxas hoists all 128 table reads of a
-// 16-byte piece for QC = 8 and takes 254 registers.
-template <int QC, bool PACKED, bool GT>
+// Compact planes: nibble-packed, K = 16, MB = 8 or 16 (M = 2 * MB),
+// BLK = 1 << lb, QT = 1 (QC = 1) or a multiple of QC = 8, rows MB-byte
+// aligned.  pq_scan_fast's loop over score_packed.
+template <int QC, int MB>
+__global__ void __launch_bounds__(NT) pq_scan_packed(
+    const float* __restrict__ lut, const uint8_t* __restrict__ codes,
+    const int32_t* __restrict__ tile_idx, float* __restrict__ out, int lb,
+    int S, int QT, int QS, int s_per) {
+  constexpr int TAB = 2 * MB * 16, W = MB / 4;
+  extern __shared__ float slut[];
+  const int qt = QC == 1 ? 1 : QT;
+  int* sidx = reinterpret_cast<int*>(slut + qt * TAB);
+  const int qi = blockIdx.x, tid = threadIdx.x, BLK = 1 << lb;
+  const int s0 = blockIdx.y * s_per, s1 = min(S, s0 + s_per);
+  const float* glut = lut + (size_t)qi * QS * TAB;
+  for (int j = tid; j < qt * TAB; j += NT) slut[j] = glut[j];
+  stage_positions(sidx, tile_idx + (size_t)qi * S, s0, s1);
+
+  const int n = (s1 - s0) << lb;
+  const size_t qstride = (size_t)S << lb;  // floats between two queries' rows
+  uint32_t cur[W], nxt[W];
+  auto load_row = [&](int f, uint32_t(&r)[W]) {
+    const uint8_t* row =
+        codes + (((size_t)sidx[f >> lb] << lb) + (f & (BLK - 1))) * MB;
+    if constexpr (MB == 16) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
+      r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(row));
+      r[0] = v.x, r[1] = v.y;
+    }
+  };
+  if (tid < n) load_row(tid, cur);
+  for (int f = tid; f < n; f += NT) {
+    if (f + NT < n) load_row(f + NT, nxt);
+    float* o = out + (size_t)qi * QS * qstride + ((size_t)s0 << lb) + f;
+    for (int q0 = 0; q0 < qt; q0 += QC) {
+      float acc[QC];
+      score_packed<QC, MB>(acc, cur, slut + q0 * TAB);
+#pragma unroll
+      for (int q = 0; q < QC; ++q) o[(q0 + q) * qstride] = acc[q];
+    }
+#pragma unroll
+    for (int v = 0; v < W; ++v) cur[v] = nxt[v];
+  }
+}
+
+// Every other shape whose tables fit in shared memory: runtime K and MB,
+// packed or not; queries in chunks of up to QC.  Two CTAs per SM at
+// least: left alone, ptxas hoists all 128 table reads of a 16-byte piece
+// for QC = 8 and takes 254 registers.
+template <int QC, bool PACKED>
 __global__ void __launch_bounds__(NT, 2) pq_scan_generic(
     const float* __restrict__ lut, const uint8_t* __restrict__ codes,
     const int32_t* __restrict__ tile_idx, float* __restrict__ out, int M,
     int K, int BLK, int MB, int S, int QT, int QS, int s_per, int vec16) {
   extern __shared__ float slut[];
   const int tab = M * K;
-  int* sidx = reinterpret_cast<int*>(GT ? slut : slut + QT * tab);
+  int* sidx = reinterpret_cast<int*>(slut + QT * tab);
   const int qi = blockIdx.x, tid = threadIdx.x;
   const int s0 = blockIdx.y * s_per, s1 = min(S, s0 + s_per);
   const float* glut = lut + (size_t)qi * QS * tab;
-  if (!GT)
-    for (int j = tid; j < QT * tab; j += NT) slut[j] = glut[j];
+  for (int j = tid; j < QT * tab; j += NT) slut[j] = glut[j];
   stage_positions(sidx, tile_idx + (size_t)qi * S, s0, s1);
-  const auto tabs = tables<GT>(glut, slut);
 
   const int n = (s1 - s0) * BLK;
   for (int f = tid; f < n; f += NT) {
@@ -135,8 +205,8 @@ __global__ void __launch_bounds__(NT, 2) pq_scan_generic(
     for (int q0 = 0; q0 < QT; q0 += QC) {
       const int nq = min(QC, QT - q0);
       float acc[QC];
-      score_row_queries<QC, PACKED>(acc, row, tabs + (size_t)q0 * tab, tab,
-                                    K, MB, nq, vec16 != 0);
+      score_row_queries<QC, PACKED>(acc, row, slut + q0 * tab, tab, K, MB,
+                                    nq, vec16 != 0);
 #pragma unroll
       for (int q = 0; q < QC; ++q)
         if (q < nq) o[(size_t)(q0 + q) * S * BLK] = acc[q];
@@ -144,20 +214,263 @@ __global__ void __launch_bounds__(NT, 2) pq_scan_generic(
   }
 }
 
-template <typename Kern>
-cudaError_t prepare(Kern kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
 }
 
-using GenericKernel = decltype(&pq_scan_generic<1, false, false>);
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
 
-template <bool GT>
-GenericKernel generic_kernel(bool packed, bool one_query) {
-  return packed ? (one_query ? pq_scan_generic<1, true, GT>
-                             : pq_scan_generic<8, true, GT>)
-                : (one_query ? pq_scan_generic<1, false, GT>
-                             : pq_scan_generic<8, false, GT>);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until all of this thread's copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The staged form's range of R subquantizers (R = SR, or SR1 for one
+// query) and its layout in shared memory.  One query: two range buffers
+// of [R][SK] floats, a lookup one LDS.  A tile (QC = SQ = 8 queries): a
+// raw buffer of [SQ][R][SK] floats that cp.async fills, and a range buffer
+// of [R][2][SK][4] floats that the CTA transposes it into, each code's
+// entries for queries 4h .. 4h + 3 side by side, so that a lookup for four
+// queries is one LDS.128 (the halves h a table apart, so a warp's 16-byte
+// reads spread over all 8 bank groups).
+template <int QC>
+struct Staged {
+  static constexpr int R = QC == 1 ? SR1 : SR;
+  static constexpr int BUF = R * SK * (QC == 1 ? 1 : SQ);  // floats
+  // the next range's code bytes loaded while this range is scored
+  static constexpr bool PREFETCH = QC != 1;
+  // CTAs an SM holds at least (the register cap)
+  static constexpr int MIN_CTAS = QC == 1 ? 3 : 1;
+};
+
+// Start copying the tables of subquantizers [m0, m0 + nr) of `nq` queries
+// (M * K floats apart from `glut`) into `dst` ([nq][R][SK] floats), every
+// thread a share: 16 bytes a copy where K % 4 == 0 and the tables are
+// 16-byte aligned (`c16`), else 4.  At K = SK a query's range is one run
+// at both ends.
+template <int R>
+__device__ __forceinline__ void stage_rows(float* dst, const float* glut,
+                                           int M, int K, int nq, int m0,
+                                           int nr, bool c16) {
+  if (c16 && K == SK) {
+    for (int q = 0; q < nq; ++q) {
+      float* d = dst + q * R * SK;
+      const float* s = glut + ((size_t)q * M + m0) * K;
+      for (int c = 4 * threadIdx.x; c < nr * SK; c += 4 * NT)
+        cp_async16(d + c, s + c);
+    }
+    return;
+  }
+  const int w = c16 ? 4 : 1, kw = K / w;
+  for (int c = threadIdx.x; c < nq * nr * kw; c += NT) {
+    const int row = c / kw, e = w * (c - row * kw), q = row / nr;
+    const int j = row - q * nr;
+    float* d = dst + (q * R + j) * SK + e;
+    const float* s = glut + ((size_t)q * M + m0 + j) * K + e;
+    if (c16)
+      cp_async16(d, s);
+    else
+      cp_async4(d, s);
+  }
+}
+
+// A tile's raw range ([SQ][R][SK]) into its range buffer ([R][2][SK][4]):
+// each 16-byte entry group gathered from four queries' rows.
+template <int R>
+__device__ __forceinline__ void interleave(float* dst, const float* raw,
+                                           int nr) {
+  for (int c = threadIdx.x; c < nr * 2 * SK; c += NT) {
+    const int code = c % SK, h = (c / SK) & 1, j = c / (2 * SK);
+    const float* s = raw + (4 * h * R + j) * SK + code;
+    reinterpret_cast<float4*>(dst)[c] =
+        make_float4(s[0], s[R * SK], s[2 * R * SK], s[3 * R * SK]);
+  }
+}
+
+// Tables too large for shared memory (one query's alone pass 227 KB): the
+// tables of the launch's QT <= SQ queries staged R subquantizers at a
+// time (Staged<QC>), and each thread's IPT items scored against every
+// range with their QT sums carried in registers, ascending m.  One query:
+// double-buffered, the next range's copy in flight while this one is
+// scored, one barrier a range.  A tile: the next range's raw copy in
+// flight while this one is scored, then interleaved between two barriers.
+// The items' code bytes of the next range are loaded while this one is
+// scored (Staged::PREFETCH).  Grid: T * splits CTAs, split fastest; CTA x
+// scans positions [y * s_per, min(S, (y + 1) * s_per)) of tile x / splits,
+// y = x % splits, in passes of IPT * NT items.  Shared memory: two range
+// buffers (or a raw buffer and a range buffer), then the positions.
+template <int QC, bool PACKED>
+__global__ void __launch_bounds__(NT, Staged<QC>::MIN_CTAS) pq_scan_staged(
+    const float* __restrict__ lut, const uint8_t* __restrict__ codes,
+    const int32_t* __restrict__ tile_idx, float* __restrict__ out, int M,
+    int K, int BLK, int MB, int S, int QT, int QS, int s_per, int splits) {
+  constexpr int R = Staged<QC>::R, BUF = Staged<QC>::BUF;
+  constexpr bool PREFETCH = Staged<QC>::PREFETCH;
+  constexpr bool RAW = QC != 1;  // a raw range, then the range buffer
+  constexpr int CB = PACKED ? R / 2 : R, CW = CB / 4;  // code bytes, words
+  extern __shared__ __align__(16) unsigned char staged_smem[];
+  float* tabs = reinterpret_cast<float*>(staged_smem);
+  float* raw = tabs + BUF;  // the second range buffer, or the raw range
+  const int nq = QC == 1 ? 1 : QT;
+  int* sidx = reinterpret_cast<int*>(tabs + 2 * BUF);
+  const int qi = blockIdx.x / splits, tid = threadIdx.x;
+  const int s0 = (blockIdx.x - qi * splits) * s_per, s1 = min(S, s0 + s_per);
+  const float* glut = lut + (size_t)qi * QS * M * K;
+  stage_positions(sidx, tile_idx + (size_t)qi * S, s0, s1);
+
+  const int n = (s1 - s0) * BLK, ranges = (M + R - 1) / R;
+  const bool c16 =
+      K % 4 == 0 && (reinterpret_cast<uintptr_t>(glut) & 15) == 0;
+  const bool vec =
+      MB % CB == 0 && reinterpret_cast<uintptr_t>(codes) % CB == 0;
+  // range r's copy into the range buffer it is scored from (r's parity)
+  // or into the raw range
+  auto stage = [&](int r) {
+    const int m0 = r * R, nr = min(R, M - m0);
+    stage_rows<R>(RAW ? raw : tabs + (r & 1) * BUF, glut, M, K, nq, m0, nr,
+                  c16);
+    cp_async_commit();
+  };
+  float* o = out + ((size_t)qi * QS * S + s0) * BLK;
+  const size_t qstride = (size_t)S * BLK;  // floats between two queries' rows
+  for (int p0 = 0; p0 < n; p0 += IPT * NT) {
+    const int first = p0 + tid;
+    const int cnt = first < n ? min(IPT, (n - first + NT - 1) / NT) : 0;
+    uint32_t item[IPT];  // code rows of this thread's items in the pass
+    float acc[IPT][QC];
+#pragma unroll
+    for (int i = 0; i < IPT; ++i) {
+      const int f = first + i * NT, p = f / BLK;
+      item[i] = i < cnt ? (uint32_t)sidx[p] * BLK + f - p * BLK : 0u;
+#pragma unroll
+      for (int q = 0; q < QC; ++q) acc[i][q] = 0.f;
+    }
+    // the code bytes of subquantizers [m0, m0 + R) of each item, zero
+    // past M
+    uint32_t w[IPT][CW], wn[IPT][CW] = {};
+    auto load_codes = [&](uint32_t(&d)[IPT][CW], int m0) {
+      const int nr = min(R, M - m0);
+#pragma unroll
+      for (int i = 0; i < IPT; ++i) {
+#pragma unroll
+        for (int v = 0; v < CW; ++v) d[i][v] = 0u;
+        if (i >= cnt) continue;
+        const uint8_t* pc =
+            codes + (size_t)item[i] * MB + (PACKED ? m0 / 2 : m0);
+        if (vec && nr == R) {
+          if constexpr (CB == 16) {
+            const uint4 v4 = __ldg(reinterpret_cast<const uint4*>(pc));
+            d[i][0] = v4.x, d[i][1] = v4.y, d[i][2] = v4.z, d[i][3] = v4.w;
+          } else if constexpr (CB == 8) {
+            const uint2 v2 = __ldg(reinterpret_cast<const uint2*>(pc));
+            d[i][0] = v2.x, d[i][1] = v2.y;
+          } else {
+            d[i][0] = __ldg(reinterpret_cast<const uint32_t*>(pc));
+          }
+        } else {
+          const int nb = PACKED ? (nr + 1) / 2 : nr;
+#pragma unroll
+          for (int b = 0; b < CB; ++b)
+            if (b < nb)
+              d[i][b >> 2] |= (uint32_t)__ldg(pc + b) << (8 * (b & 3));
+        }
+      }
+    };
+    if constexpr (PREFETCH) load_codes(w, 0);
+    stage(0);
+    if constexpr (RAW) {
+      cp_async_wait_all();
+      __syncthreads();
+      interleave<R>(tabs, raw, min(R, M));
+      __syncthreads();
+      if (ranges > 1) stage(1);
+    }
+    for (int r = 0; r < ranges; ++r) {
+      const int m0 = r * R, nr = min(R, M - m0);
+      if constexpr (!PREFETCH) load_codes(w, m0);
+      if constexpr (!RAW) {
+        // range r's tables have landed, and every thread is done with
+        // range r - 1, whose buffer range r + 1 takes
+        cp_async_wait_all();
+        __syncthreads();
+        if (r + 1 < ranges) stage(r + 1);
+      }
+      if constexpr (PREFETCH)
+        if (r + 1 < ranges) load_codes(wn, m0 + R);
+      const float* tb = RAW ? tabs : tabs + (r & 1) * BUF;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+#pragma unroll
+        for (int i = 0; i < IPT; ++i) {
+          if (j >= nr || i >= cnt) continue;
+          const uint32_t code =
+              PACKED ? (w[i][j >> 3] >> (4 * (j & 7))) & 15u
+                     : (w[i][j >> 2] >> (8 * (j & 3))) & 255u;
+          if constexpr (QC == 1) {
+            acc[i][0] = acc[i][0] + tb[j * SK + code];
+          } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 e = *reinterpret_cast<const float4*>(
+                  tb + 4 * ((2 * j + h) * SK + code));
+              acc[i][4 * h] = acc[i][4 * h] + e.x;
+              acc[i][4 * h + 1] = acc[i][4 * h + 1] + e.y;
+              acc[i][4 * h + 2] = acc[i][4 * h + 2] + e.z;
+              acc[i][4 * h + 3] = acc[i][4 * h + 3] + e.w;
+            }
+          }
+        }
+      }
+      if constexpr (RAW) {
+        // range r + 1's raw copy has landed and range r is scored: the
+        // range buffer takes range r + 1, and the raw range r + 2
+        if (r + 1 < ranges) {
+          cp_async_wait_all();
+          __syncthreads();
+          interleave<R>(tabs, raw, min(R, M - m0 - R));
+          __syncthreads();
+          if (r + 2 < ranges) stage(r + 2);
+        }
+      }
+      if constexpr (PREFETCH) {
+#pragma unroll
+        for (int i = 0; i < IPT; ++i)
+#pragma unroll
+          for (int v = 0; v < CW; ++v) w[i][v] = wn[i][v];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < IPT; ++i) {
+      if (i >= cnt) continue;
+#pragma unroll
+      for (int q = 0; q < QC; ++q)
+        if (q < nq) o[q * qstride + first + i * NT] = acc[i][q];
+    }
+    __syncthreads();  // the last range's buffer is read: the next pass
+                      // may stage over it
+  }
+}
+
+template <typename Kern, typename... Args>
+cudaError_t launch(Kern kern, dim3 grid, size_t smem, cudaStream_t st,
+                   Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, NT, smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -168,13 +481,16 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of one CTA: QT queries' tables (none when they are
-// read from global memory), then the CTA's s_per staged positions.  The
+// Dynamic shared memory of one CTA: QT queries' tables, or (the staged
+// form, global_tables) two range buffers (Staged<1> for one query,
+// Staged<SQ> for up to SQ), then the CTA's s_per staged positions.  The
 // wrapper picks the form and cuts a tile into query groups by it
-// (kernels/pq_scan.py::query_groups).
+// (kernels/pq_scan.py::k1_query_groups).
 size_t pq_scan_tiled_smem_bytes(int M, int K, int QT, int s_per,
                                 int global_tables) {
-  return (global_tables ? 0 : (size_t)QT * M * K * sizeof(float)) +
+  const size_t staged =
+      QT < 1 ? 0 : 2 * (QT == 1 ? Staged<1>::BUF : Staged<SQ>::BUF);
+  return (global_tables ? staged : (size_t)QT * M * K) * sizeof(float) +
          (size_t)s_per * sizeof(int);
 }
 
@@ -182,50 +498,75 @@ size_t pq_scan_tiled_smem_bytes(int M, int K, int QT, int s_per,
 // out (B, S, BLK) f32.  All contiguous; M == (packed ? 2 * MB : MB).  A
 // tile has QS query rows; this launch scores QT of them: lut and out point
 // at the group's first row of tile 0, rows qi * QS + [0, QT) of each tile.
-// CTA (tile, y) scans positions [y * s_per, min(S, (y + 1) * s_per)).
-// global_tables: read the tables from global memory (generic loop only).
+// A CTA scans s_per of a tile's positions.  `form` (enum Form) is
+// kernels/pq_scan.py::k1_form's choice; a shape the form does not take
+// returns cudaErrorInvalidValue.
 int pq_scan_tiled_launch(const void* lut, const void* codes,
                          const void* tile_idx, void* out, int B, int M, int K,
                          int BLK, int MB, int S, int QT, int QS, int packed,
-                         int s_per, int global_tables, void* stream) {
+                         int s_per, int form, void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
   if (QS < 1 || B % QS != 0 || QT < 1 || QT > QS || BLK < 1 || s_per < 1 ||
-      s_per > MAX_POSITIONS)
-    return (int)cudaErrorInvalidValue;
+      s_per > MAX_POSITIONS || M != (packed ? 2 * MB : MB))
+    return bad;
   const int T = B / QS;
   if (T == 0 || S == 0) return 0;
   const int splits = (S + s_per - 1) / s_per;
   const size_t smem =
-      pq_scan_tiled_smem_bytes(M, K, QT, s_per, global_tables);
-  const int vec16 =
-      (MB % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
-  const dim3 grid(T, splits), block(NT);
+      pq_scan_tiled_smem_bytes(M, K, QT, s_per, form == STAGED);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
+  const int lb = __builtin_ctz((unsigned)BLK);
+  const bool pow2 = BLK == 1 << lb, tiles8 = QT == 1 || QT % 8 == 0;
+  const int vec16 = (MB % 16 == 0) && (at % 16 == 0);
+  const dim3 grid(T, splits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lut);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   const int32_t* ti = static_cast<const int32_t*>(tile_idx);
   float* o = static_cast<float*>(out);
-  cudaError_t err;
-  const int lb = __builtin_ctz((unsigned)BLK);
-  const bool fast = !packed && !global_tables && K == FAST_K &&
-                    MB == FAST_MB && M == FAST_MB && vec16 && BLK == 1 << lb &&
-                    (QT == 1 || QT % 8 == 0);
-  if (fast && QT == 1) {
-    if ((err = prepare(pq_scan_fast<1>, smem)) != cudaSuccess) return (int)err;
-    pq_scan_fast<1><<<grid, block, smem, st>>>(l, c, ti, o, lb, S, QT, QS,
-                                                s_per);
-  } else if (fast) {
-    if ((err = prepare(pq_scan_fast<8>, smem)) != cudaSuccess) return (int)err;
-    pq_scan_fast<8><<<grid, block, smem, st>>>(l, c, ti, o, lb, S, QT, QS,
-                                                s_per);
-  } else {
-    const GenericKernel kern =
-        global_tables ? generic_kernel<true>(packed, QT == 1)
-                      : generic_kernel<false>(packed, QT == 1);
-    if ((err = prepare(kern, smem)) != cudaSuccess) return (int)err;
-    kern<<<grid, block, smem, st>>>(l, c, ti, o, M, K, BLK, MB, S, QT, QS,
-                                    s_per, vec16);
+  switch (form) {
+    case FAST:
+      if (packed || K != FAST_K || MB != FAST_MB || !vec16 || !pow2 ||
+          !tiles8)
+        return bad;
+      return (int)(QT == 1 ? launch(pq_scan_fast<1>, grid, smem, st, l, c,
+                                    ti, o, lb, S, QT, QS, s_per)
+                           : launch(pq_scan_fast<8>, grid, smem, st, l, c,
+                                    ti, o, lb, S, QT, QS, s_per));
+    case PACKED:
+      if (!packed || K != 16 || (MB != 8 && MB != 16) || at % MB != 0 ||
+          !pow2 || !tiles8)
+        return bad;
+      if (MB == 8)
+        return (int)(QT == 1 ? launch(pq_scan_packed<1, 8>, grid, smem, st,
+                                      l, c, ti, o, lb, S, QT, QS, s_per)
+                             : launch(pq_scan_packed<8, 8>, grid, smem, st,
+                                      l, c, ti, o, lb, S, QT, QS, s_per));
+      return (int)(QT == 1 ? launch(pq_scan_packed<1, 16>, grid, smem, st, l,
+                                    c, ti, o, lb, S, QT, QS, s_per)
+                           : launch(pq_scan_packed<8, 16>, grid, smem, st, l,
+                                    c, ti, o, lb, S, QT, QS, s_per));
+    case GENERIC: {
+      auto kern = packed ? (QT == 1 ? pq_scan_generic<1, true>
+                                    : pq_scan_generic<8, true>)
+                         : (QT == 1 ? pq_scan_generic<1, false>
+                                    : pq_scan_generic<8, false>);
+      return (int)launch(kern, grid, smem, st, l, c, ti, o, M, K, BLK, MB, S,
+                         QT, QS, s_per, vec16);
+    }
+    case STAGED: {
+      if (QT > SQ || K > SK || (long long)T * splits > 0x7fffffffLL)
+        return bad;
+      auto kern = packed ? (QT == 1 ? pq_scan_staged<1, true>
+                                    : pq_scan_staged<SQ, true>)
+                         : (QT == 1 ? pq_scan_staged<1, false>
+                                    : pq_scan_staged<SQ, false>);
+      return (int)launch(kern, dim3(T * splits), smem, st, l, c, ti, o, M, K,
+                         BLK, MB, S, QT, QS, s_per, splits);
+    }
+    default:
+      return bad;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -28,6 +28,14 @@ K1_THREADS = 256           # threads of a K1 CTA (NT in pq_scan.cu)
 _K1_TARGET_CTAS = 8 * 132  # two waves and more of K1 CTAs on the H100
 _K1_MIN_ITEMS = 4 * K1_THREADS   # items a K1 CTA scores at least
 K1_MAX_POSITIONS = 1024    # tile_idx entries a K1 CTA stages (pq_scan.cu)
+# K1's forms, numbered as pq_scan.cu's enum Form
+K1_FORMS = ("generic", "fast", "packed", "staged")
+# K1's staged form (pq_scan.cu's SQ and IPT): at most 8 queries a launch,
+# their sums carried in registers; 8 items a thread, so a CTA scores a pass
+# of 8 x K1_THREADS items against each range of the tables it stages
+K1_STAGED_QUERIES = 8
+K1_STAGED_PASS = 8 * K1_THREADS
+_K1_STAGED_TARGET = 2 * 132  # staged CTAs: about two an SM on the H100
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -120,6 +128,24 @@ def scan_splits(t: int, s: int, blk: int) -> tuple:
     return splits, s_per
 
 
+def staged_splits(t: int, s: int, blk: int) -> tuple:
+    """How K1's staged form splits a tile's S scan positions, from the
+    shape alone: ``(splits, s_per)``.  A CTA restages every range of its
+    tables for each pass of ``K1_STAGED_PASS`` items, so a split holds at
+    most one pass (and at most ``K1_MAX_POSITIONS`` positions); where the
+    ``t`` tiles' CTAs would not fill the card (``_K1_STAGED_TARGET``),
+    more splits, down to half a pass each.  Split ``y`` scans ``[y *
+    s_per, min(s, (y + 1) * s_per))``; the ranges cover ``[0, s)``
+    exactly and none is empty (one empty range when s is 0)."""
+    items = s * blk
+    splits = max(1, -(-items // K1_STAGED_PASS), -(-s // K1_MAX_POSITIONS))
+    if t * splits < _K1_STAGED_TARGET:
+        splits = max(splits, min(-(-_K1_STAGED_TARGET // max(t, 1)),
+                                 items // (K1_STAGED_PASS // 2)))
+    s_per = max(1, -(-s // splits))
+    return max(1, -(-s // s_per)), s_per
+
+
 def _library_groups(qt: int, smem_of, max_group: int = 0,
                     movable_state: bool = False) -> QueryGroups:
     """``query_groups`` for a launch whose shared memory the kernel's
@@ -137,13 +163,60 @@ def _library_groups(qt: int, smem_of, max_group: int = 0,
                         state_bytes=arrays, max_group=max_group)
 
 
+def k1_groups(qt: int, smem_of) -> QueryGroups:
+    """K1's query groups for a tile of ``qt`` queries whose launch takes
+    ``smem_of(n, 0)`` bytes of shared memory for n queries with their
+    tables in shared memory (linear in n): ``query_groups``, or, where one
+    query's tables alone do not fit, the staged form's groups
+    (``global_tables``), at most ``K1_STAGED_QUERIES`` queries each, as
+    few and as even as can be (its range buffers fit at any size)."""
+    fixed = smem_of(0, 0)
+    per = smem_of(1, 0) - fixed
+    if fixed + per <= SMEM_LIMIT:
+        return query_groups(qt, per, fixed)
+    n = -(-qt // K1_STAGED_QUERIES)
+    return QueryGroups([(g * qt // n, (g + 1) * qt // n) for g in range(n)],
+                       global_tables=True)
+
+
 def k1_query_groups(m: int, k: int, qt: int, s_per: int) -> QueryGroups:
     """The query groups K1 launches for a tile of ``qt`` queries, and
     their form, by its library's ``pq_scan_tiled_smem_bytes`` (on the
     card only)."""
     lib = build.load("pq_scan")
-    return _library_groups(
+    return k1_groups(
         qt, lambda n, g: lib.pq_scan_tiled_smem_bytes(m, k, n, s_per, g))
+
+
+def k1_plan(t: int, s: int, blk: int, m: int, k: int, qt: int) -> tuple:
+    """K1's launches for ``t`` tiles of ``qt`` queries over ``s`` scan
+    positions: ``(groups, s_per)``, the grid split by ``scan_splits``, or
+    by ``staged_splits`` where the tables stay in global memory (the
+    staged groups do not depend on s_per; on the card only)."""
+    _, s_per = scan_splits(t, s, blk)
+    groups = k1_query_groups(m, k, qt, s_per)
+    if groups.global_tables:
+        _, s_per = staged_splits(t, s, blk)
+    return groups, s_per
+
+
+def k1_form(m: int, k: int, blk: int, mb: int, qt: int, packed: bool,
+            global_tables: bool, codes_align: int) -> str:
+    """The form K1 takes for one launch of ``qt`` queries, from the shape
+    alone (``codes_align``: the largest power of two, up to 16, dividing
+    the code array's address): ``"staged"`` where the tables stay in
+    global memory; ``"fast"`` (unpacked K 16, M 64) or ``"packed"``
+    (nibble-packed K 16, MB 8 or 16) where BLK is a power of two, ``qt``
+    is 1 or a multiple of 8 and the rows are aligned; else
+    ``"generic"``."""
+    if global_tables:
+        return "staged"
+    if blk & (blk - 1) == 0 and (qt == 1 or qt % 8 == 0) and k == 16:
+        if not packed and mb == m == 64 and codes_align % 16 == 0:
+            return "fast"
+        if packed and mb in (8, 16) and m == 2 * mb and codes_align % mb == 0:
+            return "packed"
+    return "generic"
 
 
 def k3_query_groups(m: int, k: int, qt: int, fw: int,
@@ -209,21 +282,26 @@ def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
     out = torch.empty((b, s, blk), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    _, s_per = scan_splits(t, s, blk)
-    groups = k1_query_groups(m, k, query_tile, s_per)
+    groups, s_per = k1_plan(t, s, blk, m, k, query_tile)
     lib = build.load("pq_scan")
+    ptr = block_codes.data_ptr()
+    align = min(16, ptr & -ptr)
     for q0, q1 in groups:
+        form = k1_form(m, k, blk, mb, q1 - q0, packed, groups.global_tables,
+                       align)
         err = lib.pq_scan_tiled_launch(
-            lut.data_ptr() + 4 * q0 * m * k, block_codes.data_ptr(),
+            lut.data_ptr() + 4 * q0 * m * k, ptr,
             tile_idx.data_ptr(), out.data_ptr() + 4 * q0 * s * blk, b, m, k,
             blk, mb, s, q1 - q0, query_tile, int(packed), s_per,
-            int(groups.global_tables), _stream(dev))
-        build.check(lib, err, "pq_scan_tiled_kernel")
+            K1_FORMS.index(form), _stream(dev))
+        build.check(lib, err, f"pq_scan_tiled_kernel ({form} form)")
         pq_scan_tiled_kernel.launches += 1
+        pq_scan_tiled_kernel.forms[form] += 1
     return out
 
 
 pq_scan_tiled_kernel.launches = 0
+pq_scan_tiled_kernel.forms = dict.fromkeys(K1_FORMS, 0)
 
 
 def pq_scan_paged_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
@@ -585,14 +663,24 @@ KERNELS = (pq_scan_tiled_kernel, pq_scan_topk_kernel, merge_topk_kernel,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    pq_scan_tiled_kernel.forms = dict.fromkeys(K1_FORMS, 0)
 
 
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+def launch_counts(forms: bool = False) -> dict:
+    """Launches by kernel name; with ``forms`` also K1's by form, as
+    ``pq_scan_tiled_kernel[form]``."""
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    if forms:
+        counts.update({f"pq_scan_tiled_kernel[{f}]": n
+                       for f, n in pq_scan_tiled_kernel.forms.items()})
+    return counts
 
 
 def add_launch_counts(counts: dict) -> None:
-    """Add ``counts`` (by kernel name) to the counters: what a CUDA graph
-    replay launches (``core/graphs.py``)."""
+    """Add ``counts`` (by kernel name, and K1's by form) to the counters:
+    what a CUDA graph replay launches (``core/graphs.py``)."""
     for fn in KERNELS:
         fn.launches += counts.get(fn.__name__, 0)
+    for f in K1_FORMS:
+        pq_scan_tiled_kernel.forms[f] += counts.get(
+            f"pq_scan_tiled_kernel[{f}]", 0)

@@ -78,8 +78,13 @@ def test_one_query_above_shared_memory_raises():
 
 
 def _k1_smem(m, k, s_per):
-    """pq_scan.cu's pq_scan_tiled_smem_bytes, written out."""
-    return lambda n, g: (0 if g else 4 * n * m * k) + 4 * s_per
+    """pq_scan.cu's pq_scan_tiled_smem_bytes, written out: the tables, or
+    (global tables: the staged form) two range buffers, of 16 tables of
+    256 floats for one query, of 8 x 8 for more."""
+    def smem(n, g):
+        staged = 0 if n < 1 else 2 * 4 * 256 * (16 if n == 1 else 64)
+        return (staged if g else 4 * n * m * k) + 4 * s_per
+    return smem
 
 
 def _k3_smem(m, k, fw, blk):
@@ -93,10 +98,14 @@ def _k3_smem(m, k, fw, blk):
 def test_global_tables_chosen_at_m256_nbits8(qt):
     """m_pq=256 at nbits=8 (gist-shaped, dsub=1): 256 KB of tables per
     query.  K1 and K3 take the global-table form from the shape alone,
-    without raising: K1 scans the whole tile in one launch, K3 in groups
+    without raising: K1 stages the tables in ranges, in groups of at most
+    K1_STAGED_QUERIES (the sums it carries in registers), K3 in groups
     of at most 64 sized by its selection state alone."""
-    k1 = tpq._library_groups(qt, _k1_smem(256, 256, 1024))
-    assert k1 == [(0, qt)] and k1.global_tables
+    k1 = tpq.k1_groups(qt, _k1_smem(256, 256, 1024))
+    assert k1.global_tables
+    assert len(k1) == -(-qt // tpq.K1_STAGED_QUERIES)
+    assert k1[0][0] == 0 and k1[-1][1] == qt
+    assert k1.largest <= tpq.K1_STAGED_QUERIES
     k3 = tpq._library_groups(qt, _k3_smem(256, 256, 128, 32),
                              max_group=tpq.MAX_QUERY_TILE)
     assert k3.global_tables
@@ -113,7 +122,7 @@ def test_tables_stay_in_shared_memory_where_one_query_fits(m, k, qt, groups):
     """Shapes where one query's tables fit keep the shared-memory form
     and its query groups (the main path, query_tile=64, nbits=8 at
     M=64)."""
-    k1 = tpq._library_groups(qt, _k1_smem(m, k, 1024))
+    k1 = tpq.k1_groups(qt, _k1_smem(m, k, 1024))
     assert k1 == groups and not k1.global_tables
     k3 = tpq._library_groups(qt, _k3_smem(m, k, 128, 32),
                              max_group=tpq.MAX_QUERY_TILE)

@@ -1,34 +1,42 @@
 #!/usr/bin/env python3
-"""What sets K1's pace on one NVIDIA H100: code traffic or table lookups.
+"""What sets K1's pace on one NVIDIA H100: code traffic, table lookups or,
+in the staged form, the staging of the tables.
 
     python3 tools/k1_limits.py [--seed 0] [--n 1000000]
+    python3 tools/k1_limits.py --plane pq4      # or binary
+    python3 tools/k1_limits.py --gist
 
 Compiles copies of ``src/repro_torch/kernels/csrc/pq_scan.cu`` (with its
 header ``adc.cuh``) changed at anchors in the source; the script fails
 if an anchor no longer matches once.  The variants:
 
   * "as built"      the kernel the package builds, unchanged;
-  * "memory only"   reads the tile lists and the code rows and writes the
-                    output as built, but replaces each table lookup with
-                    a register add of the code byte;
+  * "memory only"   reads the tile lists and the code rows (and stages the
+                    tables) and writes the output as built, but replaces
+                    each table lookup with a register add of the code;
   * "lookups only"  derives each code row from its item index (no tile
                     list and no code row is read from device memory) and
-                    does every table lookup and add as built; this holds
-                    for the main path's instantiations, the ones timed.
+                    does every table lookup and add as built: the fast,
+                    packed and staged forms;
+  * "staging only"  the staged form's ranges of tables staged as built,
+                    pass by pass, with no code read, no lookup and no
+                    output written: what the staging costs alone;
+  * "generic uncapped"  the generic form without its two-CTAs-per-SM
+                    register cap (``__launch_bounds__(NT, 2)``).
 
-It builds chip_smoke.py's main-path index and times each variant with
-CUDA events at the first main-path batch of each exec mode, in turns
-(as built, memory only, lookups only, as built), after holding "as
-built" bitwise against the plain version there.  Beside the times it
-prints the byte bound, the lookup floor and the code bytes the batch
-reads, and the registers and spills ptxas reports for each variant.
-
-Then it builds chip_smoke.py's nbits=8 index, whose K = 256 runs K1's
-generic instantiations in every mode, and times, at each mode's first
-batch, "as built" against "generic uncapped": the generic kernel
-without its two-CTAs-per-SM register cap (``__launch_bounds__(NT,
-2)``), in turns (as built, uncapped, uncapped, as built), after
-holding both bitwise against the plain version there.
+With no option it builds chip_smoke.py's main-path index and times "as
+built", "memory only", "lookups only", "as built" (in turns, CUDA events)
+at the first batch of each exec mode, after holding "as built" bitwise
+against the plain version there; then chip_smoke.py's nbits=8 index,
+whose K = 256 runs the generic form, "as built" against "generic
+uncapped" (as built, uncapped, uncapped, as built), both held bitwise.
+``--plane pq4|binary`` attaches both compact planes to the main index
+and times the packed form at the two-tier shapes (refine factor 4) in
+the same turns; ``--gist`` builds chip_smoke.py's gist-shaped index
+(PQ256x8: the staged form) and times as built, memory only, lookups
+only, staging only, as built.  Beside the times: the byte bound, the
+lookup floor, the code bytes the batch reads, and the registers and
+spills ptxas reports for each variant.
 """
 from __future__ import annotations
 
@@ -46,14 +54,28 @@ VARIANTS = {
         ("adc.cuh",
          "acc[q] = acc[q] + *reinterpret_cast<const float*>(e + 4 * q * MB * K);",
          "acc[q] = acc[q] + __uint_as_float(static_cast<uint32_t>(e - base));"),
+        ("adc.cuh",
+         "acc[q] = acc[q] + *reinterpret_cast<const float*>(el + 4 * q * M * K);",
+         "acc[q] = acc[q] + __uint_as_float(static_cast<uint32_t>(el - base));"),
+        ("adc.cuh",
+         "acc[q] = acc[q] + *reinterpret_cast<const float*>(eh + 4 * q * M * K);",
+         "acc[q] = acc[q] + __uint_as_float(static_cast<uint32_t>(eh - base));"),
         ("adc.cuh", "acc = acc + ql[(2 * c) * K + (byte & 15u)];",
          "acc = acc + __uint_as_float(byte & 15u);"),
         ("adc.cuh", "acc = acc + ql[(2 * c + 1) * K + (byte >> 4)];",
          "acc = acc + __uint_as_float(byte >> 4);"),
         ("adc.cuh", "acc = acc + ql[c * K + byte];",
          "acc = acc + __uint_as_float(byte);"),
+        ("pq_scan.cu", "acc[i][0] = acc[i][0] + tb[j * SK + code];",
+         "acc[i][0] = acc[i][0] + __uint_as_float(code);"),
+        ("pq_scan.cu",
+         "const float4 e = *reinterpret_cast<const float4*>(\n"
+         "                  tb + 4 * ((2 * j + h) * SK + code));",
+         "const float4 e = make_float4(\n"
+         "                  __uint_as_float(code), __uint_as_float(code + 1),\n"
+         "                  __uint_as_float(code + 2), __uint_as_float(code + h));"),
     ),
-    # the main path's instantiations: codes < 16 derived from the item
+    # codes (< 16, or < 256 staged) derived from the item
     "lookups only": (
         ("pq_scan.cu", "sidx[j] = tile_idx[s0 + j];", "sidx[j] = s0 + j;"),
         ("pq_scan.cu", "for (int v = 0; v < V; ++v) r[v] = __ldg(row + v);",
@@ -62,12 +84,34 @@ VARIANTS = {
          "      r[v] = make_uint4(h & 0x0F0F0F0Fu, (h >> 3) & 0x0F0F0F0Fu,\n"
          "                        (h >> 7) & 0x0F0F0F0Fu,"
          " (h >> 11) & 0x0F0F0F0Fu);\n    }"),
+        ("pq_scan.cu",
+         "const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));",
+         "const uint32_t h = (uint32_t)(size_t)row * 0x9E3779B1u;\n"
+         "      const uint4 v = make_uint4(h, h >> 3 | h << 29, h >> 7 | h "
+         "<< 25, h >> 11 | h << 21);"),
+        ("pq_scan.cu",
+         "const uint2 v = __ldg(reinterpret_cast<const uint2*>(row));",
+         "const uint32_t h = (uint32_t)(size_t)row * 0x9E3779B1u;\n"
+         "      const uint2 v = make_uint2(h, h >> 7 | h << 25);"),
+        ("pq_scan.cu",
+         "const uint8_t* pc =\n"
+         "            codes + (size_t)item[i] * MB + (PACKED ? m0 / 2 : m0);",
+         "{\n          const uint32_t h = ((uint32_t)(first + i * NT) + m0)"
+         " * 0x9E3779B1u;\n          d[i][0] = h;\n"
+         "          d[i][CW - 1] ^= h >> 7 | h << 25;\n          continue;\n"
+         "        }\n        const uint8_t* pc =\n"
+         "            codes + (size_t)item[i] * MB + (PACKED ? m0 / 2 : m0);"),
+    ),
+    "staging only": (
+        ("pq_scan.cu",
+         "const int cnt = first < n ? min(IPT, (n - first + NT - 1) / NT) : 0;",
+         "const int cnt = 0;"),
+    ),
+    "generic uncapped": (
+        ("pq_scan.cu", "__launch_bounds__(NT, 2) pq_scan_generic(",
+         "__launch_bounds__(NT) pq_scan_generic("),
     ),
 }
-# the generic instantiations without their register cap
-UNCAPPED = ("generic uncapped", (
-    ("pq_scan.cu", "__launch_bounds__(NT, 2) pq_scan_generic(",
-     "__launch_bounds__(NT) pq_scan_generic("),))
 
 
 def build_variant(build, name, edits):
@@ -103,10 +147,27 @@ def ptxas_lines(text):
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
+def k1_inputs(cs, ops, index, q, mode, **params):
+    """K1's (lut, codes, tile_idx) at one batch of ``mode`` as the search
+    path makes them (the packed tables padded as ops pads them), its
+    query tile and whether its codes are packed."""
+    sess = index.searcher(**dict(cs.SEARCH, **params), device=index.device)
+    packed = sess._scan_state()[2]
+    k1, _, qt, _, _ = cs.mode_inputs(index, q, mode, **params)
+    if packed:
+        k1 = (ops.align(k1[0], k1[1], True)[0],) + k1[1:]
+    return k1, qt, packed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=1_000_000)
+    shape = ap.add_mutually_exclusive_group()
+    shape.add_argument("--plane", choices=("pq4", "binary"),
+                       help="the packed form at the two-tier shapes")
+    shape.add_argument("--gist", action="store_true",
+                       help="the staged form on the gist-shaped index")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -114,9 +175,9 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke as cs
-    from repro_torch.core import IndexConfig, build_index
+    from repro_torch.core import IndexConfig, RefineParams, build_index
     from repro_torch.data import make_dataset
-    from repro_torch.kernels import build, pq_scan, ref
+    from repro_torch.kernels import build, ops, pq_scan, ref
 
     stock = build.load
     libs = {"as built": stock("pq_scan")}
@@ -124,71 +185,91 @@ def main() -> int:
         if stem == "pq_scan":
             for ln in ptxas_lines(text):
                 print(f"ptxas: as built: {ln}", flush=True)
-    for name, edits in (*VARIANTS.items(), UNCAPPED):
-        libs[name], lines = build_variant(build, name, edits)
+    if args.gist:
+        names = ("memory only", "lookups only", "staging only")
+    elif args.plane:
+        names = ("memory only", "lookups only")
+    else:
+        names = ("memory only", "lookups only", "generic uncapped")
+    for name in names:
+        libs[name], lines = build_variant(build, name, VARIANTS[name])
         for ln in lines:
             print(f"ptxas: {name}: {ln}", flush=True)
     current = {}
     build.load = lambda stem: (current["lib"] if stem == "pq_scan"
                                else stock(stem))
     dev = torch.device("cuda")
-    x, q, _ = make_dataset("sift1m", args.seed, n=args.n, n_queries=1024,
-                           device=dev)
-    index = build_index(x, IndexConfig(**cs.INDEX), device=dev,
-                        generator=torch.Generator().manual_seed(args.seed))
     card, limit = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0].split(", ")
     print(f"limits: {card}, {limit} W", flush=True)
     rate = cs.lookup_rate(torch)
-    for mode, bsz in cs.RUNS:
-        k1, _, qt, _ = cs.mode_inputs(index, q[:bsz].contiguous(), mode)
-        lut, codes, tiles = k1
-        current["lib"] = libs["as built"]
-        got = pq_scan.pq_scan_tiled_kernel(*k1, query_tile=qt)
-        if not torch.equal(got, ref.pq_scan_tiled_ref(*k1, query_tile=qt)):
-            raise SystemExit(f"k1_limits: K1 differs from its plain version "
-                             f"in {mode}")
-        del got
-        nbytes, lookups = cs.k1_bound(torch, k1)
-        bms, by = cs.bound_ms(sum(nbytes.values()), lookups)
-        code_reads = tiles.numel() * codes.shape[1] * codes.shape[2]
-        times = []
-        for name in ("as built", "memory only", "lookups only", "as built"):
-            current["lib"] = libs[name]
-            ms = cs.cuda_ms(torch, lambda: pq_scan.pq_scan_tiled_kernel(
-                *k1, query_tile=qt))
-            times.append(f"{name} {ms:.4f} ms")
-        print(f"limits: {mode} B={lut.shape[0]} QT={qt} S={tiles.shape[1]}: "
-              + ", ".join(times) + f"; bound {bms:.4f} ms ({by}), lookup "
-              f"floor {lookups / rate * 1e3:.4f} ms ({lookups} lookups), "
-              f"code reads {code_reads} B = "
-              f"{code_reads / cs.HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
-              "rate", flush=True)
+
+    def turns(what, index, q, order, **params):
+        """Each variant in ``order`` timed at the first batch of each
+        mode, after "as built" (and "generic uncapped") is held bitwise
+        against the plain version."""
+        for mode, bsz in cs.RUNS:
+            k1, qt, packed = k1_inputs(cs, ops, index, q[:bsz].contiguous(),
+                                       mode, **params)
+            lut, codes, tiles = k1
+            kw = dict(query_tile=qt, packed=packed)
+            want = ref.pq_scan_tiled_ref(*k1, **kw)
+            for name in {"as built", "generic uncapped"} & set(order):
+                current["lib"] = libs[name]
+                pq_scan.reset_launch_counts()
+                if not torch.equal(pq_scan.pq_scan_tiled_kernel(*k1, **kw),
+                                   want):
+                    raise SystemExit(f"k1_limits: {name} K1 differs from "
+                                     f"its plain version at {what} {mode}")
+                forms = {f: n for f, n in pq_scan.pq_scan_tiled_kernel.forms
+                         .items() if n}
+            del want
+            nbytes, lookups = cs.k1_bound(torch, k1)
+            bms, by = cs.bound_ms(sum(nbytes.values()), lookups)
+            code_reads = tiles.numel() * codes.shape[1] * codes.shape[2]
+            times = []
+            for name in order:
+                current["lib"] = libs[name]
+                ms = cs.cuda_ms(torch, lambda: pq_scan.pq_scan_tiled_kernel(
+                    *k1, **kw))
+                times.append(f"{name} {ms:.4f} ms")
+            print(f"limits: {what} {mode} B={lut.shape[0]} QT={qt} "
+                  f"S={tiles.shape[1]} M={lut.shape[1]} K={lut.shape[2]} "
+                  f"forms {forms}: " + ", ".join(times) + f"; bound "
+                  f"{bms:.4f} ms ({by}), lookup floor "
+                  f"{lookups / rate * 1e3:.4f} ms ({lookups} lookups), code "
+                  f"reads {code_reads} B = "
+                  f"{code_reads / cs.HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+                  "HBM rate", flush=True)
+
+    if args.gist:
+        x, q, _ = make_dataset("gist", args.seed, device=dev)
+        index = build_index(x, IndexConfig(**cs.GIST_INDEX), device=dev,
+                            generator=torch.Generator().manual_seed(
+                                args.seed))
+        turns("gist", index, q, ("as built", "memory only", "lookups only",
+                                 "staging only", "as built"))
+        return 0
+    x, q, _ = make_dataset("sift1m", args.seed, n=args.n, n_queries=1024,
+                           device=dev)
+    index = build_index(x, IndexConfig(**cs.INDEX), device=dev,
+                        generator=torch.Generator().manual_seed(args.seed))
+    order = ("as built", "memory only", "lookups only", "as built")
+    if args.plane:
+        cs.attach_planes(torch, index, "limits")
+        turns(f"{args.plane} plane", index, q, order,
+              refine=RefineParams(args.plane, 4))
+        return 0
+    turns("main", index, q, order)
     del index, x, q
     x, q, _ = make_dataset("sift1m", args.seed, n=cs.NBITS8_N,
                            n_queries=1024, device=dev)
     index = build_index(x, IndexConfig(**cs.NBITS8_INDEX), device=dev,
                         generator=torch.Generator().manual_seed(args.seed))
-    for mode, bsz in cs.RUNS:
-        k1, _, qt, _ = cs.mode_inputs(index, q[:bsz].contiguous(), mode)
-        lut, codes, tiles = k1
-        want = ref.pq_scan_tiled_ref(*k1, query_tile=qt)
-        times = []
-        for name in ("as built", UNCAPPED[0], UNCAPPED[0], "as built"):
-            current["lib"] = libs[name]
-            if not torch.equal(pq_scan.pq_scan_tiled_kernel(
-                    *k1, query_tile=qt), want):
-                raise SystemExit(f"k1_limits: {name} K1 differs from its "
-                                 f"plain version at nbits8 {mode}")
-            ms = cs.cuda_ms(torch, lambda: pq_scan.pq_scan_tiled_kernel(
-                *k1, query_tile=qt))
-            times.append(f"{name} {ms:.4f} ms")
-        lookups = cs.k1_bound(torch, k1)[1]
-        print(f"limits: nbits8 {mode} B={lut.shape[0]} QT={qt} "
-              f"S={tiles.shape[1]} K={lut.shape[2]}: " + ", ".join(times)
-              + f"; lookup floor {lookups / rate * 1e3:.4f} ms", flush=True)
+    turns("nbits8", index, q, ("as built", "generic uncapped",
+                               "generic uncapped", "as built"))
     return 0
 
 
