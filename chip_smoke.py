@@ -13,10 +13,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 form at MB 8 / 16, QT 1 / 8 / 64, odd S; the staged form
                 for global tables at M 256 / 232 / 250 / 470 / 3701, K
                 256 / 128 / 16, QT 1 / 3 / 8, a short last range, two
-                passes a split), each launch in the form its shape
+                passes a split; the k256 form at K 256, QT 1 / 3 / 8 /
+                16 / 64, M 64 / 72 / 40 / 42, a short last range, many
+                splits), each launch in the form its shape
                 names; K3 also split over the grid (few
                 tiles, long S, sparse plans), in query groups and with
-                global tables, and in its candidate-row form (fetch
+                global tables, in its k256 form (QT 1 / 3 / 8 / 64, M
+                64 / 72 / 40, fetch 100 / 400, one split and many), and
+                in its candidate-row form (fetch
                 9000, 16000, the plan width, 40000: one scan to rows
                 per query group, held alone against scan_rows_ref, and
                 one row select); the row select alone (rows up to
@@ -43,16 +47,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 batch whose unions the plan cache widened; clustered at
                 query_tile 64 (query groups); peak device memory with the
                 sessions' graphs; an inner-product build through
-                paged+fused; an nbits=8 index (PQ64x8) in all six modes;
+                paged+fused; an nbits=8 index (PQ64x8: K1 and K3 in
+                their k256 forms, every launch) in all six modes;
                 a gist-shaped index (PQ256x8: 256 KB of tables per query,
                 K1 and K3 with global tables) in all six modes; a small
                 index searched on the card and on the CPU;
   5. timing   — each kernel, bitwise against its plain version at the
                 shapes of each exec mode's first batch (main path and
-                gist and nbits=8 indexes; K1 in the form each path
-                must take: fast, packed on the planes, staged on the
-                gist index, generic at nbits=8, by its launches by
-                form), then both timed (CUDA events; a kernel by
+                gist and nbits=8 indexes; K1 and K3 in the form each
+                path must take: fast and shared on the main path,
+                packed on the planes, staged and GT on the gist index,
+                k256 at nbits=8, by their launches by form), then both
+                timed (CUDA events; a kernel by
                 replays of a CUDA graph of its calls, graph_ms, so no
                 host work counts) beside the kernel's bound and lookup
                 floor on this card (K3's merge also alone where K3
@@ -240,10 +246,10 @@ K1_CASES = (
     (16, 32, 40, 32, 64, 16, False),     # QT 16 and 32: chunks of 8
     (32, 64, 40, 32, 64, 16, False),
     (64, 64, 40, 32, 64, 16, False),     # 256 KB of tables: two groups
-    (1, 4, 300, 32, 64, 4, False),       # K 4 and K 256: generic
+    (1, 4, 300, 32, 64, 4, False),       # K 4: generic; K 256: k256
     (8, 16, 40, 32, 64, 4, False),
     (1, 4, 300, 32, 64, 256, False),
-    (8, 8, 40, 32, 64, 256, False),      # 512 KB of tables: three groups
+    (8, 8, 40, 32, 64, 256, False),      # 512 KB of tables: one launch
     (1, 2, 300, 32, 256, 256, False),    # 256 KB for one query: global
     (8, 8, 300, 32, 256, 256, False),    # tables, staged in ranges, at
     (64, 64, 40, 32, 256, 256, False),   # most 8 queries a launch
@@ -273,6 +279,23 @@ K1_FORM_CASES = (
     (1, 2, 40, 32, 3701, 16, True, "staged"),    # packed, odd Mc
     (8, 8, 1100, 32, 256, 256, False, "staged"),  # 34 splits of a tile
     (8, 8, 9, 4096, 256, 256, False, "staged", 20),  # two passes a split
+    # the k256 form (unpacked K 256, one query's tables in shared memory):
+    # QT 1 (the table whole; rows in 16- or 8-byte pieces at M 64 / 72 /
+    # 40), QT 3 / 8 / 16 / 64 (ranges of 4 subquantizers, 8 queries a CTA,
+    # QT 16 and 64 in groups over the grid), M 42 (a short last range, rows
+    # read byte by byte), S not a multiple of a pass, many splits, two
+    # passes a split; M 60 at QT 1 keeps the generic loop
+    (1, 4, 301, 32, 64, 256, False, "k256"),
+    (1, 4, 301, 32, 72, 256, False, "k256"),
+    (1, 2, 77, 32, 40, 256, False, "k256"),
+    (3, 6, 129, 32, 64, 256, False, "k256"),
+    (8, 16, 301, 32, 64, 256, False, "k256"),
+    (8, 8, 77, 32, 42, 256, False, "k256"),
+    (8, 8, 77, 32, 72, 256, False, "k256"),
+    (16, 16, 1100, 32, 64, 256, False, "k256"),
+    (64, 64, 40, 32, 64, 256, False, "k256"),
+    (8, 8, 9, 4096, 64, 256, False, "k256", 20),
+    (1, 4, 77, 32, 60, 256, False, "generic"),
 )
 
 
@@ -292,7 +315,9 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, form=None, tb=400):
         codes = torch.from_numpy(pack_nibbles(codes.cpu().numpy())).to(dev)
     tiles = torch.randint(0, tb, (b // qt, s), generator=g, device=dev).int()
     lut_a, codes_a = ops.align(lut, codes, packed)
-    groups, s_per = k1_plan(b // qt, s, blk, lut_a.shape[1], k, qt)
+    ptr = codes_a.data_ptr()
+    groups, s_per = k1_plan(b // qt, s, blk, lut_a.shape[1], k, qt,
+                            packed=packed, codes_align=min(16, ptr & -ptr))
     splits = -(-s // s_per)
     reset_launch_counts()
     out = pq_scan_tiled_kernel(lut_a, codes_a, tiles, query_tile=qt,
@@ -313,7 +338,8 @@ def k1_case(torch, g, dev, qt, b, s, blk, m, k, packed, form=None, tb=400):
           f"{name}: global tables {groups.global_tables} for {one_query} B "
           "of shared memory per query")
     check(4 * qt * lut_a.shape[1] * k <= 232448 or len(groups) > 1
-          or groups.global_tables, f"{name}: oversize tables in one group")
+          or groups.global_tables or groups.k256,
+          f"{name}: oversize tables in one group")
     check(not groups.global_tables or groups.largest <= 8,
           f"{name}: a staged launch of {groups.largest} queries")
     check(torch.equal(out, want),
@@ -371,7 +397,8 @@ def check_kernels(torch, dev, seed):
         f"form, in {len(K1_FORM_CASES)} cases (packed MB 8 / 16 at QT 1 / 8 "
         "/ 64, odd S; staged at M 256 / 232 / 250 / 470 / 3701 packed, "
         "K 256 / 128 / 16, QT 1 / 3 / 8, short last ranges, two passes a "
-        "split)")
+        "split; k256 at QT 1 / 3 / 8 / 16 / 64, M 64 / 72 / 40 / 42, a "
+        "short last range, many splits, two passes a split)")
     # K2: per-query rows under query_tile > 1 must raise
     lut = torch.randn(4, 16, 16, generator=g, device=dev)
     codes = torch.randint(0, 16, (9, 32, 16), generator=g,
@@ -424,20 +451,49 @@ def check_kernels(torch, dev, seed):
     log(f"kernels: K3 split over the grid bitwise equal to plain version "
         f"in {n_split} cases")
     # K3 where a tile's state does not fit in one CTA: QT 64 at M 64, K 16
-    # (461 KB) and QT 8 at K 256 (549 KB) run in query groups
+    # (461 KB) and QT 8 at M 60, K 256 (515 KB; M 60 keeps the shared
+    # form) run in query groups
     n_groups = 0
     for mode in ("grouped", "clustered"):
-        for qt, b, k in ((64, 64, 16), (8, 16, 256)):
+        for qt, b, m, k in ((64, 64, 64, 16), (8, 16, 60, 256)):
             for ints in (True, False):
                 _, _, groups = k3_case(
                     torch, g, dev, mode=mode, packed=False, ints=ints,
-                    with_dead=ints, fetch=100, qt=qt, s=40, tb=60, b=b, m=64,
+                    with_dead=ints, fetch=100, qt=qt, s=40, tb=60, b=b, m=m,
                     k=k)
-                check(len(groups) > 1, f"K3 group case {mode} qt={qt} k={k} "
-                      "ran one group")
+                check(len(groups) > 1 and groups.form == "shared",
+                      f"K3 group case {mode} qt={qt} k={k} ran one group")
                 n_groups += 1
     log(f"kernels: K3 in query groups bitwise equal to plain version in "
         f"{n_groups} cases")
+    # K3's k256 form (unpacked K 256: a CTA a query of a tile, one
+    # launch): QT 1 (paged) / 3 / 8 / 64, M 64 / 72 / 40 (rows in 16- and
+    # 8-byte pieces), fetch 100 and 400, with and without tombstones,
+    # tie-heavy and random f32, one split (S 12) and many (S 300, sparse
+    # plans too)
+    n_k256, k256_splits = 0, set()
+    for mode, qt, b in (("paged", 1, 16), ("grouped", 3, 12),
+                        ("clustered", 8, 16), ("grouped", 8, 16),
+                        ("clustered", 64, 64)):
+        for m, fetch, ints, with_dead, s, p_valid in (
+                (64, 100, True, True, 12, 0.85),
+                (64, 400, False, False, 300, 0.85),
+                (72, 100, False, True, 300, 0.05),
+                (40, 400, True, False, 40, 0.85)):
+            splits, _, groups = k3_case(
+                torch, g, dev, mode=mode, packed=False, ints=ints,
+                with_dead=with_dead, fetch=fetch, qt=qt, s=s, tb=400, b=b,
+                m=m, k=256, p_valid=p_valid)
+            check(groups.k256 and len(groups) == 1,
+                  f"K3 k256 case {mode} qt={qt} m={m}: form {groups.form}, "
+                  f"{len(groups)} launches")
+            k256_splits.add(min(splits, 2))
+            n_k256 += 1
+    check(k256_splits == {1, 2}, "K3 k256 cases: not both one split and "
+          "many")
+    log(f"kernels: K3's k256 form bitwise equal to plain version in {n_k256} "
+        "cases (QT 1 / 3 / 8 / 64, M 64 / 72 / 40, fetch 100 / 400, "
+        "tombstones, one split and many)")
     # K3 where one query's tables pass a CTA's shared memory (M 256,
     # K 256: 256 KB): tables in global memory, groups of up to 64 by the
     # selection state alone
@@ -651,11 +707,17 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
             rank_u.contiguous(), dead)
     kw = dict(query_tile=qt, fetch=fetch, packed=packed)
     fw, blk = topk_width(fetch), codes_a.shape[1]
-    groups = k3_query_groups(lut_a.shape[1], k, qt, fw, blk)
+    ptr = codes_a.data_ptr()
+    groups = k3_query_groups(lut_a.shape[1], k, qt, fw, blk, packed=packed,
+                             codes_align=min(16, ptr & -ptr))
     splits, s_per = k3_grid(groups, tiles, lut_a.shape[1], k, fw, blk, packed)
     reset_launch_counts()
     got = pq_scan_topk_kernel(*args, **kw, plan_width=s)
     used = launch_counts()
+    forms = launch_counts(forms=True)
+    check(forms[f"pq_scan_topk_kernel[{groups.form}]"] == len(groups),
+          f"K3 {mode} qt={qt} fetch={fetch}: launches by form "
+          f"{json.dumps(forms)}, want {len(groups)} {groups.form}")
     merged = splits > 1 and not groups.global_state
     by_select = merged and merge_by_select(splits, fetch)
     want_used = {"pq_scan_topk_kernel": len(groups),
@@ -986,22 +1048,24 @@ def lookup_rate(torch) -> float:
 
 
 def hold_kernels(torch, index, queries, mode, what, global_tables=None,
-                 global_state=False, form=None, **params):
+                 global_state=False, form=None, k3_form=None, **params):
     """hold_inputs at one batch of ``mode`` as the search path makes it
     (``params`` override SEARCH; with ``refine``, over the compact
     plane's packed codes)."""
     sess = index.searcher(**dict(SEARCH, **params), device=index.device)
     return hold_inputs(torch, mode_inputs(index, queries, mode, **params),
                        mode, what, global_tables, global_state,
-                       packed=sess._scan_state()[2], form=form)
+                       packed=sess._scan_state()[2], form=form,
+                       k3_form=k3_form)
 
 
 def hold_inputs(torch, inputs, mode, what, global_tables=None,
-                global_state=False, packed=False, form=None):
+                global_state=False, packed=False, form=None, k3_form=None):
     """K1 and K3 on ``inputs`` (mode_inputs' tuple; ``packed`` codes of a
     compact plane), with the launch counts set to 0 before each: each
     launched once per query group, K1 in the form ``form`` names (when
-    given: every launch), in the table form ``global_tables``
+    given: every launch), K3 in the form ``k3_form`` names (when given),
+    in the table form ``global_tables``
     names (when given) and K3 in the form ``global_state`` names (its
     candidate-row form: one scan per query group and one row select),
     and bitwise equal to its plain version; in that form the scan to rows
@@ -1021,8 +1085,10 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
     lut, codes, tiles = k1
     (b, m, k), (t, s), blk = lut.shape, tiles.shape, codes.shape[1]
     fw = topk_width(fetch)
-    g1, _ = k1_plan(t, s, blk, m, k, qt)
-    g3 = k3_query_groups(m, k, qt, fw, blk)
+    ptr = codes.data_ptr()
+    align = min(16, ptr & -ptr)
+    g1, _ = k1_plan(t, s, blk, m, k, qt, packed=packed, codes_align=align)
+    g3 = k3_query_groups(m, k, qt, fw, blk, packed=packed, codes_align=align)
     splits, s_per = k3_grid(g3, tiles, m, k, fw, blk, packed)
     wave = k3_wave(g3, m, k, 0 if g3.global_state else fw, blk, packed,
                    tiles.device)
@@ -1035,6 +1101,8 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
               f"{g3.global_tables}, want {global_tables}")
     check(g3.global_state == global_state, f"{shape}: K3 candidate-row form "
           f"{g3.global_state}, want {global_state}")
+    check(k3_form is None or g3.form == k3_form, f"{shape}: K3 form "
+          f"{g3.form}, want {k3_form}")
     by_select = splits > 1 and merge_by_select(splits, fetch)
     k3_launches = ({"pq_scan_topk_kernel": len(g3), "select_topk_kernel": 1}
                    if global_state or by_select else
@@ -1061,6 +1129,11 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
             check(form is None or k1_forms == {form: len(g1)},
                   f"K1 at {shape}: launches by form {k1_forms}, want "
                   f"{len(g1)} {form}")
+        else:
+            k3_forms = {f: n for f, n in pq_scan_topk_kernel.forms.items()
+                        if n}
+            check(k3_forms == {g3.form: len(g3)}, f"K3 at {shape}: launches "
+                  f"by form {k3_forms}, want {len(g3)} {g3.form}")
         want = plain(*args, **kw)
         if kid == "K1":
             got, want = (got,), (want,)
@@ -1091,7 +1164,7 @@ def hold_inputs(torch, inputs, mode, what, global_tables=None,
         del got
     log(f"{what}: K1 (query groups {list(g1)}, launches by form "
         f"{json.dumps(k1_forms)}) and K3 "
-        f"(query groups {list(g3)}, "
+        f"(query groups {list(g3)}, form {g3.form}, "
         f"{'global' if g3.global_tables else 'shared-memory'} tables, "
         + ("candidate rows and the row select" if g3.global_state else
            "shared-memory selection state")
@@ -1271,8 +1344,9 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
     paged batch, K3's merge at its first grouped batch (where most of its
     launches run), the
     global-table forms of K1 and K3 at the gist index's first paged
-    batch, K1 and K3 in query groups at the nbits=8 index's first paged
-    batch, K1 and K3 at each compact plane's first paged batch, and K3's
+    batch, the k256 forms of K1 and K3 at the nbits=8 index's first batch
+    of each mode (with that mode's launches; paged at both batch sizes),
+    K1 and K3 at each compact plane's first paged batch, and K3's
     candidate-row form (its scan to rows, and the row select) at the
     wide case's first paged batch, with their launches on the runs that
     use them."""
@@ -1309,13 +1383,14 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
             ("pq_scan_topk_kernel[global tables]", src + "pq_scan_topk.cu",
              "src/repro/kernels/pq_scan.py:311", gist_rows["paged"]["K3"],
              gist_launches["pq_scan_topk_kernel"]),
-            ("pq_scan_tiled_kernel[nbits8 query groups]", src + "pq_scan.cu",
-             "src/repro/kernels/pq_scan.py:112", nbits8_rows["paged"]["K1"],
-             nbits8_launches["pq_scan_tiled_kernel"]),
-            ("pq_scan_topk_kernel[nbits8 query groups]",
-             src + "pq_scan_topk.cu", "src/repro/kernels/pq_scan.py:311",
-             nbits8_rows["paged"]["K3"],
-             nbits8_launches["pq_scan_topk_kernel"])]:
+        ] + [
+            (f"{kern}[k256, nbits8 {mode}]", src + source,
+             f"src/repro/kernels/pq_scan.py:{line}", nbits8_rows[mode][kid],
+             nbits8_launches[mode][kern])
+            for mode, _ in RUNS
+            for kid, kern, source, line in (
+                ("K1", "pq_scan_tiled_kernel", "pq_scan.cu", 112),
+                ("K3", "pq_scan_topk_kernel", "pq_scan_topk.cu", 311))]:
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": n,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -1367,6 +1442,8 @@ def main_path(torch, dev, args):
           "a kernel of the main path was never launched")
     check(forms["pq_scan_tiled_kernel[fast]"] == launches[
         "pq_scan_tiled_kernel"], "main: a K1 launch left the fast form")
+    check(forms["pq_scan_topk_kernel[shared]"] == launches[
+        "pq_scan_topk_kernel"], "main: a K3 launch left the shared form")
     check_agree(torch, results, "main")
     # the sessions' CUDA graphs beside eager seil_search on the same
     # batches, and one traced batch per mode
@@ -1604,12 +1681,12 @@ def check_agree(torch, results, what):
         "bitwise)")
 
 
-def six_runs(torch, index, q, gt, tag):
+def six_runs(torch, index, q, gt, tag, by_mode=None):
     """The six exec-mode runs of a side index and a paged run at
     grouped's batch size, each run's launches counted alone and required:
     the runs at one batch size must agree, and the rows where the two
     batch sizes disagree must be explained (``batch_size_ties``).
-    Returns the summed launches."""
+    Returns the summed launches (and adds each mode's to ``by_mode``)."""
     from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
     results, total = {}, {}
     pb, gb = dict(RUNS)["paged"], dict(RUNS)["grouped"]
@@ -1628,6 +1705,9 @@ def six_runs(torch, index, q, gt, tag):
                 f"{json.dumps(used)}")
             for k, n in used.items():
                 total[k] = total.get(k, 0) + n
+                if by_mode is not None:
+                    d = by_mode.setdefault(mode, {})
+                    d[k] = d.get(k, 0) + n
     for bsz in (pb, gb):
         check_agree(torch, {("paged", False) if k == ("paged", bsz, False)
                             else k: r for k, r in results.items()
@@ -1689,11 +1769,12 @@ def batch_size_ties(torch, index, q, a, b, bsz_a, bsz_b, what):
 def nbits8_path(torch, dev, seed, lookups_per_s):
     """An nbits=8 index (PQ64x8: 64 KB of tables per query) built on the
     card and searched in every exec mode, fused off and on; at
-    query_tile 8 K1's and K3's tables pass a CTA's shared memory, so
-    they run in query groups (K1's generic form).  Then K1 and K3 are
+    query_tile 8 a tile's tables (512 KB) pass a CTA's shared memory, and
+    K1 and K3 take their k256 forms (one launch a call: K1 stages a
+    tile's tables in ranges, K3 runs a CTA a query).  Then K1 and K3 are
     held at each mode's first batch and timed beside their plain
     versions, bounds and lookup floors.  Returns ({mode: rows}, launches
-    of the six runs)."""
+    of the six runs by mode)."""
     from repro_torch.core import IndexConfig, build_index, ground_truth
     from repro_torch.data import make_dataset
     x, q, _ = make_dataset("sift1m", seed, n=NBITS8_N, n_queries=1024,
@@ -1705,19 +1786,24 @@ def nbits8_path(torch, dev, seed, lookups_per_s):
     gt = ground_truth(x, q, 10, device=dev)
     log(f"nbits8: sift1m-shaped n={x.shape[0]} IVF1024 PQ64x8 built in "
         f"{time.perf_counter() - t0:.2f} s")
-    launches = six_runs(torch, index, q, gt, "nbits8")
-    check(launches["pq_scan_tiled_kernel[generic]"]
-          == launches["pq_scan_tiled_kernel"],
-          "nbits8: a K1 launch left the generic form")
+    by_mode = {}
+    launches = six_runs(torch, index, q, gt, "nbits8", by_mode)
+    for kern in ("pq_scan_tiled_kernel", "pq_scan_topk_kernel"):
+        check(launches[f"{kern}[k256]"] == launches[kern] > 0,
+              f"nbits8: a {kern} launch left the k256 form")
+    log("nbits8: launches by mode (paged at both batch sizes) "
+        + json.dumps({mode: {k: n for k, n in used.items() if n}
+                      for mode, used in by_mode.items()}))
     rows = {}
     for mode, bsz in RUNS:
         held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
-                            "nbits8", global_tables=False, form="generic")
+                            "nbits8", global_tables=False, form="k256",
+                            k3_form="k256")
         rows[mode] = kernel_rows(torch, held, mode, "timing: nbits8",
                                  lookups_per_s)
         del held
     persist_path(torch, dev, index, q)
-    return rows, launches
+    return rows, by_mode
 
 
 def gist_path(torch, dev, seed, lookups_per_s):
@@ -1743,6 +1829,9 @@ def gist_path(torch, dev, seed, lookups_per_s):
     check(launches["pq_scan_tiled_kernel[staged]"]
           == launches["pq_scan_tiled_kernel"] > 0,
           "gist: a K1 launch left the staged form")
+    check(launches["pq_scan_topk_kernel[GT]"]
+          == launches["pq_scan_topk_kernel"] > 0,
+          "gist: a K3 launch left the global-table form")
     rows = {}
     for mode, bsz in RUNS:
         held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,

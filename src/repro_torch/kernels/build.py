@@ -30,8 +30,10 @@ _INT = ctypes.c_int
 # stream are c_void_p, or ctypes would pass them as 32-bit ints)
 _SIGNATURES = {
     "pq_scan": {
-        "pq_scan_tiled_launch": ([_VOID] * 4 + [_INT] * 11 + [_VOID], _INT),
+        "pq_scan_tiled_launch": ([_VOID] * 4 + [_INT] * 11 + [_VOID] * 2,
+                                 _INT),
         "pq_scan_tiled_smem_bytes": ([_INT] * 5, ctypes.c_size_t),
+        "pq_scan_tiled_scratch_bytes": ([_INT] * 5, ctypes.c_size_t),
     },
     "pq_scan_topk": {
         "pq_scan_topk_launch": ([_VOID] * 13 + [_INT] * 15 + [_VOID], _INT),

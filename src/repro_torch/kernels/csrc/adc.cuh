@@ -156,3 +156,41 @@ __device__ __forceinline__ void score_packed(float (&acc)[QC],
     }
   }
 }
+
+// The same sum for K = 256 and unpacked codes, one piece of CH code bytes
+// (CH = 16: a uint4, or 8: a uint2) of a row at a time: `acc` is the sum so
+// far, `t` the table of the piece's first subquantizer (tables 256 floats
+// apart).  Each byte is extracted once (one PRMT); the rest of a lookup's
+// address is an immediate.  The K1 and K3 forms for K = 256 (`k256`) add
+// the pieces of a row in order, so each sum stays ascending m.
+template <int CH>
+__device__ __forceinline__ void piece_words(const uint4& p, uint32_t (&w)[4]) {
+  w[0] = p.x, w[1] = p.y, w[2] = p.z, w[3] = p.w;
+}
+template <int CH>
+__device__ __forceinline__ void piece_words(const uint2& p, uint32_t (&w)[2]) {
+  w[0] = p.x, w[1] = p.y;
+}
+
+template <int CH, typename Piece>
+__device__ __forceinline__ float score_k256_piece(float acc, const Piece& p,
+                                                  const float* t) {
+  uint32_t w[CH / 4];
+  piece_words<CH>(p, w);
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const uint32_t code = __byte_perm(w[j >> 2], 0, 0x4440 | (j & 3));
+    acc = acc + t[j * 256 + code];
+  }
+  return acc;
+}
+
+// The piece type of CH code bytes.
+template <int CH>
+struct K256Piece {
+  using type = uint4;
+};
+template <>
+struct K256Piece<8> {
+  using type = uint2;
+};

@@ -40,7 +40,13 @@
 //     (pq_scan_packed): the row in registers (one uint2 or uint4), each
 //     code word turned into two offset words, lo and hi nibbles (adc.cuh's
 //     score_packed), the next row loaded while this one is scored.
-// Any other shape that keeps its tables in shared memory (K up to 256, odd
+//   * Unpacked K = 256 codes (an nbits=8 index, PQ64x8: 64 KB of tables a
+//     query) take the k256 form, one launch a call: at QT 1 the query's
+//     table whole in shared memory (pq_scan_k256_one, three CTAs an SM),
+//     on tiles the tables of each group of 8 queries interleaved by query
+//     in device memory first and staged in ranges of KR subquantizers, as
+//     the staged form does but copied as they are (pq_scan_k256_tile).
+// Any other shape that keeps its tables in shared memory (K 4 or 128, odd
 // widths, QT not 1 or a multiple of 8, rows not aligned) runs through the
 // generic instantiation of the same loop: runtime K and MB, the row read in
 // 16-byte pieces (or bytes), each piece's bytes extracted once for a chunk
@@ -80,7 +86,7 @@ constexpr int FAST_K = 16, FAST_MB = 64;
 constexpr int SR = 8, SR1 = 16, SK = 256, SQ = 8, IPT = 8;
 
 // The forms, as kernels/pq_scan.py::K1_FORMS numbers them.
-enum Form { GENERIC = 0, FAST = 1, PACKED = 2, STAGED = 3 };
+enum Form { GENERIC = 0, FAST = 1, PACKED = 2, STAGED = 3, K256_FORM = 4 };
 
 // Stage tile_idx[tile, s0:s1] into `sidx`.  Ends with a barrier.
 __device__ __forceinline__ void stage_positions(int* sidx,
@@ -463,13 +469,248 @@ __global__ void __launch_bounds__(NT, Staged<QC>::MIN_CTAS) pq_scan_staged(
   }
 }
 
-template <typename Kern, typename... Args>
+// ---------------------------------------------------------------------------
+// The K = 256 form (k256): unpacked K = 256 codes, MB = M, whose one
+// query's tables fit in a CTA's shared memory (PQ64x8: 64 KB), any QT, one
+// launch a call.  The generic loop scored such a tile in query groups (a
+// tile of 8 queries is 512 KB of tables: three launches, each reading the
+// tile's code rows and positions again) at one CTA an SM, with runtime K
+// and MB and a scalar lookup per (item, query).
+// ---------------------------------------------------------------------------
+constexpr int KR = 4;     // subquantizers in a range of a tile's tables
+constexpr int KQ = 8;     // queries a tile CTA carries (two LDS.128 each)
+constexpr int KIPT = 8;   // items a tile thread carries through a pass
+constexpr int KNT = 256;  // threads of a tile CTA (KIPT * KNT = 2048 items
+                          // a pass: kernels/pq_scan.py's K1_STAGED_PASS)
+constexpr int K256 = 256;
+static_assert(KR == 4 || KR == 8, "a range's code bytes are one or two words");
+
+// One query (QT = 1): its M x 256 table in shared memory, copied by
+// cp.async in 16-byte pieces, three CTAs an SM (65 KB each at M 64).  A
+// thread scores items tid, tid + NT, ... of the CTA's positions; an item's
+// row is read in CH-byte pieces (CH = 16 where M % 16 == 0 and the rows
+// are 16-byte aligned, else 8), the next piece (of this item, or the first
+// of its next) loaded while this one is scored, each byte extracted once
+// (adc.cuh's score_k256_piece).  A lookup at K 256 is one LDS at ~3
+// wavefronts (a warp's 32 random codes fall on ~3 entries of the busiest
+// bank): the lookups set the pace, the pieces in flight hide the loads.
+template <int CH>
+__global__ void __launch_bounds__(NT, 3) pq_scan_k256_one(
+    const float* __restrict__ lut, const uint8_t* __restrict__ codes,
+    const int32_t* __restrict__ tile_idx, float* __restrict__ out, int M,
+    int BLK, int S, int QS, int s_per) {
+  using Piece = typename K256Piece<CH>::type;
+  extern __shared__ __align__(16) unsigned char k256_smem[];
+  float* tab = reinterpret_cast<float*>(k256_smem);
+  int* pidx = reinterpret_cast<int*>(tab + M * K256);
+  const int qi = blockIdx.x, tid = threadIdx.x;
+  const int s0 = blockIdx.y * s_per, s1 = min(S, s0 + s_per);
+  const float* glut = lut + (size_t)qi * QS * M * K256;
+  for (int c = 4 * tid; c < M * K256; c += 4 * NT) cp_async16(tab + c, glut + c);
+  cp_async_commit();
+  for (int j = tid; j < s1 - s0; j += NT) pidx[j] = tile_idx[(size_t)qi * S + s0 + j];
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int n = (s1 - s0) * BLK, P = M / CH;  // items, pieces a row
+  float* o = out + ((size_t)qi * QS * S + s0) * BLK;
+  auto row_of = [&](int f) {
+    const int p = f / BLK;
+    return reinterpret_cast<const Piece*>(
+        codes + ((size_t)pidx[p] * BLK + (f - p * BLK)) * M);
+  };
+  int f = tid;
+  const Piece* row = f < n ? row_of(f) : nullptr;
+  Piece cur = {};
+  if (row) cur = __ldg(row);
+  while (f < n) {
+    const int fn = f + NT;
+    const Piece* next_row = fn < n ? row_of(fn) : nullptr;
+    float acc = 0.f;
+    for (int v = 0; v < P; ++v) {
+      Piece nxt = {};
+      if (v + 1 < P)
+        nxt = __ldg(row + v + 1);
+      else if (next_row)
+        nxt = __ldg(next_row);
+      acc = score_k256_piece<CH>(acc, cur, tab + v * CH * K256);
+      cur = nxt;
+    }
+    o[f] = acc;
+    f = fn;
+    row = next_row;
+  }
+}
+
+// A tile's tables interleaved by query for pq_scan_k256_tile: for each
+// tile t and group g of KQ queries, [M][2][256] float4s, the float4 of
+// (m, h, code) holding queries 8g + 4h + j, j < 4, of the tile (0 past
+// QT).  Every thread writes float4s; neighbouring threads read
+// neighbouring entries of one table.
+__global__ void __launch_bounds__(NT) k256_interleave(
+    const float* __restrict__ lut, float4* __restrict__ il, int T, int QS,
+    int QT, int G, int M) {
+  const size_t n = (size_t)T * G * M * 2 * K256;
+  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * NT) {
+    const int code = (int)(e % K256);
+    size_t r = e / K256;
+    const int h = (int)(r & 1);
+    r >>= 1;
+    const int m = (int)(r % M);
+    r /= M;
+    const int g = (int)(r % G), t = (int)(r / G);
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = KQ * g + 4 * h + j;
+      v[j] = q < QT ? lut[((size_t)(t * QS + q) * M + m) * K256 + code] : 0.f;
+    }
+    il[e] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Query tiles (QT > 1): KQ queries a CTA, QT > KQ in groups of KQ over
+// the grid.  The tiles' tables are interleaved first (k256_interleave, into
+// a scratch tensor the wrapper allocates), so a range of KR subquantizers
+// of a group is one run of KR x 8 KB that cp.async copies into a range
+// buffer as it is; two buffers, the next range's copy in flight while this
+// one is scored, one barrier a range.  One LDS.128 serves four queries.
+// Ranges of 4 (two 32 KB buffers, 128 registers) hold two CTAs an SM,
+// which measured faster than ranges of 8 at one CTA an SM
+// (tools/k1_limits.py --nbits8, "k256 ranges of 8").
+// Each thread carries the sums of its KIPT items for the group's queries
+// in registers from one range to the next (one accumulator per (item,
+// query), ascending m) and reads each item's code bytes of a range once
+// for all of them, the next range's while this one is scored.  Grid: T *
+// G * splits CTAs, split fastest (a tile group's splits are adjacent, so
+// its tables come from device memory about once); CTA x scans positions
+// [y * s_per, min(S, (y + 1) * s_per)) of group x / splits % G of tile x /
+// splits / G, y = x % splits, in passes of KIPT * NT items
+// (kernels/pq_scan.py::staged_splits: one pass a CTA).
+__global__ void __launch_bounds__(KNT, 2) pq_scan_k256_tile(
+    const float4* __restrict__ il, const uint8_t* __restrict__ codes,
+    const int32_t* __restrict__ tile_idx, float* __restrict__ out, int M,
+    int BLK, int S, int QT, int QS, int G, int s_per, int splits) {
+  constexpr int BUF = KR * 2 * K256;  // float4s of a range buffer
+  extern __shared__ __align__(16) unsigned char k256_smem[];
+  float4* tabs = reinterpret_cast<float4*>(k256_smem);
+  int* pidx = reinterpret_cast<int*>(tabs + 2 * BUF);
+  const int tid = threadIdx.x, tg = blockIdx.x / splits;
+  const int g = tg % G, qi = tg / G;
+  const int s0 = (blockIdx.x - tg * splits) * s_per, s1 = min(S, s0 + s_per);
+  const int q0 = KQ * g, nq = min(KQ, QT - q0);
+  const bool upper = nq > 4;  // queries 4 .. 7 of the group exist
+  const float4* gtab = il + (size_t)tg * M * 2 * K256;
+  for (int j = tid; j < s1 - s0; j += KNT) pidx[j] = tile_idx[(size_t)qi * S + s0 + j];
+  __syncthreads();
+
+  const int n = (s1 - s0) * BLK, ranges = (M + KR - 1) / KR;
+  const bool vec = M % KR == 0 && reinterpret_cast<uintptr_t>(codes) % KR == 0;
+  auto stage = [&](int r) {
+    const int m0 = r * KR, nr = min(KR, M - m0);
+    float4* d = tabs + (r & 1) * BUF;
+    const float4* src = gtab + (size_t)m0 * 2 * K256;
+    for (int c = tid; c < nr * 2 * K256; c += KNT) cp_async16(d + c, src + c);
+    cp_async_commit();
+  };
+  float* o = out + ((size_t)(qi * QS + q0) * S + s0) * BLK;
+  const size_t qstride = (size_t)S * BLK;  // floats between two queries' rows
+  for (int p0 = 0; p0 < n; p0 += KIPT * KNT) {
+    const int first = p0 + tid;
+    const int cnt = first < n ? min(KIPT, (n - first + KNT - 1) / KNT) : 0;
+    const uint8_t* rows[KIPT];  // this thread's items' code rows
+    float acc[KIPT][KQ];
+#pragma unroll
+    for (int i = 0; i < KIPT; ++i) {
+      const int f = first + i * KNT, p = f / BLK;
+      rows[i] = i < cnt ? codes + ((size_t)pidx[p] * BLK + f - p * BLK) * M
+                        : codes;
+#pragma unroll
+      for (int q = 0; q < KQ; ++q) acc[i][q] = 0.f;
+    }
+    // the code bytes of subquantizers [m0, m0 + KR) of each item (KW
+    // words), zero past M
+    constexpr int KW = KR / 4;
+    uint32_t w[KIPT][KW], wn[KIPT][KW] = {};
+    auto range_codes = [&](uint32_t(&d)[KIPT][KW], int m0) {
+      const int nr = min(KR, M - m0);
+#pragma unroll
+      for (int i = 0; i < KIPT; ++i) {
+#pragma unroll
+        for (int v = 0; v < KW; ++v) d[i][v] = 0u;
+        if (i >= cnt) continue;
+        if (vec) {
+          if constexpr (KW == 2) {
+            const uint2 v2 =
+                __ldg(reinterpret_cast<const uint2*>(rows[i] + m0));
+            d[i][0] = v2.x, d[i][KW - 1] = v2.y;
+          } else {
+            d[i][0] = __ldg(reinterpret_cast<const uint32_t*>(rows[i] + m0));
+          }
+        } else {
+          for (int b = 0; b < nr; ++b)
+            d[i][b >> 2] |= (uint32_t)__ldg(rows[i] + m0 + b) << (8 * (b & 3));
+        }
+      }
+    };
+    range_codes(w, 0);
+    stage(0);
+    for (int r = 0; r < ranges; ++r) {
+      const int m0 = r * KR, nr = min(KR, M - m0);
+      // range r has landed, and every thread is done with range r - 1,
+      // whose buffer range r + 1 takes
+      cp_async_wait_all();
+      __syncthreads();
+      if (r + 1 < ranges) {
+        stage(r + 1);
+        range_codes(wn, m0 + KR);
+      }
+      const float4* tb = tabs + (r & 1) * BUF;
+#pragma unroll
+      for (int j = 0; j < KR; ++j) {
+#pragma unroll
+        for (int i = 0; i < KIPT; ++i) {
+          if (j >= nr || i >= cnt) continue;
+          const uint32_t code = (w[i][j >> 2] >> (8 * (j & 3))) & 255u;
+          const float4 lo = tb[(2 * j) * K256 + code];
+          acc[i][0] = acc[i][0] + lo.x;
+          acc[i][1] = acc[i][1] + lo.y;
+          acc[i][2] = acc[i][2] + lo.z;
+          acc[i][3] = acc[i][3] + lo.w;
+          if (upper) {
+            const float4 hi = tb[(2 * j + 1) * K256 + code];
+            acc[i][4] = acc[i][4] + hi.x;
+            acc[i][5] = acc[i][5] + hi.y;
+            acc[i][6] = acc[i][6] + hi.z;
+            acc[i][7] = acc[i][7] + hi.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KIPT; ++i)
+#pragma unroll
+        for (int v = 0; v < KW; ++v) w[i][v] = wn[i][v];
+    }
+#pragma unroll
+    for (int i = 0; i < KIPT; ++i) {
+      if (i >= cnt) continue;
+#pragma unroll
+      for (int q = 0; q < KQ; ++q)
+        if (q < nq) o[q * qstride + first + i * KNT] = acc[i][q];
+    }
+    __syncthreads();  // the last range's buffer is read: the next pass
+                      // may stage over it
+  }
+}
+
+template <int THREADS = NT, typename Kern, typename... Args>
 cudaError_t launch(Kern kern, dim3 grid, size_t smem, cudaStream_t st,
                    Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, NT, smem, st>>>(args...);
+  kern<<<grid, THREADS, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
@@ -481,17 +722,29 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of one CTA: QT queries' tables, or (the staged
-// form, global_tables) two range buffers (Staged<1> for one query,
-// Staged<SQ> for up to SQ), then the CTA's s_per staged positions.  The
+// Dynamic shared memory of one CTA, by where its tables are (`tables`):
+// 0, QT queries' tables; 1 (the staged form, global tables), two range
+// buffers (Staged<1> for one query, Staged<SQ> for up to SQ); 2 (the k256
+// form), one query's table at QT 1, else two range buffers of KR
+// subquantizers of KQ queries; then the CTA's s_per staged positions.  The
 // wrapper picks the form and cuts a tile into query groups by it
 // (kernels/pq_scan.py::k1_query_groups).
 size_t pq_scan_tiled_smem_bytes(int M, int K, int QT, int s_per,
-                                int global_tables) {
-  const size_t staged =
-      QT < 1 ? 0 : 2 * (QT == 1 ? Staged<1>::BUF : Staged<SQ>::BUF);
-  return (global_tables ? staged : (size_t)QT * M * K) * sizeof(float) +
-         (size_t)s_per * sizeof(int);
+                                int tables) {
+  size_t floats = (size_t)QT * M * K;
+  if (tables == 1)
+    floats = QT < 1 ? 0 : 2 * (QT == 1 ? Staged<1>::BUF : Staged<SQ>::BUF);
+  else if (tables == 2)
+    floats = QT < 1 ? 0 : QT == 1 ? (size_t)M * K : 2 * KR * 2 * K256 * 4;
+  return floats * sizeof(float) + (size_t)s_per * sizeof(int);
+}
+
+// Bytes of the scratch tensor of a k256 launch of QT > 1 queries of B / QS
+// tiles (the interleaved tables, k256_interleave); 0 for any other launch.
+size_t pq_scan_tiled_scratch_bytes(int B, int M, int QT, int QS, int form) {
+  if (form != K256_FORM || QT <= 1 || QS < 1) return 0;
+  const size_t groups = (QT + KQ - 1) / KQ;
+  return (size_t)(B / QS) * groups * M * 2 * K256 * sizeof(float4);
 }
 
 // lut (B, M, K) f32; codes (TB, BLK, MB) u8; tile_idx (B / QS, S) i32;
@@ -500,11 +753,12 @@ size_t pq_scan_tiled_smem_bytes(int M, int K, int QT, int s_per,
 // at the group's first row of tile 0, rows qi * QS + [0, QT) of each tile.
 // A CTA scans s_per of a tile's positions.  `form` (enum Form) is
 // kernels/pq_scan.py::k1_form's choice; a shape the form does not take
-// returns cudaErrorInvalidValue.
+// returns cudaErrorInvalidValue.  `scratch` (pq_scan_tiled_scratch_bytes)
+// is the k256 form's interleaved tables at QT > 1, else unused.
 int pq_scan_tiled_launch(const void* lut, const void* codes,
                          const void* tile_idx, void* out, int B, int M, int K,
                          int BLK, int MB, int S, int QT, int QS, int packed,
-                         int s_per, int form, void* stream) {
+                         int s_per, int form, void* scratch, void* stream) {
   const int bad = (int)cudaErrorInvalidValue;
   if (QS < 1 || B % QS != 0 || QT < 1 || QT > QS || BLK < 1 || s_per < 1 ||
       s_per > MAX_POSITIONS || M != (packed ? 2 * MB : MB))
@@ -512,8 +766,8 @@ int pq_scan_tiled_launch(const void* lut, const void* codes,
   const int T = B / QS;
   if (T == 0 || S == 0) return 0;
   const int splits = (S + s_per - 1) / s_per;
-  const size_t smem =
-      pq_scan_tiled_smem_bytes(M, K, QT, s_per, form == STAGED);
+  const size_t smem = pq_scan_tiled_smem_bytes(
+      M, K, QT, s_per, form == STAGED ? 1 : form == K256_FORM ? 2 : 0);
   const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
   const int lb = __builtin_ctz((unsigned)BLK);
   const bool pow2 = BLK == 1 << lb, tiles8 = QT == 1 || QT % 8 == 0;
@@ -563,6 +817,38 @@ int pq_scan_tiled_launch(const void* lut, const void* codes,
                                     : pq_scan_staged<SQ, false>);
       return (int)launch(kern, dim3(T * splits), smem, st, l, c, ti, o, M, K,
                          BLK, MB, S, QT, QS, s_per, splits);
+    }
+    case K256_FORM: {
+      // unpacked K 256, the table 16-byte aligned; at QT 1 the rows in
+      // pieces of 8 or 16 bytes
+      if (packed || K != K256 || MB != M ||
+          reinterpret_cast<uintptr_t>(lut) % 16 != 0 ||
+          (size_t)M * K256 * sizeof(float) + sizeof(int) > 232448)
+        return bad;
+      if (QT == 1) {
+        if (M % 8 != 0 || at % 8 != 0) return bad;
+        return (int)(M % 16 == 0 && at % 16 == 0
+                         ? launch(pq_scan_k256_one<16>, grid, smem, st, l, c,
+                                  ti, o, M, BLK, S, QS, s_per)
+                         : launch(pq_scan_k256_one<8>, grid, smem, st, l, c,
+                                  ti, o, M, BLK, S, QS, s_per));
+      }
+      const int G = (QT + KQ - 1) / KQ;
+      if (scratch == nullptr ||
+          (long long)T * G * splits > 0x7fffffffLL)
+        return bad;
+      float4* il = static_cast<float4*>(scratch);
+      const size_t n = (size_t)T * G * M * 2 * K256;
+      const int blocks = (int)((n + NT - 1) / NT < 8 * 132 * 4
+                                   ? (n + NT - 1) / NT
+                                   : 8 * 132 * 4);
+      k256_interleave<<<blocks, NT, 0, st>>>(l, il, T, QS, QT, G, M);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      return (int)launch<KNT>(pq_scan_k256_tile, dim3(T * G * splits), smem,
+                              st,
+                         static_cast<const float4*>(il), c, ti, o, M, BLK, S,
+                         QT, QS, G, s_per, splits);
     }
     default:
       return bad;

@@ -94,6 +94,12 @@
 //     first and read back.  Splits append to the same rows, so the form
 //     splits as the shared one does (topk_splits) and needs no merge.  The
 //     shape alone picks it (kernels/pq_scan.py::query_groups).
+//   * One query a CTA (k256).  Unpacked K = 256 codes (PQ64x8) would put
+//     a tile's 512 KB of tables into three query groups; the k256 form
+//     runs a CTA a query of a tile instead, in one launch, its table in
+//     shared memory, the positions its query plans compacted first
+//     (pq_scan_topk_k256, below).  The shape alone picks it
+//     (kernels/pq_scan.py::k256_fits).
 //
 // pos = slot * BLK + lane is unique among a query's kept candidates and
 // every pad is (+inf, PAD_POS, -1), so the result is the stable selection
@@ -473,6 +479,205 @@ __global__ void __launch_bounds__(NT) pq_scan_topk(
     if (sdco[q]) atomicAdd(&dco[qi * QS + q], sdco[q]);
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The K = 256 form (k256): unpacked K = 256 codes, MB = M, whose one
+// query's table and selection state fit in shared memory (PQ64x8: 64 KB
+// and 3 KB at fetch 100), any QT, one launch.  The shared form would cut
+// such a tile into query groups (a tile of 8 queries holds 512 KB of
+// tables: three launches, each staging the tile's plan and reading its ids,
+// co-lists and codes again) at one CTA an SM, and walk every position of
+// the tile's union, most of which a query does not plan in clustered and
+// grouped mode.  Here a CTA is one query of one tile and one split:
+//   * its table comes into shared memory by cp.async (three CTAs an SM at
+//     M 64, fetch 100);
+//   * it compacts the positions of its split that its query plans, KWIN at
+//     a time (slot_of, tile_idx and rank_u read once; a ballot a warp and
+//     a prefix sum of the warps' counts keep them in ascending order, the
+//     shared form's order, in which the nearest lists come first and the
+//     filter's key tightens soonest), so no round is spent on positions
+//     it skips;
+//   * it scores KIPT items a thread at once: their ids, co-lists,
+//     tombstones and first row pieces are requested together, then rank_of
+//     (keep), then each kept row in 16- or 8-byte pieces, the next piece
+//     loaded while this one is scored (adc.cuh's score_k256_piece: each
+//     byte extracted once, the sum ascending m);
+//   * the filter, queue and flush are the shared form's (Sel, push_warp,
+//     flush), the scores held in registers across a flush (no rescoring).
+// (d, pos) is unique among a query's kept items, so the result is the
+// stable top-F whatever the order; the order sets only how often the
+// queue fills.
+constexpr int KWIN = 512;  // positions a k256 CTA compacts at a time
+constexpr int KIPT = 4;    // items a k256 thread scores at once
+constexpr int K256 = 256;
+
+template <int CH>
+__global__ void __launch_bounds__(NT, 3) pq_scan_topk_k256(
+    const float* __restrict__ lut, const uint8_t* __restrict__ codes,
+    const int32_t* __restrict__ block_ids,
+    const int32_t* __restrict__ block_other,
+    const int32_t* __restrict__ tile_idx, const int32_t* __restrict__ rank_of,
+    const int32_t* __restrict__ slot_of, const int32_t* __restrict__ rank_u,
+    const uint8_t* __restrict__ dead, float* __restrict__ part_d,
+    int32_t* __restrict__ part_pos, int32_t* __restrict__ part_id,
+    int32_t* __restrict__ dco, int M, int lb, int S, int QT, int QS,
+    int nlist, int FW, int fetch, int s_per) {
+  using Piece = typename K256Piece<CH>::type;
+  extern __shared__ __align__(16) int ksmem[];
+  float* tab = reinterpret_cast<float*>(ksmem);  // M * 256
+  int* sel_at = ksmem + M * K256;
+  Sel sel;
+  carve(sel, sel_at, sel_at + sel_array_words(1, FW), 1, FW, fetch);
+  int* wblk = sel_at + sel_array_words(1, FW) + sel_count_words(1);  // KWIN
+  int* wslot = wblk + KWIN;                                          // KWIN
+  int* wru = wslot + KWIN;                                           // KWIN
+  int* wcnt = wru + KWIN;  // KWIN / 32: planned positions a warp's 32
+  const int qi = blockIdx.x / QT, b = qi * QS + blockIdx.x % QT;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int BLK = 1 << lb;
+  const int s0 = split * s_per, s1 = min(S, s0 + s_per);
+  const int P = M / CH;  // pieces a row
+  const float* glut = lut + (size_t)b * M * K256;
+  for (int c = 4 * tid; c < M * K256; c += 4 * NT) cp_async16(tab + c, glut + c);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int j = tid; j < FW; j += NT) {
+    sel.ad[j] = inf();
+    sel.ap[j] = PAD_POS;
+    sel.ai[j] = -1;
+  }
+  for (int j = tid; j < (int)sel_count_words(1); j += NT) sel.cnt[j] = 0;
+  int ndco = 0;  // this thread's valid items of planned positions
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  constexpr int SUB = KWIN / NT, WARPS = NT / 32;
+  for (int w0 = s0; w0 < s1; w0 += KWIN) {
+    // the window's positions this query plans, in ascending order: thread
+    // tid of sub-window k holds position w0 + k * NT + tid; each warp
+    // counts its planned ones, and a position's entry is the count of
+    // those before it
+    int sl[SUB], bk[SUB], ru[SUB];
+    unsigned pm[SUB];
+#pragma unroll
+    for (int k = 0; k < SUB; ++k) {
+      const int s = w0 + k * NT + tid;
+      const bool in = s < s1;
+      sl[k] = in ? slot_of[(size_t)b * S + s] : -1;
+      bk[k] = in ? tile_idx[(size_t)qi * S + s] : 0;
+      ru[k] = in ? rank_u[(size_t)b * S + s] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < SUB; ++k) {
+      pm[k] = __ballot_sync(FULL, sl[k] >= 0);
+      if (lane == 0) wcnt[k * WARPS + warp] = __popc(pm[k]);
+    }
+    __syncthreads();
+    int planned = 0, off[SUB];
+#pragma unroll
+    for (int c = 0; c < SUB * WARPS; ++c) {
+      if (c % WARPS == warp) off[c / WARPS] = planned;
+      planned += wcnt[c];
+    }
+#pragma unroll
+    for (int k = 0; k < SUB; ++k) {
+      if (sl[k] < 0) continue;
+      const int e = off[k] + __popc(pm[k] & ((1u << lane) - 1u));
+      wblk[e] = bk[k];
+      wslot[e] = sl[k];
+      wru[e] = ru[k];
+    }
+    // the entries are written, and every thread has read the counts
+    __syncthreads();
+    const int n = planned << lb;  // items of the planned positions
+    for (int p0 = 0; p0 < n; p0 += KIPT * NT) {
+      const int first = p0 + tid;
+      int iid[KIPT], pos[KIPT], oth[KIPT], rk[KIPT];
+      bool keep[KIPT];
+      const Piece* row[KIPT];
+      Piece cur[KIPT];
+#pragma unroll
+      for (int i = 0; i < KIPT; ++i) {
+        const int f = first + i * NT;
+        iid[i] = -1, oth[i] = -1, pos[i] = 0, rk[i] = 0, keep[i] = false;
+        row[i] = nullptr;
+        cur[i] = Piece{};
+        if (f < n) {
+          const int e = f >> lb, ln = f & (BLK - 1);
+          const size_t item = ((size_t)wblk[e] << lb) + ln;
+          iid[i] = block_ids[item];
+          oth[i] = block_other[item];
+          keep[i] = dead == nullptr || dead[item] == 0;
+          row[i] = reinterpret_cast<const Piece*>(codes + item * M);
+          cur[i] = __ldg(row[i]);
+          pos[i] = wslot[e] * BLK + ln;
+          rk[i] = wru[e];
+        }
+      }
+      float acc[KIPT];
+#pragma unroll
+      for (int i = 0; i < KIPT; ++i) {
+        ndco += iid[i] >= 0;
+        keep[i] = keep[i] && iid[i] >= 0;
+        if (keep[i] && oth[i] >= 0)
+          keep[i] = rank_of[(size_t)b * nlist + oth[i]] >= rk[i];
+        acc[i] = 0.f;
+      }
+      for (int v = 0; v < P; ++v) {
+        Piece nxt[KIPT];
+#pragma unroll
+        for (int i = 0; i < KIPT; ++i) {
+          nxt[i] = Piece{};
+          if (keep[i] && v + 1 < P) nxt[i] = __ldg(row[i] + v + 1);
+        }
+        const float* t = tab + v * CH * K256;
+#pragma unroll
+        for (int i = 0; i < KIPT; ++i)
+          if (keep[i]) acc[i] = score_k256_piece<CH>(acc[i], cur[i], t);
+#pragma unroll
+        for (int i = 0; i < KIPT; ++i) cur[i] = nxt[i];
+      }
+      // the filter: a kept item whose push found the queue full waits for
+      // the flush and is tried again against the new key
+      unsigned pend = 0;
+      bool full = false;
+#pragma unroll
+      for (int i = 0; i < KIPT; ++i) {
+        const bool want = keep[i] && sel.beats(0, acc[i], pos[i]);
+        if (!push_warp(sel, 0, want, acc[i], pos[i], iid[i], full))
+          pend |= 1u << i;
+      }
+      bool again = __syncthreads_or(full);
+      while (again) {
+        flush(sel);
+        full = false;
+#pragma unroll
+        for (int i = 0; i < KIPT; ++i)
+          if (((pend >> i) & 1u) &&
+              (!sel.beats(0, acc[i], pos[i]) ||
+               push_one(sel, 0, acc[i], pos[i], iid[i], full)))
+            pend &= ~(1u << i);
+        again = __syncthreads_or(full);
+      }
+    }
+  }
+  __syncthreads();
+  if (sel.any_queued()) flush(sel);
+  for (int c = tid; c < fetch; c += NT) {
+    const size_t o = ((size_t)b * splits + split) * fetch + c;
+    part_d[o] = sel.ad[c];
+    part_pos[o] = sel.ap[c];
+    part_id[o] = sel.ai[c];
+  }
+  for (int o = 16; o > 0; o >>= 1) ndco += __shfl_xor_sync(FULL, ndco, o);
+  if (lane == 0 && ndco) atomicAdd(&dco[b], ndco);
+}
+
 // (d, pos) as one 64-bit key that orders as lex_less does: the f32 bits
 // made monotone (-0.0 taken as +0.0), then pos (>= 0) below them.
 __device__ __forceinline__ uint64_t merge_key(float d, int pos) {
@@ -715,13 +920,47 @@ ScanKernel scan_kernel(bool packed) {
   return packed ? pq_scan_topk<true, GT, GS> : pq_scan_topk<false, GT, GS>;
 }
 
-// Dynamic shared memory of one scan CTA (pq_scan_topk_smem_bytes).
-size_t scan_smem_bytes(int M, int K, int QT, int FW, int BLK, bool gt,
+// Dynamic shared memory of one scan CTA (pq_scan_topk_smem_bytes), by
+// where its tables are (`tables`: 0 shared, 1 global, 2 the k256 form,
+// whose CTA holds one query whatever QT).
+size_t scan_smem_bytes(int M, int K, int QT, int FW, int BLK, int tables,
                        bool gs) {
+  if (tables == 2)
+    return sizeof(int) * ((size_t)M * K + sel_array_words(1, FW) +
+                          sel_count_words(1) + 3 * KWIN + KWIN / 32);
   const int P = NT / BLK > 1 ? NT / BLK : 1;
-  const size_t tables = gt ? 0 : (size_t)QT * M * K;
+  const size_t tab = tables ? 0 : (size_t)QT * M * K;
   const size_t arrays = gs ? 0 : sel_array_words(QT, FW) + sel_count_words(QT);
-  return sizeof(int) * (tables + arrays + (size_t)QT * P + P + QT);
+  return sizeof(int) * (tab + arrays + (size_t)QT * P + P + QT);
+}
+
+// The k256 scan for rows of CH-byte pieces.
+template <int CH>
+cudaError_t launch_k256(dim3 grid, size_t smem, cudaStream_t st,
+                        const void* lut, const void* codes,
+                        const void* block_ids, const void* block_other,
+                        const void* tile_idx, const void* rank_of,
+                        const void* slot_of, const void* rank_u,
+                        const void* dead, void* part_d, void* part_pos,
+                        void* part_id, void* dco, int M, int BLK, int S,
+                        int QT, int QS, int nlist, int FW, int fetch,
+                        int s_per) {
+  cudaError_t err = cudaFuncSetAttribute(
+      pq_scan_topk_k256<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  pq_scan_topk_k256<CH><<<grid, dim3(NT), smem, st>>>(
+      static_cast<const float*>(lut), static_cast<const uint8_t*>(codes),
+      static_cast<const int32_t*>(block_ids),
+      static_cast<const int32_t*>(block_other),
+      static_cast<const int32_t*>(tile_idx),
+      static_cast<const int32_t*>(rank_of),
+      static_cast<const int32_t*>(slot_of),
+      static_cast<const int32_t*>(rank_u), static_cast<const uint8_t*>(dead),
+      static_cast<float*>(part_d), static_cast<int32_t*>(part_pos),
+      static_cast<int32_t*>(part_id), static_cast<int32_t*>(dco), M,
+      __builtin_ctz((unsigned)BLK), S, QT, QS, nlist, FW, fetch, s_per);
+  return cudaGetLastError();
 }
 
 // Launch one scan of either form: GS when row_n is not NULL (then part_*
@@ -734,14 +973,37 @@ int launch_scan(const void* lut, const void* codes, const void* block_ids,
                 int S, int QT, int QS, int nlist, int FW, int fetch,
                 int packed, int splits, int s_per, int global_tables,
                 void* stream) {
-  if (QT < 1 || QT > MAX_QT || QT > QS || B % QS != 0 || !pow2(BLK) ||
-      splits < 1 || s_per < 1 || splits > 65535)
+  const bool k256 = global_tables == 2;
+  if (QT < 1 || (QT > MAX_QT && !k256) || QT > QS || B % QS != 0 ||
+      !pow2(BLK) || splits < 1 || s_per < 1 || splits > 65535 ||
+      global_tables < 0 || global_tables > 2)
     return (int)cudaErrorInvalidValue;
   const int T = B / QS;
   if (T == 0) return 0;
   const bool gs = row_n != nullptr;
-  const size_t smem =
-      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);
+  const size_t smem = scan_smem_bytes(M, K, QT, FW, BLK, global_tables, gs);
+  if (k256) {
+    // unpacked K 256, rows in 8- or 16-byte pieces, the table 16-byte
+    // aligned, and the CTA's state within a block's shared memory
+    const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
+    if (gs || packed || K != K256 || MB != M || M % 8 != 0 || at % 8 != 0 ||
+        reinterpret_cast<uintptr_t>(lut) % 16 != 0 || smem > 232448 ||
+        (long long)T * QT > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(T * QT, splits);
+    return (int)(M % 16 == 0 && at % 16 == 0
+                     ? launch_k256<16>(grid, smem, st, lut, codes, block_ids,
+                                       block_other, tile_idx, rank_of,
+                                       slot_of, rank_u, dead, part_d,
+                                       part_pos, part_id, dco, M, BLK, S, QT,
+                                       QS, nlist, FW, fetch, s_per)
+                     : launch_k256<8>(grid, smem, st, lut, codes, block_ids,
+                                      block_other, tile_idx, rank_of, slot_of,
+                                      rank_u, dead, part_d, part_pos, part_id,
+                                      dco, M, BLK, S, QT, QS, nlist, FW,
+                                      fetch, s_per));
+  }
   const int vec16 =
       (MB % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -778,14 +1040,16 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory of one scan CTA: the tables (none when they are
-// read from global memory), the selection arrays and queue fills (none in
-// the candidate-row form), and the round's staged plan slots and DCO
-// counts (layout at the top of pq_scan_topk).  The wrapper picks the form
-// and cuts a tile into query groups by it
+// read from global memory, global_tables 1), the selection arrays and
+// queue fills (none in the candidate-row form), and the round's staged
+// plan slots and DCO counts (layout at the top of pq_scan_topk); with
+// global_tables 2, of the k256 form's CTA (one query: its table, its
+// selection state and a window of compacted positions, whatever QT).  The
+// wrapper picks the form and cuts a tile into query groups by it
 // (kernels/pq_scan.py::query_groups).
 size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
                                int global_tables, int global_state) {
-  return scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0,
+  return scan_smem_bytes(M, K, QT, FW, BLK, global_tables,
                          global_state != 0);
 }
 
@@ -795,6 +1059,16 @@ size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
 // into as many splits as fill the card once at this occupancy.
 int pq_scan_topk_ctas_per_sm(int packed, int global_tables, int global_state,
                              size_t smem) {
+  int n = 0;
+  if (global_tables == 2) {  // the k256 form (its 16-byte instantiation)
+    cudaError_t err = cudaFuncSetAttribute(
+        pq_scan_topk_k256<16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, pq_scan_topk_k256<16>, NT, smem);
+    return err == cudaSuccess ? n : -(int)err;
+  }
   const ScanKernel kern =
       global_tables
           ? (global_state ? scan_kernel<true, true>(packed != 0)
@@ -803,7 +1077,6 @@ int pq_scan_topk_ctas_per_sm(int packed, int global_tables, int global_state,
                           : scan_kernel<false, false>(packed != 0));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int n = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, NT, smem);
   return err == cudaSuccess ? n : -(int)err;
@@ -825,7 +1098,8 @@ size_t topk_merge_smem_bytes(int splits, int fetch) {
 // first row of tile 0, and CTA qi takes rows qi * QS + [0, QT).  Split y
 // scans positions [y * s_per, min(S, (y + 1) * s_per)).  FW is a power of
 // two >= max(fetch, 2); BLK is a power of two; 1 <= QT <= min(QS, 64).
-// global_tables: read the tables from global memory.
+// global_tables: 1, read the tables from global memory; 2, the k256 form
+// (a CTA a query of a tile: grid (T * QT, splits); any QT <= QS).
 int pq_scan_topk_launch(const void* lut, const void* codes,
                         const void* block_ids, const void* block_other,
                         const void* tile_idx, const void* rank_of,

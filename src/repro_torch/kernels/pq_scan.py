@@ -29,7 +29,10 @@ _K1_TARGET_CTAS = 8 * 132  # two waves and more of K1 CTAs on the H100
 _K1_MIN_ITEMS = 4 * K1_THREADS   # items a K1 CTA scores at least
 K1_MAX_POSITIONS = 1024    # tile_idx entries a K1 CTA stages (pq_scan.cu)
 # K1's forms, numbered as pq_scan.cu's enum Form
-K1_FORMS = ("generic", "fast", "packed", "staged")
+K1_FORMS = ("generic", "fast", "packed", "staged", "k256")
+# K3's forms: tables in shared memory, in global memory (GT), candidate
+# rows (GS), and one query a CTA at K 256 (k256)
+K3_FORMS = ("shared", "GT", "GS", "k256")
 # K1's staged form (pq_scan.cu's SQ and IPT): at most 8 queries a launch,
 # their sums carried in registers; 8 items a thread, so a CTA scores a pass
 # of 8 x K1_THREADS items against each range of the tables it stages
@@ -57,18 +60,33 @@ class QueryGroups(list):
     launches read the tables from global memory (one query's tables alone
     do not fit in a CTA's shared memory), ``global_state`` when K3 takes
     its candidate-row form (one query's selection arrays do not fit beside
-    the rest of its state)."""
+    the rest of its state), ``k256`` when the tile runs in the K = 256
+    form (one launch; K3: a CTA a query)."""
 
     def __init__(self, groups, global_tables: bool = False,
-                 global_state: bool = False):
+                 global_state: bool = False, k256: bool = False):
         super().__init__(groups)
         self.global_tables = global_tables
         self.global_state = global_state
+        self.k256 = k256
 
     @property
     def largest(self) -> int:
         """Queries in the largest group."""
         return max(q1 - q0 for q0, q1 in self)
+
+    @property
+    def tables(self) -> int:
+        """Where the launches' tables are, as the libraries' shared-memory
+        queries and launches take it: 0 shared memory, 1 global memory,
+        2 the k256 form."""
+        return 2 if self.k256 else int(self.global_tables)
+
+    @property
+    def form(self) -> str:
+        """K3's form of these launches (``K3_FORMS``)."""
+        return ("GS" if self.global_state else "GT" if self.global_tables
+                else "k256" if self.k256 else "shared")
 
 
 def query_groups(qt: int, bytes_per_query: int, fixed_bytes: int = 0, *,
@@ -163,41 +181,60 @@ def _library_groups(qt: int, smem_of, max_group: int = 0,
                         state_bytes=arrays, max_group=max_group)
 
 
-def k1_groups(qt: int, smem_of) -> QueryGroups:
+def k1_groups(qt: int, smem_of, k256: bool = False) -> QueryGroups:
     """K1's query groups for a tile of ``qt`` queries whose launch takes
     ``smem_of(n, 0)`` bytes of shared memory for n queries with their
-    tables in shared memory (linear in n): ``query_groups``, or, where one
-    query's tables alone do not fit, the staged form's groups
-    (``global_tables``), at most ``K1_STAGED_QUERIES`` queries each, as
-    few and as even as can be (its range buffers fit at any size)."""
+    tables in shared memory (linear in n): ``query_groups``, or, with
+    ``k256`` (the shape takes the k256 form), the whole tile in one
+    launch; where one query's tables alone do not fit, the staged form's
+    groups (``global_tables``), at most ``K1_STAGED_QUERIES`` queries
+    each, as few and as even as can be (its range buffers fit at any
+    size)."""
     fixed = smem_of(0, 0)
     per = smem_of(1, 0) - fixed
     if fixed + per <= SMEM_LIMIT:
+        if k256:
+            return QueryGroups([(0, qt)], k256=True)
         return query_groups(qt, per, fixed)
     n = -(-qt // K1_STAGED_QUERIES)
     return QueryGroups([(g * qt // n, (g + 1) * qt // n) for g in range(n)],
                        global_tables=True)
 
 
-def k1_query_groups(m: int, k: int, qt: int, s_per: int) -> QueryGroups:
+def k1_query_groups(m: int, k: int, qt: int, s_per: int,
+                    k256: bool = False) -> QueryGroups:
     """The query groups K1 launches for a tile of ``qt`` queries, and
     their form, by its library's ``pq_scan_tiled_smem_bytes`` (on the
     card only)."""
     lib = build.load("pq_scan")
     return k1_groups(
-        qt, lambda n, g: lib.pq_scan_tiled_smem_bytes(m, k, n, s_per, g))
+        qt, lambda n, g: lib.pq_scan_tiled_smem_bytes(m, k, n, s_per, g),
+        k256)
 
 
-def k1_plan(t: int, s: int, blk: int, m: int, k: int, qt: int) -> tuple:
+def k1_plan(t: int, s: int, blk: int, m: int, k: int, qt: int, *,
+            packed: bool = False, codes_align: int = 16) -> tuple:
     """K1's launches for ``t`` tiles of ``qt`` queries over ``s`` scan
     positions: ``(groups, s_per)``, the grid split by ``scan_splits``, or
     by ``staged_splits`` where the tables stay in global memory (the
-    staged groups do not depend on s_per; on the card only)."""
+    staged groups do not depend on s_per) and for the k256 form's tiles
+    (one group: a launch scores the whole tile, ``k1_k256_groups``), on
+    the card only."""
     _, s_per = scan_splits(t, s, blk)
-    groups = k1_query_groups(m, k, qt, s_per)
-    if groups.global_tables:
+    groups = k1_query_groups(
+        m, k, qt, s_per, k1_form(m, k, blk, m // 2 if packed else m, qt,
+                                 packed, False, codes_align) == "k256")
+    if groups.k256 and qt > 1:
+        _, s_per = staged_splits(t * k1_k256_groups(qt), s, blk)
+    elif groups.global_tables:
         _, s_per = staged_splits(t, s, blk)
     return groups, s_per
+
+
+def k1_k256_groups(qt: int) -> int:
+    """Groups of ``K1_STAGED_QUERIES`` queries a k256 launch of ``qt > 1``
+    queries runs over its grid (pq_scan.cu's KQ)."""
+    return -(-qt // K1_STAGED_QUERIES)
 
 
 def k1_form(m: int, k: int, blk: int, mb: int, qt: int, packed: bool,
@@ -205,12 +242,17 @@ def k1_form(m: int, k: int, blk: int, mb: int, qt: int, packed: bool,
     """The form K1 takes for one launch of ``qt`` queries, from the shape
     alone (``codes_align``: the largest power of two, up to 16, dividing
     the code array's address): ``"staged"`` where the tables stay in
-    global memory; ``"fast"`` (unpacked K 16, M 64) or ``"packed"``
-    (nibble-packed K 16, MB 8 or 16) where BLK is a power of two, ``qt``
-    is 1 or a multiple of 8 and the rows are aligned; else
-    ``"generic"``."""
+    global memory; where BLK is a power of two, ``"k256"`` at unpacked K
+    256 (one query's tables in shared memory) where ``qt`` is above 1, or
+    is 1 and the rows are 8-byte aligned (M a multiple of 8), ``"fast"``
+    (unpacked K 16, M 64) or ``"packed"`` (nibble-packed K 16, MB 8 or
+    16) where ``qt`` is 1 or a multiple of 8 and the rows are aligned;
+    else ``"generic"``."""
     if global_tables:
         return "staged"
+    if blk & (blk - 1) == 0 and k == 256 and not packed and mb == m and (
+            qt > 1 or (m % 8 == 0 and codes_align % 8 == 0)):
+        return "k256"
     if blk & (blk - 1) == 0 and (qt == 1 or qt % 8 == 0) and k == 16:
         if not packed and mb == m == 64 and codes_align % 16 == 0:
             return "fast"
@@ -219,16 +261,33 @@ def k1_form(m: int, k: int, blk: int, mb: int, qt: int, packed: bool,
     return "generic"
 
 
-def k3_query_groups(m: int, k: int, qt: int, fw: int,
-                    blk: int) -> QueryGroups:
+def k3_query_groups(m: int, k: int, qt: int, fw: int, blk: int, *,
+                    packed: bool = False,
+                    codes_align: int = 16) -> QueryGroups:
     """The query groups K3 launches for a tile of ``qt`` queries, and
     their form, by its library's ``pq_scan_topk_smem_bytes`` and at most
-    ``MAX_QUERY_TILE`` each (on the card only)."""
+    ``MAX_QUERY_TILE`` each (on the card only).  At unpacked K 256 with
+    8-byte aligned rows (M a multiple of 8), where one query's table and
+    selection state fit in a CTA's shared memory, the whole tile is one
+    launch of the k256 form (``k256_fits``)."""
     lib = build.load("pq_scan_topk")
+    if k256_fits(m, k, fw, blk, packed, codes_align,
+                 lib.pq_scan_topk_smem_bytes):
+        return QueryGroups([(0, qt)], k256=True)
     return _library_groups(
         qt, lambda n, g, gs=0: lib.pq_scan_topk_smem_bytes(m, k, n, fw, blk,
                                                            g, gs),
         max_group=MAX_QUERY_TILE, movable_state=True)
+
+
+def k256_fits(m: int, k: int, fw: int, blk: int, packed: bool,
+              codes_align: int, smem_of) -> bool:
+    """Whether K3 takes its k256 form, from the shape alone: unpacked K
+    256, M a multiple of 8, 8-byte aligned rows, and one query's CTA
+    (``smem_of(m, k, 1, fw, blk, 2, 0)`` bytes) within a block's shared
+    memory."""
+    return (k == 256 and not packed and m % 8 == 0 and codes_align % 8 == 0
+            and smem_of(m, k, 1, fw, blk, 2, 0) <= SMEM_LIMIT)
 
 
 def merge_by_select(splits: int, fetch: int) -> bool:
@@ -282,18 +341,26 @@ def pq_scan_tiled_kernel(lut: torch.Tensor, block_codes: torch.Tensor,
     out = torch.empty((b, s, blk), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    groups, s_per = k1_plan(t, s, blk, m, k, query_tile)
-    lib = build.load("pq_scan")
     ptr = block_codes.data_ptr()
     align = min(16, ptr & -ptr)
+    groups, s_per = k1_plan(t, s, blk, m, k, query_tile, packed=packed,
+                            codes_align=align)
+    lib = build.load("pq_scan")
+    if groups.k256 and lut.data_ptr() % 16:
+        lut = lut.clone()           # cp.async copies the tables in 16 B
     for q0, q1 in groups:
         form = k1_form(m, k, blk, mb, q1 - q0, packed, groups.global_tables,
                        align)
+        fid = K1_FORMS.index(form)
+        nbytes = lib.pq_scan_tiled_scratch_bytes(b, m, q1 - q0, query_tile,
+                                                 fid)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                   if nbytes else None)
         err = lib.pq_scan_tiled_launch(
             lut.data_ptr() + 4 * q0 * m * k, ptr,
             tile_idx.data_ptr(), out.data_ptr() + 4 * q0 * s * blk, b, m, k,
-            blk, mb, s, q1 - q0, query_tile, int(packed), s_per,
-            K1_FORMS.index(form), _stream(dev))
+            blk, mb, s, q1 - q0, query_tile, int(packed), s_per, fid,
+            None if scratch is None else scratch.data_ptr(), _stream(dev))
         build.check(lib, err, f"pq_scan_tiled_kernel ({form} form)")
         pq_scan_tiled_kernel.launches += 1
         pq_scan_tiled_kernel.forms[form] += 1
@@ -350,14 +417,15 @@ def topk_splits(t: int, s: int, blk: int, target: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _k3_ctas(packed: bool, global_tables: bool, global_state: bool,
-             smem: int, device_index: int) -> int:
-    """K3 CTAs of this form and shared memory that the card holds at once
+def _k3_ctas(packed: bool, tables: int, global_state: bool, smem: int,
+             device_index: int) -> int:
+    """K3 CTAs of this form (``tables`` as ``QueryGroups.tables``) and
+    shared memory that the card holds at once
     (``pq_scan_topk_ctas_per_sm`` times the SMs)."""
     lib = build.load("pq_scan_topk")
     with torch.cuda.device(device_index):
         per_sm = lib.pq_scan_topk_ctas_per_sm(
-            int(packed), int(global_tables), int(global_state), smem)
+            int(packed), int(tables), int(global_state), smem)
     if per_sm < 1:
         raise RuntimeError(f"K3: occupancy query failed ({per_sm}) for "
                            f"{smem} B of shared memory")
@@ -373,12 +441,11 @@ def k3_wave(groups: QueryGroups, m: int, k: int, fw: int, blk: int,
     only)."""
     lib = build.load("pq_scan_topk")
     smem = lib.pq_scan_topk_smem_bytes(m, k, groups.largest, fw, blk,
-                                       int(groups.global_tables),
+                                       groups.tables,
                                        int(groups.global_state))
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _k3_ctas(packed, groups.global_tables, groups.global_state, smem,
-                    index)
+    return _k3_ctas(packed, groups.tables, groups.global_state, smem, index)
 
 
 def k3_wave_splits(groups: QueryGroups, t: int, s: int, m: int, k: int,
@@ -389,9 +456,12 @@ def k3_wave_splits(groups: QueryGroups, t: int, s: int, m: int, k: int,
     such a tile differ in how much of it is planned (the densest CTA of a
     grouped pq4 batch at fetch 400 takes twice the mean), and a second
     wave lets the card even them out; with many tiles (clustered) one
-    wave is faster (``tools/k3_phases.py --waves``).  Returns ``(splits,
+    wave is faster (``tools/k3_phases.py --waves``).  The k256 form's
+    CTAs of a split are a tile's queries, not the tile.  Returns ``(splits,
     s_per)``."""
     wave = k3_wave(groups, m, k, fw, blk, packed, device)
+    if groups.k256:        # a CTA a query of a tile
+        t *= groups.largest
     waves = 2 if wave // max(t, 1) >= _FINE_SPLITS else 1
     return topk_splits(t, s, blk, waves * wave)
 
@@ -556,8 +626,9 @@ def _scan_rows(args, dims, query_tile, packed, plan_width, groups):
             row_n.data_ptr() + 4 * q0, dco.data_ptr() + 4 * q0, b, m, k, blk,
             mb, s, q1 - q0, query_tile, nlist, cap, int(packed), splits,
             s_per, int(groups.global_tables), _stream(dev))
-        build.check(lib, err, "pq_scan_topk_kernel")
+        build.check(lib, err, "pq_scan_topk_kernel (GS form)")
         pq_scan_topk_kernel.launches += 1
+        pq_scan_topk_kernel.forms["GS"] += 1
     return rows[0], rows[1], rows[2], row_n, dco
 
 
@@ -607,7 +678,8 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     its candidate-row form: the scan appends every kept triple to its
     query's row (``pq_scan_rows_kernel``, rows ``plan_width`` slots
     wide) and ``select_topk_kernel`` selects from each row; no merge
-    runs."""
+    runs.  At unpacked K 256 (``k256_fits``) the whole tile is one launch
+    of the k256 form, a CTA a query."""
     if lut.device.type == "cpu":
         return pq_scan_topk_ref(lut, block_codes, block_ids, block_other,
                                 tile_idx, rank_of, slot_of, rank_u, dead,
@@ -621,7 +693,9 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         raise ValueError(f"fetch must be >= 1, got {fetch}")
     dev = lut.device
     fw = topk_width(fetch)
-    groups = k3_query_groups(m, k, query_tile, fw, blk)
+    ptr = block_codes.data_ptr()
+    groups = k3_query_groups(m, k, query_tile, fw, blk, packed=packed,
+                             codes_align=min(16, ptr & -ptr))
     if groups.global_state:
         row_d, row_pos, row_id, row_n, dco = _scan_rows(
             args, dims, query_tile, packed, plan_width, groups)
@@ -636,6 +710,8 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         torch.empty((b, splits, fetch), dtype=x.dtype, device=dev)
         for x in acc)
     dco = torch.zeros((b,), dtype=torch.int32, device=dev)
+    if groups.k256 and lut.data_ptr() % 16:
+        lut = lut.clone()           # cp.async copies the table in 16 B
     for q0, q1 in groups:
         err = lib.pq_scan_topk_launch(
             lut.data_ptr() + 4 * q0 * m * k, block_codes.data_ptr(),
@@ -646,15 +722,17 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
             *(x.data_ptr() + 4 * q0 * splits * fetch for x in part),
             dco.data_ptr() + 4 * q0, b, m, k, blk, mb, s, q1 - q0,
             query_tile, nlist, fw, fetch, int(packed), splits, s_per,
-            int(groups.global_tables), _stream(dev))
-        build.check(lib, err, "pq_scan_topk_kernel")
+            groups.tables, _stream(dev))
+        build.check(lib, err, f"pq_scan_topk_kernel ({groups.form} form)")
         pq_scan_topk_kernel.launches += 1
+        pq_scan_topk_kernel.forms[groups.form] += 1
     if splits > 1:
         acc = merge_topk_kernel(*part)
     return acc[0], acc[1], acc[2], dco
 
 
 pq_scan_topk_kernel.launches = 0
+pq_scan_topk_kernel.forms = dict.fromkeys(K3_FORMS, 0)
 
 KERNELS = (pq_scan_tiled_kernel, pq_scan_topk_kernel, merge_topk_kernel,
            select_topk_kernel)
@@ -664,23 +742,28 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     pq_scan_tiled_kernel.forms = dict.fromkeys(K1_FORMS, 0)
+    pq_scan_topk_kernel.forms = dict.fromkeys(K3_FORMS, 0)
+
+
+_BY_FORM = (pq_scan_tiled_kernel, pq_scan_topk_kernel)
 
 
 def launch_counts(forms: bool = False) -> dict:
-    """Launches by kernel name; with ``forms`` also K1's by form, as
-    ``pq_scan_tiled_kernel[form]``."""
+    """Launches by kernel name; with ``forms`` also K1's and K3's by form,
+    as ``pq_scan_tiled_kernel[form]`` and ``pq_scan_topk_kernel[form]``."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     if forms:
-        counts.update({f"pq_scan_tiled_kernel[{f}]": n
-                       for f, n in pq_scan_tiled_kernel.forms.items()})
+        for fn in _BY_FORM:
+            counts.update({f"{fn.__name__}[{f}]": n
+                           for f, n in fn.forms.items()})
     return counts
 
 
 def add_launch_counts(counts: dict) -> None:
-    """Add ``counts`` (by kernel name, and K1's by form) to the counters:
-    what a CUDA graph replay launches (``core/graphs.py``)."""
+    """Add ``counts`` (by kernel name, and K1's and K3's by form) to the
+    counters: what a CUDA graph replay launches (``core/graphs.py``)."""
     for fn in KERNELS:
         fn.launches += counts.get(fn.__name__, 0)
-    for f in K1_FORMS:
-        pq_scan_tiled_kernel.forms[f] += counts.get(
-            f"pq_scan_tiled_kernel[{f}]", 0)
+    for fn in _BY_FORM:
+        for f in fn.forms:
+            fn.forms[f] += counts.get(f"{fn.__name__}[{f}]", 0)

@@ -217,9 +217,15 @@ FORM_SHAPES = [
     ("binary qt=64", 32, 16, 16, True, 64, "packed"),
     ("binary qt=4", 32, 16, 16, True, 4, "generic"),
     ("odd Mc", 64, 16, 32, True, 8, "generic"),
-    ("nbits8", 64, 256, 64, False, 1, "generic"),
-    ("nbits8 group", 64, 256, 64, False, 3, "generic"),
+    ("nbits8", 64, 256, 64, False, 1, "k256"),
+    ("nbits8 group", 64, 256, 64, False, 3, "k256"),
     ("K 4", 64, 4, 64, False, 8, "generic"),
+    ("nbits8 tile", 64, 256, 64, False, 8, "k256"),
+    ("nbits8 qt=64", 64, 256, 64, False, 64, "k256"),
+    ("K 256, M 72", 72, 256, 72, False, 1, "k256"),
+    ("K 256, M 40", 40, 256, 40, False, 1, "k256"),
+    ("K 256, M 60 tile", 60, 256, 60, False, 8, "k256"),
+    ("K 256, M 60", 60, 256, 60, False, 1, "generic"),
 ]
 
 
@@ -232,6 +238,10 @@ def test_k1_form_from_the_shape(name, m, k, mb, packed, qt, form):
 
 def test_k1_form_needs_aligned_rows_and_picks_staged_for_global_tables():
     assert tpq.k1_form(64, 16, 32, 64, False, 8, False, 8) == "generic"
+    # k256: rows in 8-byte pieces at QT 1; a tile reads them by ranges
+    assert tpq.k1_form(64, 256, 32, 64, 1, False, False, 8) == "k256"
+    assert tpq.k1_form(64, 256, 32, 64, 1, False, False, 4) == "generic"
+    assert tpq.k1_form(64, 256, 32, 64, 8, False, False, 1) == "k256"
     assert tpq.k1_form(32, 16, 32, 16, True, 8, False, 8) == "generic"
     assert tpq.k1_form(16, 16, 32, 8, True, 8, False, 8) == "packed"
     assert tpq.k1_form(16, 16, 32, 8, True, 8, False, 4) == "generic"
@@ -243,14 +253,19 @@ def test_k1_form_needs_aligned_rows_and_picks_staged_for_global_tables():
     (256, 256, 1, [(0, 1)], "staged"),       # gist paged
     (256, 256, 8, [(0, 8)], "staged"),       # gist tile
     (256, 256, 64, [(8 * g, 8 * g + 8) for g in range(8)], "staged"),
-    (64, 256, 8, [(0, 2), (2, 5), (5, 8)], "generic"),   # nbits8
+    (64, 256, 8, [(0, 8)], "k256"),          # nbits8: one launch
+    (64, 256, 1, [(0, 1)], "k256"),          # nbits8 paged
+    (64, 256, 64, [(0, 64)], "k256"),
     (16, 16, 8, [(0, 8)], "packed"),         # pq4
     (32, 16, 64, [(0, 64)], "packed"),       # binary, query_tile 64
     (64, 16, 64, [(0, 32), (32, 64)], "fast")])
 def test_k1_groups_and_form_at_the_path_shapes(m, k, qt, groups, form):
-    got = tpq.k1_groups(qt, _k1_smem(m, k, 1024))
-    assert got == groups
     packed = m < 64
+    k256 = tpq.k1_form(m, k, 32, m // 2 if packed else m, qt, packed, False,
+                       16) == "k256"
+    got = tpq.k1_groups(qt, _k1_smem(m, k, 1024), k256)
+    assert got == groups
+    assert got.k256 == (form == "k256")
     forms = {tpq.k1_form(m, k, 32, m // 2 if packed else m, q1 - q0, packed,
                          got.global_tables, 16) for q0, q1 in got}
     assert forms == {form}

@@ -5,6 +5,7 @@ in the staged form, the staging of the tables.
     python3 tools/k1_limits.py [--seed 0] [--n 1000000]
     python3 tools/k1_limits.py --plane pq4      # or binary
     python3 tools/k1_limits.py --gist
+    python3 tools/k1_limits.py --nbits8 [--n N]
 
 Compiles copies of ``src/repro_torch/kernels/csrc/pq_scan.cu`` (with its
 header ``adc.cuh``) changed at anchors in the source; the script fails
@@ -22,19 +23,33 @@ if an anchor no longer matches once.  The variants:
                     pass by pass, with no code read, no lookup and no
                     output written: what the staging costs alone;
   * "generic uncapped"  the generic form without its two-CTAs-per-SM
-                    register cap (``__launch_bounds__(NT, 2)``).
+                    register cap (``__launch_bounds__(NT, 2)``);
+  * "k256 ranges of 8"  the k256 form's tiles with ranges of 8
+                    subquantizers (two 64 KB buffers) at one CTA an SM,
+                    beside the built ranges of 4 at two;
+  * "k256 512 threads"  ranges of 8 at one CTA an SM of 512 threads, 4
+                    items each (the same pass of 2,048 items);
+  * "generic"       not a copy: the library as built with ``k1_form``
+                    patched to pick the generic form (and its query
+                    groups) where it picks k256, the form the nbits=8
+                    path ran before k256.
 
 With no option it builds chip_smoke.py's main-path index and times "as
 built", "memory only", "lookups only", "as built" (in turns, CUDA events)
 at the first batch of each exec mode, after holding "as built" bitwise
 against the plain version there; then chip_smoke.py's nbits=8 index,
-whose K = 256 runs the generic form, "as built" against "generic
-uncapped" (as built, uncapped, uncapped, as built), both held bitwise.
+whose K = 256 runs the k256 form: as built, memory only, lookups only,
+staging only, k256 ranges of 8, k256 512 threads, generic, as built,
+each form held
+bitwise.
 ``--plane pq4|binary`` attaches both compact planes to the main index
 and times the packed form at the two-tier shapes (refine factor 4) in
 the same turns; ``--gist`` builds chip_smoke.py's gist-shaped index
 (PQ256x8: the staged form) and times as built, memory only, lookups
-only, staging only, as built.  Beside the times: the byte bound, the
+only, staging only, as built.  ``--nbits8`` runs the nbits=8 part
+alone; with ``--n N`` too, on the N-vector corpus at the main path's
+IVF4096 built at ``nbits=8`` (Faiss's ``IVF4096,PQ64``) instead of
+chip_smoke.py's 80,000-vector IVF1024 index.  Beside the times: the byte bound, the
 lookup floor, the code bytes the batch reads, and the registers and
 spills ptxas reports for each variant.
 """
@@ -74,6 +89,17 @@ VARIANTS = {
          "const float4 e = make_float4(\n"
          "                  __uint_as_float(code), __uint_as_float(code + 1),\n"
          "                  __uint_as_float(code + 2), __uint_as_float(code + h));"),
+        # the k256 form
+        ("adc.cuh", "acc = acc + t[j * 256 + code];",
+         "acc = acc + __uint_as_float(code);"),
+        ("pq_scan.cu", "const float4 lo = tb[(2 * j) * K256 + code];",
+         "const float4 lo = make_float4(__uint_as_float(code), "
+         "__uint_as_float(code + 1), __uint_as_float(code + 2), "
+         "__uint_as_float(code + 3));"),
+        ("pq_scan.cu", "const float4 hi = tb[(2 * j + 1) * K256 + code];",
+         "const float4 hi = make_float4(__uint_as_float(code + 4), "
+         "__uint_as_float(code + 5), __uint_as_float(code + 6), "
+         "__uint_as_float(code + 7));"),
     ),
     # codes (< 16, or < 256 staged) derived from the item
     "lookups only": (
@@ -101,17 +127,70 @@ VARIANTS = {
          "          d[i][CW - 1] ^= h >> 7 | h << 25;\n          continue;\n"
          "        }\n        const uint8_t* pc =\n"
          "            codes + (size_t)item[i] * MB + (PACKED ? m0 / 2 : m0);"),
+        # the k256 form: the positions, and every code piece, from the item
+        ("pq_scan.cu",
+         "pidx[j] = tile_idx[(size_t)qi * S + s0 + j];\n  cp_async_wait_all();",
+         "pidx[j] = s0 + j;\n  cp_async_wait_all();"),
+        ("pq_scan.cu",
+         "pidx[j] = tile_idx[(size_t)qi * S + s0 + j];\n  __syncthreads();",
+         "pidx[j] = s0 + j;\n  __syncthreads();"),
+        ("pq_scan.cu", "if (row) cur = __ldg(row);",
+         "if (row) cur = k256_hash<Piece>(row);"),
+        ("pq_scan.cu", "nxt = __ldg(row + v + 1);",
+         "nxt = k256_hash<Piece>(row + v + 1);"),
+        ("pq_scan.cu", "nxt = __ldg(next_row);",
+         "nxt = k256_hash<Piece>(next_row);"),
+        ("pq_scan.cu",
+         "__ldg(reinterpret_cast<const uint2*>(rows[i] + m0));",
+         "k256_hash<uint2>(rows[i] + m0);"),
+        ("pq_scan.cu",
+         "__ldg(reinterpret_cast<const uint32_t*>(rows[i] + m0));",
+         "k256_hash<uint32_t>(rows[i] + m0);"),
+        ("pq_scan.cu", "constexpr int K256 = 256;\n",
+         "constexpr int K256 = 256;\n"
+         "template <typename P>\n"
+         "__device__ __forceinline__ P k256_hash(const void* p) {\n"
+         "  const uint32_t h = (uint32_t)(size_t)p * 0x9E3779B1u;\n"
+         "  P r;\n  uint32_t* w = reinterpret_cast<uint32_t*>(&r);\n"
+         "  for (int i = 0; i < (int)(sizeof(P) / 4); ++i)\n"
+         "    w[i] = h >> (3 * i) | h << (32 - 3 * i);\n"
+         "  return r;\n}\n"),
     ),
     "staging only": (
         ("pq_scan.cu",
          "const int cnt = first < n ? min(IPT, (n - first + NT - 1) / NT) : 0;",
          "const int cnt = 0;"),
+        ("pq_scan.cu",
+         "const int cnt = first < n ? min(KIPT, (n - first + KNT - 1) / KNT) "
+         ": 0;",
+         "const int cnt = 0;"),
+    ),
+    # the k256 tile form sized for one CTA an SM: ranges of 8
+    # subquantizers (two 64 KB buffers) and no register cap of two
+    "k256 ranges of 8": (
+        ("pq_scan.cu", "constexpr int KR = 4;", "constexpr int KR = 8;"),
+        ("pq_scan.cu", "__launch_bounds__(KNT, 2) pq_scan_k256_tile(",
+         "__launch_bounds__(KNT, 1) pq_scan_k256_tile("),
+    ),
+    # ... and with 512 threads of 4 items each: 16 warps an SM, as two
+    # CTAs of ranges of 4 have, and half their code loads
+    "k256 512 threads": (
+        ("pq_scan.cu", "constexpr int KR = 4;", "constexpr int KR = 8;"),
+        ("pq_scan.cu", "constexpr int KIPT = 8;", "constexpr int KIPT = 4;"),
+        ("pq_scan.cu", "constexpr int KNT = 256;", "constexpr int KNT = 512;"),
+        ("pq_scan.cu", "__launch_bounds__(KNT, 2) pq_scan_k256_tile(",
+         "__launch_bounds__(KNT, 1) pq_scan_k256_tile("),
     ),
     "generic uncapped": (
         ("pq_scan.cu", "__launch_bounds__(NT, 2) pq_scan_generic(",
          "__launch_bounds__(NT) pq_scan_generic("),
     ),
 }
+
+
+# variants held bitwise against the plain version before they are timed
+HELD = ("as built", "generic uncapped", "k256 ranges of 8",
+        "k256 512 threads", "generic")
 
 
 def build_variant(build, name, edits):
@@ -162,8 +241,13 @@ def k1_inputs(cs, ops, index, q, mode, **params):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--n", type=int, default=None,
+                    help="corpus size (default 1,000,000; with --nbits8 "
+                    "chip_smoke.py's nbits=8 index, and with --n the main "
+                    "path's IVF4096 at nbits=8)")
     shape = ap.add_mutually_exclusive_group()
+    shape.add_argument("--nbits8", action="store_true",
+                       help="the nbits=8 part alone")
     shape.add_argument("--plane", choices=("pq4", "binary"),
                        help="the packed form at the two-tier shapes")
     shape.add_argument("--gist", action="store_true",
@@ -190,7 +274,8 @@ def main() -> int:
     elif args.plane:
         names = ("memory only", "lookups only")
     else:
-        names = ("memory only", "lookups only", "generic uncapped")
+        names = ("memory only", "lookups only", "staging only",
+                 "k256 ranges of 8", "k256 512 threads")
     for name in names:
         libs[name], lines = build_variant(build, name, VARIANTS[name])
         for ln in lines:
@@ -198,6 +283,17 @@ def main() -> int:
     current = {}
     build.load = lambda stem: (current["lib"] if stem == "pq_scan"
                                else stock(stem))
+    libs["generic"] = libs["as built"]
+    k1_form = pq_scan.k1_form
+
+    def use(name):
+        """Run K1 as variant ``name`` from here on."""
+        current["lib"] = libs[name]
+        if name == "generic":
+            pq_scan.k1_form = lambda *a: ("generic" if k1_form(*a) == "k256"
+                                          else k1_form(*a))
+        else:
+            pq_scan.k1_form = k1_form
     dev = torch.device("cuda")
     card, limit = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -213,25 +309,26 @@ def main() -> int:
         for mode, bsz in cs.RUNS:
             k1, qt, packed = k1_inputs(cs, ops, index, q[:bsz].contiguous(),
                                        mode, **params)
+            forms = {}
             lut, codes, tiles = k1
             kw = dict(query_tile=qt, packed=packed)
             want = ref.pq_scan_tiled_ref(*k1, **kw)
-            for name in {"as built", "generic uncapped"} & set(order):
-                current["lib"] = libs[name]
+            for name in [n for n in order if n in HELD]:
+                use(name)
                 pq_scan.reset_launch_counts()
                 if not torch.equal(pq_scan.pq_scan_tiled_kernel(*k1, **kw),
                                    want):
                     raise SystemExit(f"k1_limits: {name} K1 differs from "
                                      f"its plain version at {what} {mode}")
-                forms = {f: n for f, n in pq_scan.pq_scan_tiled_kernel.forms
-                         .items() if n}
+                forms[name] = {f: n for f, n in pq_scan.pq_scan_tiled_kernel
+                               .forms.items() if n}
             del want
             nbytes, lookups = cs.k1_bound(torch, k1)
             bms, by = cs.bound_ms(sum(nbytes.values()), lookups)
             code_reads = tiles.numel() * codes.shape[1] * codes.shape[2]
             times = []
             for name in order:
-                current["lib"] = libs[name]
+                use(name)
                 ms = cs.cuda_ms(torch, lambda: pq_scan.pq_scan_tiled_kernel(
                     *k1, **kw))
                 times.append(f"{name} {ms:.4f} ms")
@@ -252,24 +349,31 @@ def main() -> int:
         turns("gist", index, q, ("as built", "memory only", "lookups only",
                                  "staging only", "as built"))
         return 0
-    x, q, _ = make_dataset("sift1m", args.seed, n=args.n, n_queries=1024,
+    if not args.nbits8:
+        x, q, _ = make_dataset("sift1m", args.seed, n=args.n or 1_000_000,
+                               n_queries=1024, device=dev)
+        index = build_index(x, IndexConfig(**cs.INDEX), device=dev,
+                            generator=torch.Generator().manual_seed(
+                                args.seed))
+        order = ("as built", "memory only", "lookups only", "as built")
+        if args.plane:
+            cs.attach_planes(torch, index, "limits")
+            turns(f"{args.plane} plane", index, q, order,
+                  refine=RefineParams(args.plane, 4))
+            return 0
+        turns("main", index, q, order)
+        del index, x, q
+    n, cfg = ((cs.NBITS8_N, cs.NBITS8_INDEX) if not args.nbits8
+              or args.n is None else (args.n, dict(cs.INDEX, nbits=8)))
+    x, q, _ = make_dataset("sift1m", args.seed, n=n, n_queries=1024,
                            device=dev)
-    index = build_index(x, IndexConfig(**cs.INDEX), device=dev,
+    index = build_index(x, IndexConfig(**cfg), device=dev,
                         generator=torch.Generator().manual_seed(args.seed))
-    order = ("as built", "memory only", "lookups only", "as built")
-    if args.plane:
-        cs.attach_planes(torch, index, "limits")
-        turns(f"{args.plane} plane", index, q, order,
-              refine=RefineParams(args.plane, 4))
-        return 0
-    turns("main", index, q, order)
-    del index, x, q
-    x, q, _ = make_dataset("sift1m", args.seed, n=cs.NBITS8_N,
-                           n_queries=1024, device=dev)
-    index = build_index(x, IndexConfig(**cs.NBITS8_INDEX), device=dev,
-                        generator=torch.Generator().manual_seed(args.seed))
-    turns("nbits8", index, q, ("as built", "generic uncapped",
-                               "generic uncapped", "as built"))
+    print(f"limits: nbits8 index n={n} " + " ".join(
+        f"{k}={v}" for k, v in cfg.items()), flush=True)
+    turns("nbits8", index, q, ("as built", "memory only", "lookups only",
+                               "staging only", "k256 ranges of 8",
+                               "k256 512 threads", "generic", "as built"))
     return 0
 
 

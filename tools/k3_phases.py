@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a K3 CTA spends its time, on one NVIDIA H100.
 
-    python3 tools/k3_phases.py [--seed 0] [--n 1000000]
-                               [--wide | --plane pq4|binary]
+    python3 tools/k3_phases.py [--seed 0] [--n N]
+                               [--wide | --plane pq4|binary | --nbits8]
                                [--built-only] [--waves N]
     python3 tools/k3_phases.py --merge-paths [--seed 0]
 
@@ -30,7 +30,13 @@ where K3 takes its candidate-row form: the counters then time the scan
 to rows (no flush runs; the row select that follows is not counted, but
 is in the K3 time).  With ``--plane pq4|binary`` it runs chip_smoke.py's
 two-tier shape (the main index, ``refine=RefineParams(plane, 4)``: fetch
-400 over the plane's packed codes).  ``--waves N`` cuts K3 into N full
+400 over the plane's packed codes).  With ``--nbits8`` it builds
+chip_smoke.py's nbits=8 index instead (80,000 vectors, IVF1024, PQ64x8:
+64 KB of tables a query, K 256) and runs K3 at its fetch 100; with
+``--n N`` too, the N-vector SIFT1M-shaped corpus at the main path's
+IVF4096 built at ``nbits=8`` (Faiss's ``IVF4096,PQ64``).  Where a tile
+runs in several query groups, a CTA's phases are summed over its
+tile's group launches (the counters add).  ``--waves N`` cuts K3 into N full
 waves of CTAs instead of the number its wrapper picks from the shape
 (the tool replaces ``k3_wave_splits`` for the run).
 
@@ -81,7 +87,9 @@ PROBES = (
      "  if (tid == 0 && g_phase) {\n"
      "    ph[4] = clock64() - Te;\n    ph[5] = clock64() - T0;\n"
      "    long long* o = g_phase + 9 * ((size_t)split * gridDim.x + qi);\n"
-     "    for (int i = 0; i < 9; ++i) o[i] = ph[i];\n  }\n}"),
+     "    for (int i = 0; i < 9; ++i)\n"
+     "      atomicAdd((unsigned long long*)(o + i), (unsigned long long)ph[i]);\n"
+     "  }\n}"),
     ('extern "C" {\n',
      'extern "C" {\n'
      "int set_phase_buffer(void* p) {\n"
@@ -183,16 +191,72 @@ MERGE_PROBES = (
          "  }\n}\n"),
     )),
 )
+# The k256 form's phases (a CTA a query), where the source has the form:
+# set-up (table copy, state), compaction of the windows' planned
+# positions, a pass's loads and keep mask, its scoring, its filter (with
+# flushes and the pass's closing barriers), and the final flush and
+# write-out; passes and flushes counted.  Thread 0 of each CTA writes
+# them to g_phase as the scan probes do.
+K256_FIELDS = ("setup", "compact", "load", "score", "filter", "tail",
+               "total", "passes", "flushes")
+K256_PROBES = (
+    ("  using Piece = typename K256Piece<CH>::type;\n"
+     "  extern __shared__ __align__(16) int ksmem[];\n",
+     "  using Piece = typename K256Piece<CH>::type;\n"
+     "  extern __shared__ __align__(16) int ksmem[];\n"
+     "  long long T0 = clock64(), Ta = 0, kp[9] = {0};\n"),
+    ("  __syncthreads();\n\n  constexpr int SUB = KWIN / NT",
+     "  __syncthreads();\n  kp[0] = clock64() - T0;\n\n"
+     "  constexpr int SUB = KWIN / NT"),
+    ("    int sl[SUB], bk[SUB], ru[SUB];\n",
+     "    Ta = clock64();\n    int sl[SUB], bk[SUB], ru[SUB];\n"),
+    ("    const int n = planned << lb;",
+     "    kp[1] += clock64() - Ta;\n    const int n = planned << lb;"),
+    ("      const int first = p0 + tid;\n      int iid[KIPT],",
+     "      Ta = clock64();\n      kp[7]++;\n"
+     "      const int first = p0 + tid;\n      int iid[KIPT],"),
+    ("      for (int v = 0; v < P; ++v) {\n        Piece nxt[KIPT];",
+     "      { const long long Tb = clock64(); kp[2] += Tb - Ta; Ta = Tb; }\n"
+     "      for (int v = 0; v < P; ++v) {\n        Piece nxt[KIPT];"),
+    ("      // the filter: a kept item whose push",
+     "      { const long long Tb = clock64(); kp[3] += Tb - Ta; Ta = Tb; }\n"
+     "      // the filter: a kept item whose push"),
+    ("      while (again) {\n        flush(sel);\n",
+     "      while (again) {\n        kp[8]++;\n        flush(sel);\n"),
+    ("        again = __syncthreads_or(full);\n      }\n    }\n  }\n",
+     "        again = __syncthreads_or(full);\n      }\n"
+     "      kp[4] += clock64() - Ta;\n    }\n  }\n"
+     "  const long long Te = clock64();\n"),
+    ("  if (lane == 0 && ndco) atomicAdd(&dco[b], ndco);\n}",
+     "  if (lane == 0 && ndco) atomicAdd(&dco[b], ndco);\n"
+     "  if (tid == 0 && g_phase) {\n"
+     "    kp[5] = clock64() - Te;\n    kp[6] = clock64() - T0;\n"
+     "    long long* o = g_phase + 9 * ((size_t)split * gridDim.x + "
+     "blockIdx.x);\n"
+     "    for (int i = 0; i < 9; ++i)\n"
+     "      atomicAdd((unsigned long long*)(o + i), (unsigned long long)kp[i]);\n"
+     "  }\n}"),
+)
 # one CTA per SM: 120,000 B of shared memory, more than half of an SM's
 # the merge with its direct placement compiled out: every list count
 # takes the search
 SEARCH_ONLY = (("constexpr int MERGE_DIRECT = 6;",
                 "constexpr int MERGE_DIRECT = 0;"),)
-ALONE = (("  const size_t smem =\n"
-          "      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);\n",
-          "  const size_t smem0 =\n"
-          "      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);\n"
-          "  const size_t smem = smem0 > 120000 ? smem0 : 120000;\n"),)
+# (one probe set per design of the launch's shared-memory line)
+ALONE = (
+    ("one table flag", (
+        ("  const size_t smem = scan_smem_bytes(M, K, QT, FW, BLK, "
+         "global_tables, gs);\n",
+         "  const size_t smem0 = scan_smem_bytes(M, K, QT, FW, BLK, "
+         "global_tables, gs);\n"
+         "  const size_t smem = smem0 > 120000 ? smem0 : 120000;\n"),)),
+    ("a global-tables bool", (
+        ("  const size_t smem =\n"
+         "      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);\n",
+         "  const size_t smem0 =\n"
+         "      scan_smem_bytes(M, K, QT, FW, BLK, global_tables != 0, gs);\n"
+         "  const size_t smem = smem0 > 120000 ? smem0 : 120000;\n"),)),
+)
 
 
 def matching(build, sets, what):
@@ -272,7 +336,8 @@ def summary(buf, fields, mhz) -> str:
     rows = buf.reshape(-1, len(fields)).double().cpu().T.tolist()
     parts = []
     for name, vals in zip(fields, rows):
-        count = name in ("rounds", "flushes") or name.startswith("n_")
+        count = (name in ("rounds", "flushes", "passes")
+                 or name.startswith("n_"))
         scale = 1.0 if count else float(mhz)
         parts.append(f"{name} mean {statistics.fmean(vals) / scale:.2f} "
                      f"max {max(vals) / scale:.2f}")
@@ -291,6 +356,14 @@ def sm_clock(torch) -> str:
     torch.cuda.synchronize()
     print(f"phases: {card}, {limit} W, SM clock {mhz} MHz", flush=True)
     return mhz
+
+
+def nbits8_config(cs, args):
+    """``--nbits8``: (n, IndexConfig kwargs) of chip_smoke.py's nbits=8
+    index, or, with ``--n``, of the main path's index at nbits=8."""
+    if args.n is None:
+        return cs.NBITS8_N, cs.NBITS8_INDEX
+    return args.n, dict(cs.INDEX, nbits=8)
 
 
 def merge_paths(torch, cs, build, pq_scan, ref, current, probes, mfields,
@@ -341,12 +414,17 @@ def merge_paths(torch, cs, build, pq_scan, ref, current, probes, mfields,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--n", type=int, default=None,
+                    help="corpus size (default 1,000,000; with --nbits8 "
+                    "chip_smoke.py's nbits=8 index, and with --n the main "
+                    "path's IVF4096 at nbits=8)")
     shape = ap.add_mutually_exclusive_group()
     shape.add_argument("--wide", action="store_true",
                        help="the wide two-tier shape (fetch 16,000)")
     shape.add_argument("--plane", choices=("pq4", "binary"),
                        help="the two-tier shape over this plane (fetch 400)")
+    shape.add_argument("--nbits8", action="store_true",
+                       help="an nbits=8 index (PQ64x8, K 256)")
     ap.add_argument("--built-only", action="store_true",
                     help="skip the runs with each CTA alone on its SM")
     ap.add_argument("--waves", type=int, default=0,
@@ -374,6 +452,10 @@ def main() -> int:
     round_design, rprobes = matching(build, ROUND_PROBES, "the scan round")
     design, mfields, mprobes = matching(build, MERGE_PROBES, "topk_merge")
     probes = PROBES + rprobes + mprobes
+    text = (build.CSRC / "pq_scan_topk.cu").read_text()
+    if all(text.count(a) == 1 for a, _ in K256_PROBES):
+        probes += K256_PROBES
+        print("phases: the k256 form probed", flush=True)
     print(f"phases: scan rounds: {round_design}; merge: {design}",
           flush=True)
     stock = build.load
@@ -384,12 +466,18 @@ def main() -> int:
         return merge_paths(torch, cs, build, pq_scan, ref, current, probes,
                            mfields, args.seed)
     libs = {"as built": build_probed(build, "phases", probes),
-            "alone": build_probed(build, "phases_alone", probes + ALONE)}
+            "alone": build_probed(build, "phases_alone",
+                                  probes + matching(build, ALONE,
+                                                    "the launch")[-1])}
     dev = torch.device("cuda")
-    x, q, _ = make_dataset("sift1m", args.seed, n=args.n, n_queries=1024,
+    n, cfg = nbits8_config(cs, args) if args.nbits8 else (
+        args.n or 1_000_000, cs.INDEX)
+    x, q, _ = make_dataset("sift1m", args.seed, n=n, n_queries=1024,
                            device=dev)
-    index = build_index(x, IndexConfig(**cs.INDEX), device=dev,
+    index = build_index(x, IndexConfig(**cfg), device=dev,
                         generator=torch.Generator().manual_seed(args.seed))
+    print(f"phases: index n={n} " + " ".join(
+        f"{k}={v}" for k, v in cfg.items()), flush=True)
     mhz = sm_clock(torch)
     params = {}
     current["lib"] = libs["as built"]
@@ -406,6 +494,8 @@ def main() -> int:
         m, k, blk = k3[0].shape[1], k3[0].shape[2], k3[1].shape[1]
         fw = pq_scan.topk_width(fetch)
         groups = pq_scan.k3_query_groups(m, k, qt, fw, blk)
+        k256 = getattr(groups, "k256", False)
+        fields = K256_FIELDS if k256 else FIELDS
         if hasattr(pq_scan, "k3_wave_splits"):
             splits, s_per = pq_scan.k3_wave_splits(
                 groups, *tiles.shape, m, k, 0 if groups.global_state else fw,
@@ -418,8 +508,9 @@ def main() -> int:
             if how == "alone" and args.built_only:
                 continue
             current["lib"] = lib
-            buf = torch.zeros(tiles.shape[0] * splits * len(FIELDS),
-                              dtype=torch.int64, device=dev)
+            ctas = tiles.shape[0] * (qt if k256 else 1) * splits
+            buf = torch.zeros(ctas * len(fields), dtype=torch.int64,
+                              device=dev)
             mbuf = torch.zeros(k3[0].shape[0] * len(mfields),
                                dtype=torch.int64, device=dev)
             if (lib.set_phase_buffer(buf.data_ptr())
@@ -433,10 +524,11 @@ def main() -> int:
                 raise SystemExit(f"k3_phases: probed K3 differs in {mode}")
             ms = device_ms(torch, lambda: pq_scan.pq_scan_topk_kernel(
                 *k3, **kw, plan_width=pw))
-            rows = buf.reshape(-1, len(FIELDS)).double().cpu().T.tolist()
-            parts = [summary(buf, FIELDS, mhz)]
+            parts = [summary(buf, fields, mhz)]
+            form = getattr(groups, "form", "shared")
             print(f"phases: {mode} {how} B={bsz} QT={qt} S={tiles.shape[1]}"
-                  f" fetch={fetch} splits={splits} CTAs={len(rows[0])} K3 "
+                  f" fetch={fetch} form {form}, {len(groups)} launches, "
+                  f"splits={splits} CTAs={ctas} K3 "
                   f"{ms:.4f} ms (us per CTA; counts): " + ", ".join(parts),
                   flush=True)
             if splits > 1 and how == "as built":
