@@ -18,8 +18,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 splits), each launch in the form its shape
                 names; K3 also split over the grid (few
                 tiles, long S, sparse plans), in query groups and with
-                global tables, in its k256 form (QT 1 / 3 / 8 / 64, M
-                64 / 72 / 40, fetch 100 / 400, one split and many), and
+                global tables (GT: QT 1 / 3 / 8 / 64, M 256 / 264 /
+                240, fetch 100 / 400, one split and many, two passes a
+                query; GT-ldg at M 250), in its k256 form (QT 1 / 3 /
+                8 / 64, M 64 / 72 / 40, fetch 100 / 400, one split and
+                many), and
                 in its candidate-row form (fetch
                 9000, 16000, the plan width, 40000: one scan to rows
                 per query group, held alone against scan_rows_ref, and
@@ -494,22 +497,54 @@ def check_kernels(torch, dev, seed):
     log(f"kernels: K3's k256 form bitwise equal to plain version in {n_k256} "
         "cases (QT 1 / 3 / 8 / 64, M 64 / 72 / 40, fetch 100 / 400, "
         "tombstones, one split and many)")
-    # K3 where one query's tables pass a CTA's shared memory (M 256,
-    # K 256: 256 KB): tables in global memory, groups of up to 64 by the
-    # selection state alone
-    n_global = 0
+    # K3 where one query's table passes a CTA's shared memory (M 256 / 264
+    # / 240 at K 256: 240-264 KB): the GT form (a CTA a query, its kept
+    # items listed, the table staged by range; M 264: rows in 8-byte
+    # pieces and a short last range), QT 1 / 3 / 8 / 64, fetch 100 and
+    # 400, tombstones or none, tie-heavy and random f32, one split (S 12 /
+    # 40) and many (S 300, sparse plans too); a query of 2,000-2,600 kept
+    # items in one split (B 300: one wave of CTAs, so one split): two
+    # passes.  Then M 250 (not a multiple of 8): the GT-ldg form (tables
+    # through __ldg), groups of up to 64 by the selection state alone
+    n_global, gt_splits = 0, set()
+    for mode, qt, b in (("paged", 1, 16), ("grouped", 3, 12),
+                        ("clustered", 8, 16), ("grouped", 8, 16),
+                        ("clustered", 64, 64)):
+        for m, fetch, ints, with_dead, s, p_valid in (
+                (256, 100, True, True, 12, 0.85),
+                (264, 400, False, False, 300, 0.85),
+                (240, 100, False, True, 300, 0.05),
+                (256, 400, True, False, 40, 0.85)):
+            splits, _, groups = k3_case(
+                torch, g, dev, mode=mode, packed=False, ints=ints,
+                with_dead=with_dead, fetch=fetch, qt=qt, s=s, tb=400, b=b,
+                m=m, k=256, p_valid=p_valid)
+            check(groups.form == "GT" and len(groups) == 1,
+                  f"K3 GT case {mode} qt={qt} m={m}: form {groups.form}, "
+                  f"{len(groups)} launches")
+            gt_splits.add(min(splits, 2))
+            n_global += 1
+    check(gt_splits == {1, 2}, "K3 GT cases: not both one split and many")
+    for ints in (True, False):
+        splits, _, groups = k3_case(
+            torch, g, dev, mode="paged", packed=False, ints=ints,
+            with_dead=False, fetch=100, qt=1, s=120, tb=400, b=300, m=256,
+            k=256, p_valid=0.95)
+        check(groups.form == "GT" and splits == 1, f"K3 GT two-pass case: "
+              f"form {groups.form}, {splits} splits")
+        n_global += 1
     for mode in ("paged", "grouped", "clustered"):
-        for qt, b in ((8, 16), (64, 128)):
-            for ints in (True, False):
-                _, _, groups = k3_case(
-                    torch, g, dev, mode=mode, packed=False, ints=ints,
-                    with_dead=ints, fetch=100, qt=qt, s=40, tb=60, b=b,
-                    m=256, k=256)
-                check(groups.global_tables, f"K3 global case {mode} qt={qt} "
-                      "kept its tables in shared memory")
-                n_global += 1
+        _, _, groups = k3_case(
+            torch, g, dev, mode=mode, packed=False, ints=True,
+            with_dead=True, fetch=100, qt=8, s=40, tb=60, b=16, m=250,
+            k=256)
+        check(groups.form == "GT-ldg", f"K3 GT-ldg case {mode}: form "
+              f"{groups.form}")
+        n_global += 1
     log(f"kernels: K3 with global tables bitwise equal to plain version in "
-        f"{n_global} cases")
+        f"{n_global} cases (GT at QT 1 / 3 / 8 / 64, M 256 / 264 / 240, "
+        "fetch 100 / 400, tombstones, one split and many, two passes a "
+        "query; GT-ldg at M 250)")
     # K3 where one query's selection arrays pass a CTA's shared memory
     # (fetch above 8192): the candidate-row form, a scan to rows and a row
     # select, with the tables in shared memory (M 16 / 15) or global memory
@@ -1831,11 +1866,12 @@ def gist_path(torch, dev, seed, lookups_per_s):
           "gist: a K1 launch left the staged form")
     check(launches["pq_scan_topk_kernel[GT]"]
           == launches["pq_scan_topk_kernel"] > 0,
-          "gist: a K3 launch left the global-table form")
+          "gist: a K3 launch left the GT form")
     rows = {}
     for mode, bsz in RUNS:
         held = hold_kernels(torch, index, q[:bsz].contiguous(), mode,
-                            "gist", global_tables=True, form="staged")
+                            "gist", global_tables=True, form="staged",
+                            k3_form="GT")
         rows[mode] = kernel_rows(torch, held, mode, "timing: gist",
                                  lookups_per_s)
         del held

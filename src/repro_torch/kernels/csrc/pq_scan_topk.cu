@@ -68,11 +68,13 @@
 //   * Scoring as in K1.  score_row (adc.cuh), the ascending-m f32 sum; the
 //     thread of an item scores its row for every query of the tile that
 //     keeps it, so K3 agrees bitwise with K1 and with both plain versions.
-//     Where one query's tables alone pass a CTA's shared memory (M = 256
-//     at K = 256: 256 KB), the GT instantiation reads them from global
-//     memory through the read-only cache (adc.cuh's LdgTable) and shared
-//     memory holds only the selection state and plan slots; the shape
-//     alone picks it (kernels/pq_scan.py::query_groups).
+//     Where one query's tables alone pass a CTA's shared memory and the
+//     shape is not k256's (M not a multiple of 8 at K = 256, or K 16 /
+//     packed with M in the thousands: no index of the repository), the
+//     GT-ldg instantiation reads them from global memory through the
+//     read-only cache (adc.cuh's LdgTable) and shared memory holds only
+//     the selection state and plan slots; the shape alone picks it
+//     (kernels/pq_scan.py::query_groups).
 //   * Candidate rows (GS).  Where one query's selection arrays pass a
 //     CTA's shared memory (4 * 6 * FW bytes: 393 KB at FW = 16384, fetch
 //     above 8192), a filter, a queue and a network in device memory would
@@ -100,6 +102,11 @@
 //     shared memory, the positions its query plans compacted first
 //     (pq_scan_topk_k256, below).  The shape alone picks it
 //     (kernels/pq_scan.py::k256_fits).
+//   * Global tables (GT).  At K = 256 where one query's table passes a
+//     CTA's shared memory (PQ256x8, gist: 256 KB), a CTA a query too, its
+//     kept items listed first and scored a pass of 2,048 at a time against
+//     the table staged through shared memory in ranges of 16
+//     subquantizers (pq_scan_topk_gt, below; kernels/pq_scan.py::gt_fits).
 //
 // pos = slot * BLK + lane is unique among a query's kept candidates and
 // every pad is (+inf, PAD_POS, -1), so the result is the stable selection
@@ -678,6 +685,300 @@ __global__ void __launch_bounds__(NT, 3) pq_scan_topk_k256(
   if (lane == 0 && ndco) atomicAdd(&dco[b], ndco);
 }
 
+// The global-table form (GT): unpacked K = 256 codes as in k256, but one
+// query's table does not fit in shared memory (PQ256x8: 256 KB).  The PR 14
+// form (pq_scan_topk<.., GT = true, ..>, now "GT-ldg") walked a tile's
+// whole union for all its queries and read every lookup through the L2
+// (LdgTable).  Here a CTA is one query of one tile and one split, as in
+// k256:
+//   * it compacts the positions its query plans, KWIN at a time, in
+//     ascending order (k256's windows);
+//   * it tests their items GCK a thread at once (id, co-list, tombstone,
+//     then rank_of), counts the DCO, and appends the kept ones (item, pos,
+//     id) to a list in shared memory, in ascending order (a ballot a warp
+//     and a prefix sum of the warps' counts): SEIL's skipped duplicates,
+//     tombstones and empty lanes take no slot in a pass;
+//   * once the list holds a pass of GPASS = GIPT * NT items (or at the
+//     end), the CTA scores them: the query's table comes through shared
+//     memory in ranges of GR subquantizers (16 KB), cp.async filling one
+//     of two buffers while the other is scored (one barrier a range), each
+//     thread's GIPT sums carried in registers from range to range, each
+//     item's code piece of the next range loaded while this one is scored
+//     (adc.cuh's score_k256_piece); the items past the pass move to the
+//     front of the list;
+//   * the filter, queue and flush are k256's (scores held in registers
+//     across a flush), with the retries after a flush warp-aggregated
+//     (push_warp, not one atomic an item: 1% faster, tools/k3_phases.py
+//     --gist).
+// A query's table is read once a pass: once for up to 2,048 kept items.
+// Each sum is one f32 accumulator over ascending m (ranges, pieces and
+// bytes in order), so the result is bitwise k256's, the shared form's and
+// the plain version's.
+constexpr int GR = 16;    // subquantizers in a range of a GT table (16 KB)
+constexpr int GIPT = 8;   // kept items a GT thread scores in a pass
+constexpr int GCK = 4;    // items a GT thread tests for keep at a time
+constexpr int GPASS = GIPT * NT;         // items of a full pass
+constexpr int GLIST = GPASS + GCK * NT;  // list entries: a pass and a step
+
+// Words of a GT CTA's shared memory: two range buffers, one query's
+// selection state, a window of compacted positions and its warp counts,
+// the kept list (item, pos, id) and two sets of a step's warp counts.
+__host__ __device__ __forceinline__ size_t gt_smem_words(int FW) {
+  return 2 * (size_t)GR * K256 + sel_array_words(1, FW) + sel_count_words(1) +
+         3 * KWIN + KWIN / 32 + 3 * (size_t)GLIST + 2 * GCK * (NT / 32);
+}
+
+template <int CH>
+__global__ void __launch_bounds__(NT, 2) pq_scan_topk_gt(
+    const float* __restrict__ lut, const uint8_t* __restrict__ codes,
+    const int32_t* __restrict__ block_ids,
+    const int32_t* __restrict__ block_other,
+    const int32_t* __restrict__ tile_idx, const int32_t* __restrict__ rank_of,
+    const int32_t* __restrict__ slot_of, const int32_t* __restrict__ rank_u,
+    const uint8_t* __restrict__ dead, float* __restrict__ part_d,
+    int32_t* __restrict__ part_pos, int32_t* __restrict__ part_id,
+    int32_t* __restrict__ dco, int M, int lb, int S, int QT, int QS,
+    int nlist, int FW, int fetch, int s_per) {
+  using Piece = typename K256Piece<CH>::type;
+  constexpr int PR = GR / CH;  // pieces of a full range
+  constexpr int SUB = KWIN / NT, WARPS = NT / 32;
+  extern __shared__ __align__(16) int gsmem[];
+  float* tabs = reinterpret_cast<float*>(gsmem);  // 2 x GR * 256
+  int* sel_at = gsmem + 2 * GR * K256;
+  Sel sel;
+  carve(sel, sel_at, sel_at + sel_array_words(1, FW), 1, FW, fetch);
+  int* wblk = sel_at + sel_array_words(1, FW) + sel_count_words(1);  // KWIN
+  int* wslot = wblk + KWIN;                                          // KWIN
+  int* wru = wslot + KWIN;                                           // KWIN
+  int* wcnt = wru + KWIN;        // KWIN / 32
+  int* litem = wcnt + KWIN / 32;  // GLIST: the kept list
+  int* lpos = litem + GLIST;
+  int* lid = lpos + GLIST;
+  int* kcnt = lid + GLIST;  // 2 x GCK * WARPS: a step's warp counts
+  const int qi = blockIdx.x / QT, b = qi * QS + blockIdx.x % QT;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int BLK = 1 << lb;
+  const int s0 = split * s_per, s1 = min(S, s0 + s_per);
+  const int ranges = (M + GR - 1) / GR;
+  const float* glut = lut + (size_t)b * M * K256;
+  for (int j = tid; j < FW; j += NT) {
+    sel.ad[j] = inf();
+    sel.ap[j] = PAD_POS;
+    sel.ai[j] = -1;
+  }
+  for (int j = tid; j < (int)sel_count_words(1); j += NT) sel.cnt[j] = 0;
+  int ndco = 0;  // this thread's valid items of planned positions
+
+  // range r's tables into buffer r & 1
+  auto stage = [&](int r) {
+    const int m0 = r * GR, n4 = min(GR, M - m0) * (K256 / 4);
+    float* d = tabs + (r & 1) * GR * K256;
+    const float* s = glut + (size_t)m0 * K256;
+    for (int c = tid; c < n4; c += NT) cp_async16(d + 4 * c, s + 4 * c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // the code pieces of range r of this thread's items (none past `has`)
+  auto load_pieces = [&](Piece(&p)[GIPT][PR], const uint32_t(&item)[GIPT],
+                         unsigned has, int r) {
+    const int m0 = r * GR, np = min(GR, M - m0) / CH;
+#pragma unroll
+    for (int i = 0; i < GIPT; ++i)
+#pragma unroll
+      for (int v = 0; v < PR; ++v) {
+        p[i][v] = Piece{};
+        if (((has >> i) & 1u) && v < np)
+          p[i][v] = __ldg(reinterpret_cast<const Piece*>(
+                              codes + (size_t)item[i] * M + m0) +
+                          v);
+      }
+  };
+  // Score the list's first n entries against every range of the table and
+  // offer them to the filter.  All threads call it; it starts with a
+  // barrier (the list is written) and ends with one.
+  auto score_pass = [&](int n) {
+    stage(0);
+    __syncthreads();
+    uint32_t item[GIPT];
+    unsigned has = 0;
+    float acc[GIPT];
+#pragma unroll
+    for (int i = 0; i < GIPT; ++i) {
+      const int e = i * NT + tid;
+      item[i] = 0u;
+      if (e < n) {
+        item[i] = (uint32_t)litem[e];
+        has |= 1u << i;
+      }
+      acc[i] = 0.f;
+    }
+    Piece cur[GIPT][PR], nxt[GIPT][PR];
+    load_pieces(cur, item, has, 0);
+    for (int r = 0; r < ranges; ++r) {
+      const int np = min(GR, M - r * GR) / CH;
+      // range r's tables have landed, and every thread is done with range
+      // r - 1, whose buffer range r + 1 takes
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      if (r + 1 < ranges) {
+        stage(r + 1);
+        load_pieces(nxt, item, has, r + 1);
+      }
+      const float* t = tabs + (r & 1) * GR * K256;
+#pragma unroll
+      for (int i = 0; i < GIPT; ++i)
+#pragma unroll
+        for (int v = 0; v < PR; ++v)
+          if (((has >> i) & 1u) && v < np)
+            acc[i] = score_k256_piece<CH>(acc[i], cur[i][v], t + v * CH * K256);
+#pragma unroll
+      for (int i = 0; i < GIPT; ++i)
+#pragma unroll
+        for (int v = 0; v < PR; ++v) cur[i][v] = nxt[i][v];
+    }
+    // the filter: a kept item whose push found the queue full waits for
+    // the flush and is tried again against the new key
+    unsigned pend = 0;
+    bool full = false;
+#pragma unroll
+    for (int i = 0; i < GIPT; ++i) {
+      const int e = i * NT + tid;
+      const int pos = (has >> i) & 1u ? lpos[e] : 0;
+      const bool want = ((has >> i) & 1u) && sel.beats(0, acc[i], pos);
+      if (!push_warp(sel, 0, want, acc[i], pos, want ? lid[e] : -1, full))
+        pend |= 1u << i;
+    }
+    bool again = __syncthreads_or(full);
+    while (again) {
+      flush(sel);
+      full = false;
+#pragma unroll
+      for (int i = 0; i < GIPT; ++i) {  // warp-aggregated retries
+        const int e = i * NT + tid;
+        const bool retry = (pend >> i) & 1u;
+        const int pos = retry ? lpos[e] : 0;
+        const bool want = retry && sel.beats(0, acc[i], pos);
+        if (push_warp(sel, 0, want, acc[i], pos, want ? lid[e] : -1, full))
+          pend &= ~(1u << i);
+      }
+      again = __syncthreads_or(full);
+    }
+  };
+
+  __syncthreads();
+  int fill = 0, par = 0;  // entries in the kept list; kcnt's set
+  for (int w0 = s0; w0 < s1; w0 += KWIN) {
+    // the window's positions this query plans, in ascending order (k256's
+    // compaction)
+    int sl[SUB], bk[SUB], ru[SUB];
+    unsigned pm[SUB];
+#pragma unroll
+    for (int k = 0; k < SUB; ++k) {
+      const int s = w0 + k * NT + tid;
+      const bool in = s < s1;
+      sl[k] = in ? slot_of[(size_t)b * S + s] : -1;
+      bk[k] = in ? tile_idx[(size_t)qi * S + s] : 0;
+      ru[k] = in ? rank_u[(size_t)b * S + s] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < SUB; ++k) {
+      pm[k] = __ballot_sync(FULL, sl[k] >= 0);
+      if (lane == 0) wcnt[k * WARPS + warp] = __popc(pm[k]);
+    }
+    __syncthreads();
+    int planned = 0, off[SUB];
+#pragma unroll
+    for (int c = 0; c < SUB * WARPS; ++c) {
+      if (c % WARPS == warp) off[c / WARPS] = planned;
+      planned += wcnt[c];
+    }
+#pragma unroll
+    for (int k = 0; k < SUB; ++k) {
+      if (sl[k] < 0) continue;
+      const int e = off[k] + __popc(pm[k] & ((1u << lane) - 1u));
+      wblk[e] = bk[k];
+      wslot[e] = sl[k];
+      wru[e] = ru[k];
+    }
+    // the entries are written, and every thread has read the counts
+    __syncthreads();
+    const int n = planned << lb;  // items of the planned positions
+    for (int f0 = 0; f0 < n; f0 += GCK * NT) {
+      // GCK items a thread: id, co-list and tombstone requested together,
+      // then rank_of for the co-assigned ones
+      int iid[GCK], oth[GCK], ps[GCK], rk[GCK];
+      uint32_t it[GCK];
+      bool keep[GCK];
+#pragma unroll
+      for (int k = 0; k < GCK; ++k) {
+        const int f = f0 + k * NT + tid;
+        iid[k] = -1, oth[k] = -1, ps[k] = 0, rk[k] = 0, it[k] = 0u;
+        keep[k] = false;
+        if (f < n) {
+          const int e = f >> lb, ln = f & (BLK - 1);
+          const size_t item = ((size_t)wblk[e] << lb) + ln;
+          iid[k] = block_ids[item];
+          oth[k] = block_other[item];
+          keep[k] = dead == nullptr || dead[item] == 0;
+          it[k] = (uint32_t)item;
+          ps[k] = wslot[e] * BLK + ln;
+          rk[k] = wru[e];
+        }
+      }
+      int* kc = kcnt + par * GCK * WARPS;
+      unsigned km[GCK];
+#pragma unroll
+      for (int k = 0; k < GCK; ++k) {
+        ndco += iid[k] >= 0;
+        keep[k] = keep[k] && iid[k] >= 0;
+        if (keep[k] && oth[k] >= 0)
+          keep[k] = rank_of[(size_t)b * nlist + oth[k]] >= rk[k];
+        km[k] = __ballot_sync(FULL, keep[k]);
+        if (lane == 0) kc[k * WARPS + warp] = __popc(km[k]);
+      }
+      __syncthreads();
+      int kept = 0, koff[GCK];
+#pragma unroll
+      for (int c = 0; c < GCK * WARPS; ++c) {
+        if (c % WARPS == warp) koff[c / WARPS] = kept;
+        kept += kc[c];
+      }
+#pragma unroll
+      for (int k = 0; k < GCK; ++k) {
+        if (!keep[k]) continue;
+        const int e = fill + koff[k] + __popc(km[k] & ((1u << lane) - 1u));
+        litem[e] = (int)it[k];
+        lpos[e] = ps[k];
+        lid[e] = iid[k];
+      }
+      fill += kept;
+      par ^= 1;
+      if (fill >= GPASS) {
+        score_pass(GPASS);
+        // the entries past the pass move to the front (fewer than a step:
+        // no overlap); the next step's barrier publishes them
+        fill -= GPASS;
+        for (int j = tid; j < fill; j += NT) {
+          litem[j] = litem[GPASS + j];
+          lpos[j] = lpos[GPASS + j];
+          lid[j] = lid[GPASS + j];
+        }
+      }
+    }
+  }
+  if (fill > 0) score_pass(fill);
+  __syncthreads();
+  if (sel.any_queued()) flush(sel);
+  for (int c = tid; c < fetch; c += NT) {
+    const size_t o = ((size_t)b * splits + split) * fetch + c;
+    part_d[o] = sel.ad[c];
+    part_pos[o] = sel.ap[c];
+    part_id[o] = sel.ai[c];
+  }
+  for (int o = 16; o > 0; o >>= 1) ndco += __shfl_xor_sync(FULL, ndco, o);
+  if (lane == 0 && ndco) atomicAdd(&dco[b], ndco);
+}
+
 // (d, pos) as one 64-bit key that orders as lex_less does: the f32 bits
 // made monotone (-0.0 taken as +0.0), then pos (>= 0) below them.
 __device__ __forceinline__ uint64_t merge_key(float d, int pos) {
@@ -920,36 +1221,45 @@ ScanKernel scan_kernel(bool packed) {
   return packed ? pq_scan_topk<true, GT, GS> : pq_scan_topk<false, GT, GS>;
 }
 
+// Where a scan CTA's tables are, as pq_scan_topk_launch's global_tables
+// takes it: in shared memory, read from global memory through __ldg (the
+// PR 14 form, "GT-ldg"), the k256 form's (one query's table in shared
+// memory), or the GT form's (one query's table staged by range).
+enum Tables { SHARED = 0, LDG = 1, K256_TABLE = 2, RANGES = 3 };
+
 // Dynamic shared memory of one scan CTA (pq_scan_topk_smem_bytes), by
-// where its tables are (`tables`: 0 shared, 1 global, 2 the k256 form,
-// whose CTA holds one query whatever QT).
+// where its tables are (`tables`; the k256 and GT forms' CTA holds one
+// query whatever QT).
 size_t scan_smem_bytes(int M, int K, int QT, int FW, int BLK, int tables,
                        bool gs) {
-  if (tables == 2)
+  if (tables == K256_TABLE)
     return sizeof(int) * ((size_t)M * K + sel_array_words(1, FW) +
                           sel_count_words(1) + 3 * KWIN + KWIN / 32);
+  if (tables == RANGES) return sizeof(int) * gt_smem_words(FW);
   const int P = NT / BLK > 1 ? NT / BLK : 1;
   const size_t tab = tables ? 0 : (size_t)QT * M * K;
   const size_t arrays = gs ? 0 : sel_array_words(QT, FW) + sel_count_words(QT);
   return sizeof(int) * (tab + arrays + (size_t)QT * P + P + QT);
 }
 
-// The k256 scan for rows of CH-byte pieces.
-template <int CH>
-cudaError_t launch_k256(dim3 grid, size_t smem, cudaStream_t st,
-                        const void* lut, const void* codes,
-                        const void* block_ids, const void* block_other,
-                        const void* tile_idx, const void* rank_of,
-                        const void* slot_of, const void* rank_u,
-                        const void* dead, void* part_d, void* part_pos,
-                        void* part_id, void* dco, int M, int BLK, int S,
-                        int QT, int QS, int nlist, int FW, int fetch,
-                        int s_per) {
+// A kernel of a form that runs a CTA a query (k256, GT).
+using QueryKernel = decltype(&pq_scan_topk_k256<16>);
+
+// The k256 or GT scan (`kern`, for rows of 16- or 8-byte pieces).
+cudaError_t launch_query_ctas(QueryKernel kern, dim3 grid, size_t smem,
+                              cudaStream_t st, const void* lut,
+                              const void* codes, const void* block_ids,
+                              const void* block_other, const void* tile_idx,
+                              const void* rank_of, const void* slot_of,
+                              const void* rank_u, const void* dead,
+                              void* part_d, void* part_pos, void* part_id,
+                              void* dco, int M, int BLK, int S, int QT,
+                              int QS, int nlist, int FW, int fetch,
+                              int s_per) {
   cudaError_t err = cudaFuncSetAttribute(
-      pq_scan_topk_k256<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  pq_scan_topk_k256<CH><<<grid, dim3(NT), smem, st>>>(
+  kern<<<grid, dim3(NT), smem, st>>>(
       static_cast<const float*>(lut), static_cast<const uint8_t*>(codes),
       static_cast<const int32_t*>(block_ids),
       static_cast<const int32_t*>(block_other),
@@ -973,16 +1283,17 @@ int launch_scan(const void* lut, const void* codes, const void* block_ids,
                 int S, int QT, int QS, int nlist, int FW, int fetch,
                 int packed, int splits, int s_per, int global_tables,
                 void* stream) {
-  const bool k256 = global_tables == 2;
-  if (QT < 1 || (QT > MAX_QT && !k256) || QT > QS || B % QS != 0 ||
+  const bool per_query =
+      global_tables == K256_TABLE || global_tables == RANGES;
+  if (QT < 1 || (QT > MAX_QT && !per_query) || QT > QS || B % QS != 0 ||
       !pow2(BLK) || splits < 1 || s_per < 1 || splits > 65535 ||
-      global_tables < 0 || global_tables > 2)
+      global_tables < SHARED || global_tables > RANGES)
     return (int)cudaErrorInvalidValue;
   const int T = B / QS;
   if (T == 0) return 0;
   const bool gs = row_n != nullptr;
   const size_t smem = scan_smem_bytes(M, K, QT, FW, BLK, global_tables, gs);
-  if (k256) {
+  if (per_query) {
     // unpacked K 256, rows in 8- or 16-byte pieces, the table 16-byte
     // aligned, and the CTA's state within a block's shared memory
     const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
@@ -990,19 +1301,16 @@ int launch_scan(const void* lut, const void* codes, const void* block_ids,
         reinterpret_cast<uintptr_t>(lut) % 16 != 0 || smem > 232448 ||
         (long long)T * QT > 0x7fffffffLL)
       return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const dim3 grid(T * QT, splits);
-    return (int)(M % 16 == 0 && at % 16 == 0
-                     ? launch_k256<16>(grid, smem, st, lut, codes, block_ids,
-                                       block_other, tile_idx, rank_of,
-                                       slot_of, rank_u, dead, part_d,
-                                       part_pos, part_id, dco, M, BLK, S, QT,
-                                       QS, nlist, FW, fetch, s_per)
-                     : launch_k256<8>(grid, smem, st, lut, codes, block_ids,
-                                      block_other, tile_idx, rank_of, slot_of,
-                                      rank_u, dead, part_d, part_pos, part_id,
-                                      dco, M, BLK, S, QT, QS, nlist, FW,
-                                      fetch, s_per));
+    const bool p16 = M % 16 == 0 && at % 16 == 0;
+    const QueryKernel kern =
+        global_tables == RANGES
+            ? (p16 ? pq_scan_topk_gt<16> : pq_scan_topk_gt<8>)
+            : (p16 ? pq_scan_topk_k256<16> : pq_scan_topk_k256<8>);
+    return (int)launch_query_ctas(
+        kern, dim3(T * QT, splits), smem, static_cast<cudaStream_t>(stream),
+        lut, codes, block_ids, block_other, tile_idx, rank_of, slot_of,
+        rank_u, dead, part_d, part_pos, part_id, dco, M, BLK, S, QT, QS,
+        nlist, FW, fetch, s_per);
   }
   const int vec16 =
       (MB % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
@@ -1044,7 +1352,9 @@ const char* repro_cuda_error_string(int err) {
 // queue fills (none in the candidate-row form), and the round's staged
 // plan slots and DCO counts (layout at the top of pq_scan_topk); with
 // global_tables 2, of the k256 form's CTA (one query: its table, its
-// selection state and a window of compacted positions, whatever QT).  The
+// selection state and a window of compacted positions, whatever QT); with
+// 3, of the GT form's (gt_smem_words: two range buffers, one query's
+// selection state, a window, the kept list).  The
 // wrapper picks the form and cuts a tile into query groups by it
 // (kernels/pq_scan.py::query_groups).
 size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
@@ -1060,13 +1370,14 @@ size_t pq_scan_topk_smem_bytes(int M, int K, int QT, int FW, int BLK,
 int pq_scan_topk_ctas_per_sm(int packed, int global_tables, int global_state,
                              size_t smem) {
   int n = 0;
-  if (global_tables == 2) {  // the k256 form (its 16-byte instantiation)
+  if (global_tables == K256_TABLE || global_tables == RANGES) {
+    // the k256 or GT form (its 16-byte instantiation)
+    const QueryKernel kern = global_tables == RANGES ? pq_scan_topk_gt<16>
+                                                     : pq_scan_topk_k256<16>;
     cudaError_t err = cudaFuncSetAttribute(
-        pq_scan_topk_k256<16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, pq_scan_topk_k256<16>, NT, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, NT, smem);
     return err == cudaSuccess ? n : -(int)err;
   }
   const ScanKernel kern =
@@ -1098,8 +1409,9 @@ size_t topk_merge_smem_bytes(int splits, int fetch) {
 // first row of tile 0, and CTA qi takes rows qi * QS + [0, QT).  Split y
 // scans positions [y * s_per, min(S, (y + 1) * s_per)).  FW is a power of
 // two >= max(fetch, 2); BLK is a power of two; 1 <= QT <= min(QS, 64).
-// global_tables: 1, read the tables from global memory; 2, the k256 form
-// (a CTA a query of a tile: grid (T * QT, splits); any QT <= QS).
+// global_tables (enum Tables): 1, read the tables from global memory
+// (GT-ldg); 2, the k256 form, 3 the GT form (a CTA a query of a tile: grid
+// (T * QT, splits); any QT <= QS).
 int pq_scan_topk_launch(const void* lut, const void* codes,
                         const void* block_ids, const void* block_other,
                         const void* tile_idx, const void* rank_of,

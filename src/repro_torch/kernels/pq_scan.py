@@ -30,9 +30,11 @@ _K1_MIN_ITEMS = 4 * K1_THREADS   # items a K1 CTA scores at least
 K1_MAX_POSITIONS = 1024    # tile_idx entries a K1 CTA stages (pq_scan.cu)
 # K1's forms, numbered as pq_scan.cu's enum Form
 K1_FORMS = ("generic", "fast", "packed", "staged", "k256")
-# K3's forms: tables in shared memory, in global memory (GT), candidate
-# rows (GS), and one query a CTA at K 256 (k256)
-K3_FORMS = ("shared", "GT", "GS", "k256")
+# K3's forms: tables in shared memory, a CTA a query at K 256 with its
+# table staged through shared memory by range (GT), candidate rows (GS), a
+# CTA a query at K 256 with its table in shared memory (k256), and tables
+# read from global memory through __ldg (GT-ldg: the shapes GT does not take)
+K3_FORMS = ("shared", "GT", "GS", "k256", "GT-ldg")
 # K1's staged form (pq_scan.cu's SQ and IPT): at most 8 queries a launch,
 # their sums carried in registers; 8 items a thread, so a CTA scores a pass
 # of 8 x K1_THREADS items against each range of the tables it stages
@@ -61,7 +63,9 @@ class QueryGroups(list):
     do not fit in a CTA's shared memory), ``global_state`` when K3 takes
     its candidate-row form (one query's selection arrays do not fit beside
     the rest of its state), ``k256`` when the tile runs in the K = 256
-    form (one launch; K3: a CTA a query)."""
+    form (one launch; K3: a CTA a query).  K3 with both ``k256`` and
+    ``global_tables`` is its GT form: a CTA a query, the table staged by
+    range."""
 
     def __init__(self, groups, global_tables: bool = False,
                  global_state: bool = False, k256: bool = False):
@@ -78,15 +82,20 @@ class QueryGroups(list):
     @property
     def tables(self) -> int:
         """Where the launches' tables are, as the libraries' shared-memory
-        queries and launches take it: 0 shared memory, 1 global memory,
-        2 the k256 form."""
-        return 2 if self.k256 else int(self.global_tables)
+        queries and launches take it: 0 shared memory, 1 global memory
+        (K1 staged, K3 GT-ldg), 2 the k256 form, 3 K3's GT form."""
+        if self.k256:
+            return 3 if self.global_tables else 2
+        return int(self.global_tables)
 
     @property
     def form(self) -> str:
         """K3's form of these launches (``K3_FORMS``)."""
-        return ("GS" if self.global_state else "GT" if self.global_tables
-                else "k256" if self.k256 else "shared")
+        if self.global_state:
+            return "GS"
+        if self.k256:
+            return "GT" if self.global_tables else "k256"
+        return "GT-ldg" if self.global_tables else "shared"
 
 
 def query_groups(qt: int, bytes_per_query: int, fixed_bytes: int = 0, *,
@@ -269,25 +278,46 @@ def k3_query_groups(m: int, k: int, qt: int, fw: int, blk: int, *,
     ``MAX_QUERY_TILE`` each (on the card only).  At unpacked K 256 with
     8-byte aligned rows (M a multiple of 8), where one query's table and
     selection state fit in a CTA's shared memory, the whole tile is one
-    launch of the k256 form (``k256_fits``)."""
+    launch of the k256 form (``k256_fits``); where only the table does
+    not fit, one launch of the GT form (``gt_fits``)."""
     lib = build.load("pq_scan_topk")
-    if k256_fits(m, k, fw, blk, packed, codes_align,
-                 lib.pq_scan_topk_smem_bytes):
+    smem_of = lib.pq_scan_topk_smem_bytes
+    if k256_fits(m, k, fw, blk, packed, codes_align, smem_of):
         return QueryGroups([(0, qt)], k256=True)
+    if gt_fits(m, k, fw, blk, packed, codes_align, smem_of):
+        return QueryGroups([(0, qt)], global_tables=True, k256=True)
     return _library_groups(
         qt, lambda n, g, gs=0: lib.pq_scan_topk_smem_bytes(m, k, n, fw, blk,
                                                            g, gs),
         max_group=MAX_QUERY_TILE, movable_state=True)
 
 
+def _k256_shaped(m: int, k: int, packed: bool, codes_align: int) -> bool:
+    """Unpacked K 256, M a multiple of 8 and 8-byte aligned rows: the
+    shapes K3's CTA-a-query forms (k256, GT) read in 8- or 16-byte
+    pieces."""
+    return k == 256 and not packed and m % 8 == 0 and codes_align % 8 == 0
+
+
 def k256_fits(m: int, k: int, fw: int, blk: int, packed: bool,
               codes_align: int, smem_of) -> bool:
-    """Whether K3 takes its k256 form, from the shape alone: unpacked K
-    256, M a multiple of 8, 8-byte aligned rows, and one query's CTA
-    (``smem_of(m, k, 1, fw, blk, 2, 0)`` bytes) within a block's shared
-    memory."""
-    return (k == 256 and not packed and m % 8 == 0 and codes_align % 8 == 0
+    """Whether K3 takes its k256 form, from the shape alone: k256-shaped
+    (``_k256_shaped``) and one query's CTA (``smem_of(m, k, 1, fw, blk, 2,
+    0)`` bytes) within a block's shared memory."""
+    return (_k256_shaped(m, k, packed, codes_align)
             and smem_of(m, k, 1, fw, blk, 2, 0) <= SMEM_LIMIT)
+
+
+def gt_fits(m: int, k: int, fw: int, blk: int, packed: bool,
+            codes_align: int, smem_of) -> bool:
+    """Whether K3 takes its GT form, from the shape alone: k256-shaped,
+    one query's table too large for the k256 form (``k256_fits``), and
+    the GT CTA (two range buffers, the selection state and the kept list:
+    ``smem_of(m, k, 1, fw, blk, 3, 0)`` bytes) within a block's shared
+    memory (fetch up to 4096)."""
+    return (_k256_shaped(m, k, packed, codes_align)
+            and not k256_fits(m, k, fw, blk, packed, codes_align, smem_of)
+            and smem_of(m, k, 1, fw, blk, 3, 0) <= SMEM_LIMIT)
 
 
 def merge_by_select(splits: int, fetch: int) -> bool:
@@ -460,7 +490,7 @@ def k3_wave_splits(groups: QueryGroups, t: int, s: int, m: int, k: int,
     CTAs of a split are a tile's queries, not the tile.  Returns ``(splits,
     s_per)``."""
     wave = k3_wave(groups, m, k, fw, blk, packed, device)
-    if groups.k256:        # a CTA a query of a tile
+    if groups.k256:        # a CTA a query of a tile (k256 and GT)
         t *= groups.largest
     waves = 2 if wave // max(t, 1) >= _FINE_SPLITS else 1
     return topk_splits(t, s, blk, waves * wave)
@@ -673,10 +703,12 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
     ``MAX_QUERY_TILE`` queries, is scanned in ``k3_query_groups``, one
     launch each; every output row depends only on its own query's rows
     and the tile's list, so the split is exact.  Where one query's
-    tables alone do not fit, the kernel reads them from global memory.
-    Where its selection arrays do not fit (fetch above 8192), K3 takes
-    its candidate-row form: the scan appends every kept triple to its
-    query's row (``pq_scan_rows_kernel``, rows ``plan_width`` slots
+    tables alone do not fit, the kernel reads them from global memory:
+    at k256's shapes in its GT form (``gt_fits``: a CTA a query, the
+    table staged through shared memory by range), else through __ldg
+    (GT-ldg).  Where its selection arrays do not fit (fetch above 8192),
+    K3 takes its candidate-row form: the scan appends every kept triple
+    to its query's row (``pq_scan_rows_kernel``, rows ``plan_width`` slots
     wide) and ``select_topk_kernel`` selects from each row; no merge
     runs.  At unpacked K 256 (``k256_fits``) the whole tile is one launch
     of the k256 form, a CTA a query."""
@@ -711,7 +743,7 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
         for x in acc)
     dco = torch.zeros((b,), dtype=torch.int32, device=dev)
     if groups.k256 and lut.data_ptr() % 16:
-        lut = lut.clone()           # cp.async copies the table in 16 B
+        lut = lut.clone()           # cp.async copies the tables in 16 B
     for q0, q1 in groups:
         err = lib.pq_scan_topk_launch(
             lut.data_ptr() + 4 * q0 * m * k, block_codes.data_ptr(),

@@ -350,7 +350,9 @@ def test_query_groups_report_the_k256_form():
     for groups, form, tables in (
             (tpq.QueryGroups([(0, 8)], k256=True), "k256", 2),
             (tpq.QueryGroups([(0, 2), (2, 5), (5, 8)]), "shared", 0),
-            (tpq.QueryGroups([(0, 8)], global_tables=True), "GT", 1),
+            (tpq.QueryGroups([(0, 8)], global_tables=True), "GT-ldg", 1),
+            (tpq.QueryGroups([(0, 8)], global_tables=True, k256=True),
+             "GT", 3),
             (tpq.QueryGroups([(0, 8)], global_state=True), "GS", 0),
             (tpq.QueryGroups([(0, 8)], global_tables=True,
                              global_state=True), "GS", 1)):

@@ -2,7 +2,8 @@
 """Where a K3 CTA spends its time, on one NVIDIA H100.
 
     python3 tools/k3_phases.py [--seed 0] [--n N]
-                               [--wide | --plane pq4|binary | --nbits8]
+                               [--wide | --plane pq4|binary | --nbits8 |
+                                --gist]
                                [--built-only] [--waves N]
     python3 tools/k3_phases.py --merge-paths [--seed 0]
 
@@ -34,7 +35,10 @@ two-tier shape (the main index, ``refine=RefineParams(plane, 4)``: fetch
 chip_smoke.py's nbits=8 index instead (80,000 vectors, IVF1024, PQ64x8:
 64 KB of tables a query, K 256) and runs K3 at its fetch 100; with
 ``--n N`` too, the N-vector SIFT1M-shaped corpus at the main path's
-IVF4096 built at ``nbits=8`` (Faiss's ``IVF4096,PQ64``).  Where a tile
+IVF4096 built at ``nbits=8`` (Faiss's ``IVF4096,PQ64``).  With
+``--gist`` it builds chip_smoke.py's gist-shaped index (50,000 x 256,
+IVF1024, PQ256x8: 256 KB of tables a query, K3's global-table form) and
+runs its 1,000 queries (B 1000 / 1000 / 64).  Where a tile
 runs in several query groups, a CTA's phases are summed over its
 tile's group launches (the counters add).  ``--waves N`` cuts K3 into N full
 waves of CTAs instead of the number its wrapper picks from the shape
@@ -199,7 +203,7 @@ MERGE_PROBES = (
 # them to g_phase as the scan probes do.
 K256_FIELDS = ("setup", "compact", "load", "score", "filter", "tail",
                "total", "passes", "flushes")
-K256_PROBES = (
+K256_PROBES = ("pq_scan_topk_k256", (
     ("  using Piece = typename K256Piece<CH>::type;\n"
      "  extern __shared__ __align__(16) int ksmem[];\n",
      "  using Piece = typename K256Piece<CH>::type;\n"
@@ -236,7 +240,58 @@ K256_PROBES = (
      "    for (int i = 0; i < 9; ++i)\n"
      "      atomicAdd((unsigned long long*)(o + i), (unsigned long long)kp[i]);\n"
      "  }\n}"),
-)
+))
+# The GT form's phases (a CTA a query, its table staged by range), where
+# the source has the form: set-up, compaction of the windows' planned
+# positions, the keep steps (loads, rank_of, the kept list), a pass's
+# waits for its ranges' copies (with their barriers), its scoring (piece
+# loads and lookups), its filter (with flushes), and the final flush and
+# write-out; passes and flushes counted.
+GT_FIELDS = ("setup", "compact", "keep", "wait", "score", "filter", "tail",
+             "total", "passes", "flushes")
+GT_PROBES = ("pq_scan_topk_gt", (
+    ("  extern __shared__ __align__(16) int gsmem[];\n",
+     "  extern __shared__ __align__(16) int gsmem[];\n"
+     "  long long T0 = clock64(), Ta = 0, gp[10] = {0};\n"),
+    ("  __syncthreads();\n  int fill = 0, par = 0;",
+     "  __syncthreads();\n  gp[0] = clock64() - T0;\n  int fill = 0, par = 0;"),
+    ("    int sl[SUB], bk[SUB], ru[SUB];\n",
+     "    Ta = clock64();\n    int sl[SUB], bk[SUB], ru[SUB];\n"),
+    ("    const int n = planned << lb;",
+     "    gp[1] += clock64() - Ta;\n    const int n = planned << lb;"),
+    ("      int iid[GCK], oth[GCK], ps[GCK], rk[GCK];\n",
+     "      Ta = clock64();\n      int iid[GCK], oth[GCK], ps[GCK], rk[GCK];\n"),
+    ("      fill += kept;\n",
+     "      fill += kept;\n      gp[2] += clock64() - Ta;\n"),
+    ("    stage(0);\n    __syncthreads();\n",
+     "    long long Tp = clock64();\n    gp[8]++;\n"
+     "    stage(0);\n    __syncthreads();\n"),
+    ("      asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"
+     "      __syncthreads();\n",
+     "      const long long Tw = clock64();\n"
+     "      asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"
+     "      __syncthreads();\n      gp[3] += clock64() - Tw;\n"),
+    ("    // the filter: a kept item whose push",
+     "    gp[4] += clock64() - Tp;\n    Tp = clock64();\n"
+     "    // the filter: a kept item whose push"),
+    ("    while (again) {\n      flush(sel);\n",
+     "    while (again) {\n      gp[9]++;\n      flush(sel);\n"),
+    ("      again = __syncthreads_or(full);\n    }\n  };\n",
+     "      again = __syncthreads_or(full);\n    }\n"
+     "    gp[5] += clock64() - Tp;\n  };\n"),
+    ("  if (fill > 0) score_pass(fill);\n",
+     "  if (fill > 0) score_pass(fill);\n  const long long Te = clock64();\n"),
+    ("  if (lane == 0 && ndco) atomicAdd(&dco[b], ndco);\n}",
+     "  if (lane == 0 && ndco) atomicAdd(&dco[b], ndco);\n"
+     "  if (tid == 0 && g_phase) {\n"
+     "    gp[6] = clock64() - Te;\n    gp[7] = clock64() - T0;\n"
+     "    gp[4] -= gp[3];\n"
+     "    long long* o = g_phase + 10 * ((size_t)split * gridDim.x + "
+     "blockIdx.x);\n"
+     "    for (int i = 0; i < 10; ++i)\n"
+     "      atomicAdd((unsigned long long*)(o + i), (unsigned long long)gp[i]);\n"
+     "  }\n}"),
+))
 # one CTA per SM: 120,000 B of shared memory, more than half of an SM's
 # the merge with its direct placement compiled out: every list count
 # takes the search
@@ -259,6 +314,34 @@ ALONE = (
 )
 
 
+def scope(text, fn):
+    """(start, end) of the definition of kernel ``fn`` in ``text`` (from
+    its name to the first closing brace at column 0), or None."""
+    at = text.find(f" {fn}(")
+    if at < 0:
+        return None
+    return at, text.index("\n}\n", at) + 3
+
+
+def scoped_matches(text, entry) -> bool:
+    """Whether every anchor of a kernel's probe set, ``(kernel, probes)``,
+    occurs once in that kernel's definition."""
+    fn, probes = entry
+    span = scope(text, fn)
+    return span is not None and all(
+        text[span[0]:span[1]].count(a) == 1 for a, _ in probes)
+
+
+def apply_scoped(text, entry):
+    """The probes of ``(kernel, probes)`` applied inside that kernel."""
+    fn, probes = entry
+    a, b = scope(text, fn)
+    body = text[a:b]
+    for anchor, repl in probes:
+        body = body.replace(anchor, repl)
+    return text[:a] + body + text[b:]
+
+
 def matching(build, sets, what):
     """The entry of ``sets`` whose probes (its last item) all have their
     anchor once in pq_scan_topk.cu."""
@@ -270,9 +353,12 @@ def matching(build, sets, what):
                      "pq_scan_topk.cu")
 
 
-def build_probed(build, name, probes):
-    """Compile a probed copy of K3; returns the loaded library."""
+def build_probed(build, name, probes, scoped=()):
+    """Compile a probed copy of K3 (``scoped``: probe sets applied inside
+    one kernel each); returns the loaded library."""
     text = (build.CSRC / "pq_scan_topk.cu").read_text()
+    for entry in scoped:
+        text = apply_scoped(text, entry)
     for anchor, repl in probes:
         if text.count(anchor) != 1:
             raise SystemExit(f"k3_phases: anchor not found once in "
@@ -367,14 +453,14 @@ def nbits8_config(cs, args):
 
 
 def merge_paths(torch, cs, build, pq_scan, ref, current, probes, mfields,
-                seed) -> int:
+                seed, scoped=()) -> int:
     """``--merge-paths``: the merge alone at few and many lists, as built
     and (where the source has a direct path) with the search only."""
     variants = {"as built": probes}
     text = (build.CSRC / "pq_scan_topk.cu").read_text()
     if text.count(SEARCH_ONLY[0][0]) == 1:
         variants["search only"] = probes + SEARCH_ONLY
-    libs = {how: build_probed(build, f"merge_{i}", p)
+    libs = {how: build_probed(build, f"merge_{i}", p, scoped)
             for i, (how, p) in enumerate(variants.items())}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -425,6 +511,8 @@ def main() -> int:
                        help="the two-tier shape over this plane (fetch 400)")
     shape.add_argument("--nbits8", action="store_true",
                        help="an nbits=8 index (PQ64x8, K 256)")
+    shape.add_argument("--gist", action="store_true",
+                       help="the gist-shaped index (PQ256x8: global tables)")
     ap.add_argument("--built-only", action="store_true",
                     help="skip the runs with each CTA alone on its SM")
     ap.add_argument("--waves", type=int, default=0,
@@ -446,6 +534,8 @@ def main() -> int:
     if args.waves:          # N full waves, not the shape's choice
         def fixed_waves(groups, t, s, m, k, fw, blk, packed, device):
             wave = pq_scan.k3_wave(groups, m, k, fw, blk, packed, device)
+            if getattr(groups, "k256", False):   # a CTA a query (k256, GT)
+                t *= groups.largest
             return pq_scan.topk_splits(t, s, blk, args.waves * wave)
         pq_scan.k3_wave_splits = fixed_waves
 
@@ -453,9 +543,10 @@ def main() -> int:
     design, mfields, mprobes = matching(build, MERGE_PROBES, "topk_merge")
     probes = PROBES + rprobes + mprobes
     text = (build.CSRC / "pq_scan_topk.cu").read_text()
-    if all(text.count(a) == 1 for a, _ in K256_PROBES):
-        probes += K256_PROBES
-        print("phases: the k256 form probed", flush=True)
+    scoped = tuple(e for e in (K256_PROBES, GT_PROBES)
+                   if scoped_matches(text, e))
+    for fn, _ in scoped:
+        print(f"phases: {fn} probed", flush=True)
     print(f"phases: scan rounds: {round_design}; merge: {design}",
           flush=True)
     stock = build.load
@@ -464,16 +555,21 @@ def main() -> int:
                                else stock(stem))
     if args.merge_paths:
         return merge_paths(torch, cs, build, pq_scan, ref, current, probes,
-                           mfields, args.seed)
-    libs = {"as built": build_probed(build, "phases", probes),
+                           mfields, args.seed, scoped)
+    libs = {"as built": build_probed(build, "phases", probes, scoped),
             "alone": build_probed(build, "phases_alone",
                                   probes + matching(build, ALONE,
-                                                    "the launch")[-1])}
+                                                    "the launch")[-1],
+                                  scoped)}
     dev = torch.device("cuda")
-    n, cfg = nbits8_config(cs, args) if args.nbits8 else (
-        args.n or 1_000_000, cs.INDEX)
-    x, q, _ = make_dataset("sift1m", args.seed, n=n, n_queries=1024,
-                           device=dev)
+    if args.gist:
+        x, q, _ = make_dataset("gist", args.seed, device=dev)
+        n, cfg = x.shape[0], cs.GIST_INDEX
+    else:
+        n, cfg = nbits8_config(cs, args) if args.nbits8 else (
+            args.n or 1_000_000, cs.INDEX)
+        x, q, _ = make_dataset("sift1m", args.seed, n=n, n_queries=1024,
+                               device=dev)
     index = build_index(x, IndexConfig(**cfg), device=dev,
                         generator=torch.Generator().manual_seed(args.seed))
     print(f"phases: index n={n} " + " ".join(
@@ -488,6 +584,7 @@ def main() -> int:
         if args.plane:
             index.plane(args.plane)       # attach it (trains its codec)
     for mode, bsz in cs.RUNS:
+        bsz = q[:bsz].shape[0]        # the gist index has 1,000 queries
         _, k3, qt, fetch, pw = cs.mode_inputs(index, q[:bsz].contiguous(),
                                               mode, **params)
         tiles = k3[4]
@@ -495,7 +592,9 @@ def main() -> int:
         fw = pq_scan.topk_width(fetch)
         groups = pq_scan.k3_query_groups(m, k, qt, fw, blk)
         k256 = getattr(groups, "k256", False)
-        fields = K256_FIELDS if k256 else FIELDS
+        form = getattr(groups, "form", "shared")
+        fields = (GT_FIELDS if k256 and form == "GT" else K256_FIELDS if k256
+                  else FIELDS)
         if hasattr(pq_scan, "k3_wave_splits"):
             splits, s_per = pq_scan.k3_wave_splits(
                 groups, *tiles.shape, m, k, 0 if groups.global_state else fw,
@@ -525,7 +624,6 @@ def main() -> int:
             ms = device_ms(torch, lambda: pq_scan.pq_scan_topk_kernel(
                 *k3, **kw, plan_width=pw))
             parts = [summary(buf, fields, mhz)]
-            form = getattr(groups, "form", "shared")
             print(f"phases: {mode} {how} B={bsz} QT={qt} S={tiles.shape[1]}"
                   f" fetch={fetch} form {form}, {len(groups)} launches, "
                   f"splits={splits} CTAs={ctas} K3 "
