@@ -36,7 +36,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 memory through the row select); K2's tile-row check;
   4. main     — a SIFT1M-shaped corpus (n x 128, made on the card from
                 --seed), a RAIRS index built on the card (IVF4096,
-                PQ64x4, block 32, rair + SEIL), exact top-10 ground
+                PQ64x4, block 32, rair + SEIL; determinism: built twice
+                in this process, bitwise equal), exact top-10 ground
                 truth, then search sessions (a CUDA graph per bucket,
                 captured by warmup first): paged / clustered at B=1024
                 and grouped at B=64, each with fused_topk off and on:
@@ -86,6 +87,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 launches alone too, a torch.topk beside the select, K1 +
                 one torch.topk beside K3), and the
                 device time of each stage of one wide batch per mode;
+     stream   — streaming on the main index's configuration: a draw of
+                n + n/4 vectors of the sift1m spec, the index built on the
+                first n, the last n/4 inserted in 8 batches (append
+                vectors/s); the six modes at capacity 131,072
+                (exhaustive delta scan) and 262,144 (routed), agreeing,
+                recall@10 over the live set, a traced batch a mode
+                bitwise equal (stage.delta_scan) and the delta scan alone
+                timed; n/8 deletes, half base, half delta (delete
+                vectors/s; no deleted id returned), the six modes again,
+                plan reuse (grouped B=64) and the pq4 plane at refine
+                factor 4 agreeing with their plain counterparts; K1 and
+                K3 with the tombstones' dead tile held bitwise at each
+                mode's first batch and timed; a steady state inside one
+                capacity bucket (no new graph, no layout build, every
+                session reissued); compact() bitwise equal to build_seil
+                over the survivors' stored assignments and codes, beside
+                a full build whose differing assignments must be f32
+                ties; begin_compact with fold() on a thread while batches
+                are served and the stream mutates, then install(),
+                external ids resolving across the epochs; the stream
+                saved, reloaded and answering bitwise alike;
      multi    — an m-assignment index (80,000 x 128, IVF1024, PQ64x4,
                 multi_m=3) built on the card, in the six modes;
      persist  — the nbits=8 index with both planes saved as one file and
@@ -107,6 +129,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -142,6 +166,13 @@ WIDE_KERNELS = ("pq_scan_tiled_kernel", "pq_scan_topk_kernel",
 # results are deduplicated by id)
 MULTI_N, MULTI_INDEX = 80_000, dict(INDEX, nlist=1024, seil=False,
                                     multi_m=3)
+# the stream phase: n / 4 held-out vectors inserted in this many batches
+# (half of them reach capacity 131,072 = nlist * block at n = 1M, the last
+# exhaustive bucket; all of them 262,144, routed)
+STREAM_BATCHES = 8
+# the largest gap between two assignment decisions, relative to
+# |x|^2 + |c|^2, that an f32 distance matmul may round either way
+TIE_REL = 1e-5
 
 
 def log(*a):
@@ -562,7 +593,7 @@ def check_kernels(torch, dev, seed):
             _, _, groups = k3_case(
                 torch, g, dev, mode=mode, packed=packed, ints=ints,
                 with_dead=with_dead, fetch=fetch, qt=4, s=s, tb=tb, b=8, m=m,
-                k=k)
+                k=k, timed=k == 256)
             check(groups.global_state and groups.global_tables == (k == 256),
                   f"K3 row case {mode} m={m} fetch={fetch}: form global "
                   f"tables {groups.global_tables}, global state "
@@ -711,10 +742,11 @@ def select_case(torch, g, dev, b, w, fetch, fill, zeros):
 
 
 def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
-            tb, p_valid=0.85, b=16, m=None, k=16):
+            tb, p_valid=0.85, b=16, m=None, k=16, timed=False):
     """K3 on one synthetic plan in ``mode``, bitwise against its plain
-    version.  Returns (splits, whether some split keeps < fetch items,
-    query groups of a tile)."""
+    version (``timed``: then timed, a graph replay, beside its plain
+    version and its bound).  Returns (splits, whether some split keeps
+    < fetch items, query groups of a tile)."""
     from repro_torch.core.engine import fused_scan_args
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pq_scan import (k3_query_groups, launch_counts,
@@ -770,6 +802,19 @@ def k3_case(torch, g, dev, *, mode, packed, ints, with_dead, fetch, qt, s,
     if groups.global_state:
         hold_rows(torch, args, dict(query_tile=qt, packed=packed), s,
                   f"K3 rows {mode} qt={qt} fetch={fetch}")
+    if timed:
+        ms = graph_ms(torch, lambda: pq_scan_topk_kernel(*args, **kw,
+                                                         plan_width=s))
+        pms = cuda_ms(torch, lambda: ref.pq_scan_topk_ref(*args, **kw),
+                      reps=3, warm=1)
+        nbytes, ops = k3_bound(torch, args, fetch)
+        bms, by = bound_ms(sum(nbytes.values()), ops)
+        log(f"kernels: K3 {mode} B={b} S={s} QT={qt} M={lut_a.shape[1]} "
+            f"K={k} fetch={fetch} in form {groups.form}, global tables "
+            f"{groups.global_tables}, candidate rows {groups.global_state}: "
+            f"{ms:.4f} ms (graph replay), plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}; {sum(nbytes.values())} B = "
+            f"{json.dumps(nbytes)}; {ops} adds)")
     short = splits > 1 and any(
         bool((p[1] == PAD_POS).any())
         for p in split_parts(torch, args, kw, splits, s_per))
@@ -1374,7 +1419,7 @@ def time_kernels(torch, index, queries, lookups_per_s):
 
 def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
                 nbits8_launches, plane_rows, plane_launches, wide_rows,
-                wide_launches):
+                wide_launches, stream_rows, stream_launches):
     """The {"kernels": [...]} entries: K1 and K3 at the main path's first
     paged batch, K3's merge at its first grouped batch (where most of its
     launches run), the
@@ -1383,8 +1428,10 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
     of each mode (with that mode's launches; paged at both batch sizes),
     K1 and K3 at each compact plane's first paged batch, and K3's
     candidate-row form (its scan to rows, and the row select) at the
-    wide case's first paged batch, with their launches on the runs that
-    use them."""
+    wide case's first paged batch, and K1, K3 with the tombstones' dead
+    tile and K3's merge on the stream phase (paged, the merge grouped,
+    after the deletes; launches of its twelve six-mode runs), with their
+    launches on the runs that use them."""
     src = "src/repro_torch/kernels/csrc/"
     planes = []
     for b in sorted(plane_rows):
@@ -1418,6 +1465,16 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
             ("pq_scan_topk_kernel[global tables]", src + "pq_scan_topk.cu",
              "src/repro/kernels/pq_scan.py:311", gist_rows["paged"]["K3"],
              gist_launches["pq_scan_topk_kernel"]),
+            ("pq_scan_tiled_kernel[stream, fast]", src + "pq_scan.cu",
+             "src/repro/kernels/pq_scan.py:112", stream_rows["paged"]["K1"],
+             stream_launches["pq_scan_tiled_kernel[fast]"]),
+            ("pq_scan_topk_kernel[stream, shared, dead]",
+             src + "pq_scan_topk.cu", "src/repro/kernels/pq_scan.py:311",
+             stream_rows["paged"]["K3"],
+             stream_launches["pq_scan_topk_kernel[shared]"]),
+            ("merge_topk_kernel[stream]", src + "pq_scan_topk.cu",
+             "src/repro/kernels/topk.py:103", stream_rows["grouped"]["merge"],
+             stream_launches["merge_topk_kernel"]),
         ] + [
             (f"{kern}[k256, nbits8 {mode}]", src + source,
              f"src/repro/kernels/pq_scan.py:{line}", nbits8_rows[mode][kid],
@@ -1456,6 +1513,7 @@ def main_path(torch, dev, args):
     log(f"main: build {time.perf_counter() - t0:.2f} s, phases "
         + json.dumps({k: round(v, 3) for k, v in index.build_seconds.items()}))
     log(f"main: SeilStats {index.stats}")
+    determinism(torch, index, x, args.seed)
     log(f"main: device memory allocated "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, peak "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
@@ -2189,6 +2247,553 @@ def persist_path(torch, dev, index, q):
         f"within 1e-5, {same_d} of 6 bitwise)")
 
 
+# ---------------------------------------------------------------------------
+# the determinism check and the stream phase
+# ---------------------------------------------------------------------------
+def determinism(torch, index, x, seed):
+    """A second build of the main index from the same data and seed, in
+    this process: centroids, codebooks, assignments, codes and every SEIL
+    array bitwise equal to the first (k-means sums each list in a fixed
+    order, ``kmeans.segment_sum``).  Also k-means's segment sum on the
+    card beside the CPU's on one k-means step's input (logged: the order
+    is fixed on both, the same order is not promised)."""
+    from repro_torch.core import IndexConfig, build_index
+    from repro_torch.core.kmeans import assign_nearest, segment_sum
+    from repro_torch.core.seil import SEIL_FIELDS
+    t0 = time.perf_counter()
+    again = build_index(x, IndexConfig(**INDEX),
+                        generator=torch.Generator().manual_seed(seed),
+                        device=x.device)
+    torch.cuda.synchronize()
+    pairs = [("centroids", index.centroids, again.centroids),
+             ("codebooks", index.codebook.codebooks,
+              again.codebook.codebooks),
+             ("vectors", index.vectors, again.vectors)]
+    pairs += [(f, getattr(index.arrays, f), getattr(again.arrays, f))
+              for f in SEIL_FIELDS]
+    for name, a, b in pairs:
+        check(torch.equal(a, b), f"determinism: a second build differs on "
+              f"{name}")
+    check(np.array_equal(index.assigns, again.assigns)
+          and np.array_equal(index.codes, again.codes),
+          "determinism: a second build differs on assigns or codes")
+    check(index.stats == again.stats, "determinism: SeilStats differ")
+    xs = x[:65536]
+    a = assign_nearest(xs, index.centroids)
+    card = segment_sum(xs, a, index.config.nlist)
+    cpu = segment_sum(xs.cpu(), a.cpu(), index.config.nlist)
+    log(f"determinism: a second build of the main index in "
+        f"{time.perf_counter() - t0:.2f} s is bitwise equal to the first "
+        f"(centroids, codebooks, assigns, codes, {len(SEIL_FIELDS)} SEIL "
+        f"arrays, SeilStats); k-means's segment sum over 65,536 rows on the "
+        f"card {'bitwise equal to' if torch.equal(card[0].cpu(), cpu[0]) else 'differs from'} "
+        f"the CPU's (max abs difference "
+        f"{(card[0].cpu() - cpu[0]).abs().max().item():.3e})")
+
+
+def live_truth(stream, q):
+    """(live ids, tombstone mask, exact top-10 over the live vectors as
+    positions among the live ids) of the stream as it stands."""
+    from repro_torch.core import ground_truth
+    return (stream.live_ids(), ~stream.live_mask(),
+            ground_truth(stream.live_vectors(), q, 10, device=q.device))
+
+
+def live_recall(truth, ids, what, floor):
+    """recall@10 of result ``ids`` (internal ids) against ``truth``
+    (live_truth over the same queries); no tombstoned id may come
+    back."""
+    from repro_torch.core import recall_at_k
+    live, dead, gt = truth
+    got = ids.cpu().numpy()
+    ok = got >= 0
+    check(not dead[got[ok]].any(), f"{what}: a deleted id was returned")
+    pos = np.where(ok, np.searchsorted(live, np.clip(got, 0, None)), -1)
+    rec = recall_at_k(pos[:, :10], gt[:got.shape[0]])
+    check(rec >= floor, f"{what}: recall@10 {rec} below the {floor} floor")
+    return rec
+
+
+def stream_session(stream, mode, bsz, fused, **params):
+    from repro_torch.core import SearchParams
+    return stream.searcher(SearchParams(
+        **{**SEARCH, "exec_mode": mode, "fused_topk": fused,
+           "batch_buckets": (bsz,), **params}), device=stream.device)
+
+
+def stream_runs(torch, stream, q, tag, floor=0.5):
+    """The six exec-mode sessions on the stream, graphs captured first:
+    ids and DCO agree, recall@10 against exact top-10 over the live set,
+    QPS; one traced batch a mode bitwise equal to the untraced one, with
+    its stage spans (``stage.delta_scan`` among them); the delta scan
+    alone timed at each mode's first batch.  Returns the results."""
+    from repro_torch import obs
+    from repro_torch.core.engine import select_lists
+    from repro_torch.core.pq import pq_lut
+    from repro_torch.core.stream.search import _delta_candidates, delta_adc
+    from repro_torch.core.search import finalize_fetch
+    routed = stream.routes_at(SEARCH["nprobe"])
+    truth = live_truth(stream, q)
+    results = {}
+    for mode, bsz in RUNS:
+        for fused in (False, True):
+            sess = stream_session(stream, mode, bsz, fused)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.warmup(bsz)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = sess(q)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rec = live_recall(truth, res.ids, f"{tag} {mode}", floor)
+            check(bool(torch.isfinite(res.dists).all()),
+                  f"{tag}: non-finite distances")
+            results[(mode, fused)] = res
+            log(f"{tag}: {mode:9s} B={bsz:4d} fused={int(fused)} "
+                f"recall@10={rec:.4f} approx_dco/q="
+                f"{res.approx_dco.float().mean().item():.1f} qps="
+                f"{q.shape[0] / dt:.1f}; {sess.stats.warmup_compiles} CUDA "
+                f"graphs captured by warmup in {warm:.2f} s")
+    check_agree(torch, results, tag)
+    spans = {}
+    for mode, bsz in RUNS:
+        for fused in (False, True):
+            sess = stream_session(stream, mode, bsz, fused)
+            qb = q[:bsz].contiguous()
+            want = sess(qb)
+            torch.cuda.synchronize()
+            with obs.trace() as tr:
+                got = sess(qb)
+            for f in want._fields:
+                check(torch.equal(getattr(got, f), getattr(want, f)),
+                      f"{tag}: traced {mode} fused={int(fused)} differs "
+                      f"from the untraced batch on {f}")
+            summ = tr.stage_summary()
+            check("stage.delta_scan" in summ, f"{tag}: no delta_scan span")
+            spans[(mode, fused)] = summ["stage.delta_scan"]
+            log(f"{tag}: traced {mode:9s} B={bsz:4d} fused={int(fused)}: "
+                f"bitwise equal to the untraced batch; spans (ms, host clock "
+                "after a device fence): " + ", ".join(
+                    f"{k} {v['mean_ms']:.4f}" for k, v in summ.items()
+                    if k.startswith("stage."))
+                + f"; delta_dco {summ['stage.delta_scan']['counters']}")
+    dv = stream._device_state()
+    post = dv.delta_post if routed else dv.no_post
+    for mode, bsz in RUNS:
+        qb = q[:bsz].contiguous()
+        p = stream_session(stream, mode, bsz, False).params
+        sel = select_lists(qb, stream.centroids, nprobe=p.nprobe)
+        lut = pq_lut(stream.codebook, qb)
+        fetch = finalize_fetch(p.bigk_eff, stream.result_oversample,
+                               stream.needs_result_dedup)
+        ms = cuda_ms(torch, lambda: _delta_candidates(
+            lut, dv.delta_codes, dv.delta_ids, post, dv.delta_assigns,
+            sel.sel, sel.rank_of, routed, fetch), reps=3, warm=1)
+        sums = ""
+        if not routed and mode == "paged":
+            # the exhaustive ADC sums (one embedding_bag a chunk) against
+            # one gather and one add per m, bitwise: ascending m
+            got = delta_adc(lut[:256], dv.delta_codes)
+
+            def loop():
+                out = torch.zeros_like(got)
+                for j in range(lut.shape[1]):
+                    out += torch.index_select(lut[:256, j, :], 1,
+                                              dv.delta_codes[:, j].long())
+                return out
+            check(torch.equal(got, loop()), f"{tag}: the delta ADC sums "
+                  "differ from a loop over ascending m")
+            bag_ms = cuda_ms(torch, lambda: delta_adc(lut[:256],
+                                                      dv.delta_codes),
+                             reps=3, warm=1)
+            sums = (f"; its ADC sums over 256 queries {bag_ms:.4f} ms, "
+                    f"bitwise a per-m loop's "
+                    f"({cuda_ms(torch, loop, reps=3, warm=1):.4f} ms)")
+        log(f"{tag}: delta scan alone ({'routed' if routed else 'exhaustive'}"
+            f", capacity {dv.capacity}, posting width "
+            f"{stream._delta.post_width}) at the {mode} batch B={bsz}: "
+            f"{ms:.4f} ms (CUDA events, 3 back to back){sums}")
+    return results
+
+
+def stream_hold(torch, stream, q, lookups_per_s):
+    """K1 and K3 with the stream's dead tile (its tombstones) at the first
+    batch of each mode, bitwise against their plain versions, and timed
+    (paged and grouped) beside bounds and plain versions."""
+    rows = {}
+    store_ids = stream.base.arrays.block_ids
+    live = stream._device_state().live_full
+    dead = ((store_ids >= 0) & ~live[store_ids.clamp_min(0).long()]).to(
+        torch.uint8)
+    check(bool(dead.any()), "stream: the dead tile has no tombstones")
+    for mode, bsz in RUNS:
+        k1, k3, qt, fetch, pw = mode_inputs(stream.base,
+                                            q[:bsz].contiguous(), mode)
+        held = hold_inputs(torch, (k1, k3[:-1] + (dead,), qt, fetch, pw),
+                           mode, "stream", global_tables=False, form="fast",
+                           k3_form="shared")
+        if mode != "clustered":
+            rows[mode] = kernel_rows(torch, held, mode, "timing: stream",
+                                     lookups_per_s)
+        del held
+    return rows
+
+
+def stream_path(torch, dev, args, lookups_per_s):
+    """Streaming on the main index's configuration (module docstring,
+    phase stream).  Returns (kernel rows, launches of the six-mode runs by
+    name and form)."""
+    from repro_torch.core import (IndexConfig, RefineParams, build_index,
+                                  build_seil_call_count)
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
+    n, n_ins = args.n, args.n // 4
+    per = n_ins // STREAM_BATCHES
+    x, q, _ = make_dataset("sift1m", args.seed, n=n + n_ins,
+                           n_queries=args.queries, device=dev)
+    t0 = time.perf_counter()
+    base = build_index(x[:n], IndexConfig(**INDEX),
+                       generator=torch.Generator().manual_seed(args.seed),
+                       device=dev)
+    torch.cuda.synchronize()
+    log(f"stream: a sift1m-shaped draw of {n + n_ins} x {x.shape[1]}: the "
+        f"main index's configuration built on its first {n} in "
+        f"{time.perf_counter() - t0:.2f} s; {STREAM_BATCHES} batches of "
+        f"{per} inserted")
+    stream = base.streaming()
+    builds = build_seil_call_count()
+    reset_launch_counts()
+    for i in range(STREAM_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = stream.insert(x[n + i * per:n + (i + 1) * per])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(np.array_equal(ids, np.arange(n + i * per, n + (i + 1) * per)),
+              "stream: inserted ids are not the next ids")
+        log(f"stream: insert batch {i + 1}: {per / dt:.1f} vectors/s "
+            f"(assign + encode + buffer patches), capacity "
+            f"{stream._delta.capacity}, posting width "
+            f"{stream._delta.post_width}, routed "
+            f"{stream.routes_at(SEARCH['nprobe'])}")
+        if i + 1 in (STREAM_BATCHES // 2, STREAM_BATCHES):
+            # at full size: capacity 131,072 = nlist * block, the last
+            # exhaustive bucket, then 262,144, routed
+            routed = stream.routes_at(SEARCH["nprobe"])
+            check(args.n != 1_000_000 or routed == (i + 1 == STREAM_BATCHES),
+                  f"stream: capacity {stream._delta.capacity} routes "
+                  f"{routed}")
+            state = "routed" if routed else "exhaustive"
+            stream_runs(torch, stream, q, f"stream {state} ({i + 1} batches)")
+    launches = launch_counts(forms=True)
+    check(build_seil_call_count() == builds, "stream: an insert built a "
+          "layout")
+    for kern, form in (("pq_scan_tiled_kernel", "fast"),
+                       ("pq_scan_topk_kernel", "shared")):
+        check(launches[kern] > 0 and launches[f"{kern}[{form}]"]
+              == launches[kern], f"stream: {kern} launches "
+              f"{launches[kern]}, {launches[f'{kern}[{form}]']} {form}")
+    check(launches["merge_topk_kernel"] > 0, "stream: no merge launch")
+    log(f"stream: launches over the twelve runs {json.dumps(launches)}")
+    # deletes: half base, half delta
+    rng = np.random.default_rng(args.seed)
+    victims = np.concatenate([
+        rng.choice(n, n_ins // 4, replace=False),
+        n + rng.choice(n_ins, n_ins // 4, replace=False)])
+    t0 = time.perf_counter()
+    for part in np.array_split(victims, 10):
+        stream.delete(part)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(stream.n_dead == victims.size, "stream: delete count")
+    log(f"stream: deleted {victims.size} ids (half base, half delta) at "
+        f"{victims.size / dt:.1f} vectors/s")
+    stream_runs(torch, stream, q, "stream deleted")
+    # plan reuse (grouped B=64) and the pq4 plane at refine factor 4
+    bsz = dict(RUNS)["grouped"]
+    plain = stream_session(stream, "grouped", bsz, False)(q[:8 * bsz])
+    reuse = stream_session(stream, "grouped", bsz, False, plan_reuse=True)
+    reuse.warmup_widths(bsz)
+    got = reuse(q[:8 * bsz])
+    check_agree(torch, {("paged", False): plain,
+                        ("grouped plan_reuse", False): got},
+                "stream, plan reuse")
+    ps = reuse.compile_stats()["plan"]
+    log(f"stream: plan reuse grouped B={bsz}: hit_rate {ps['hit_rate']:.4f}, "
+        f"mean_width {ps['mean_width']:.1f}")
+    stream.plane("pq4")
+    two = {}
+    for mode, b in RUNS:
+        for fused in (False, True):
+            two[(mode, fused)] = stream_session(
+                stream, mode, b, fused,
+                refine=RefineParams("pq4", 4))(q[:2048])
+    rec = live_recall(live_truth(stream, q[:2048]), two[("paged", True)].ids,
+                      "stream pq4 x 4", REFINE_FLOOR)
+    check_agree(torch, two, "stream, pq4 x 4")
+    log(f"stream: pq4 x 4 two-tier sessions in the six modes agree; "
+        f"recall@10 {rec:.4f} over the live set")
+    rows = stream_hold(torch, stream, q, lookups_per_s)
+    # steady state inside one capacity bucket and posting width, with a
+    # pq4 x 4 session a round: the plane's delta codes patched in place
+    cap, width = stream._delta.capacity, stream._delta.post_width
+    st0 = stream.searcher_stats()
+    plane_buf = stream._plane_delta_codes("pq4")
+    paged = dict(RUNS)["paged"]
+    small = min(1024, (cap - stream._delta.count) // 10)
+    spare = torch.from_numpy(steady_rows(stream, 10 * small)).to(dev)
+    t_ins = t_del = 0.0
+    for r in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = stream.insert(spare[r * small:(r + 1) * small])
+        torch.cuda.synchronize()
+        t_ins += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stream.delete(np.concatenate([new[:small // 2],
+                                      stream.live_ids()[:small // 2]]))
+        torch.cuda.synchronize()
+        t_del += time.perf_counter() - t0
+        for mode, b in RUNS:
+            for fused in (False, True):
+                stream_session(stream, mode, b, fused)(q[:b])
+        stream_session(stream, "paged", paged, True,
+                       refine=RefineParams("pq4", 4))(q[:paged])
+    st = stream.searcher_stats()
+    check(stream._delta.capacity == cap and stream._delta.post_width == width,
+          "stream: the steady state left its capacity bucket or posting "
+          "width")
+    check(st["compiles"] == st0["compiles"], f"stream: steady churn "
+          f"captured {st['compiles'] - st0['compiles']} new graphs")
+    check(st["invalidations"] - st0["invalidations"]
+          == 10 * (2 * len(RUNS) + 1),
+          "stream: a session was not reissued after each round's "
+          "mutations")
+    check(build_seil_call_count() == builds, "stream: churn built a layout")
+    check(stream._plane_delta_codes("pq4") is plane_buf, "stream: the pq4 "
+          "plane's delta codes were made anew, not patched in place")
+    ties, worst = plane_ties(torch, stream, "pq4", plane_buf)
+    log(f"stream: the pq4 plane's delta codes, patched a batch at a time, "
+        f"against one encode of the whole delta buffer: {ties.size} rows "
+        f"differ (each an f32 tie, largest relative gap {worst:.2e}: "
+        f"{ties[:20]})")
+    log(f"stream: steady state, 10 rounds of {small} inserts and {small} "
+        f"deletes inside capacity {cap}: append {10 * small / t_ins:.1f} "
+        f"vectors/s, delete {10 * small / t_del:.1f} vectors/s; compiles "
+        f"{st['compiles']} (none new), {st['invalidations'] - st0['invalidations']} "
+        f"stale sessions reissued; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB with the "
+        "stream's graphs")
+    stream_compact(torch, stream, q, x, n, args)
+    return rows, launches
+
+
+def steady_rows(stream, count, margin=8):
+    """``count`` copies of delta vectors whose assigned lists keep
+    ``margin`` free posting columns after all of them are inserted, so
+    that the posting width (a captured shape of the routed sessions) does
+    not grow: a steady state inside one bucket."""
+    d = stream._delta
+    room = d.post_width - margin - d.post_n.astype(np.int64)
+    rows = []
+    for s in range(d.count):
+        lists = np.unique(d.assigns[s])
+        if (room[lists] > 0).all():
+            room[lists] -= 1
+            rows.append(s)
+            if len(rows) == count:
+                return d.vectors[rows]
+    fail(f"stream: only {len(rows)} of {count} rows fit the posting width")
+
+
+def plane_ties(torch, stream, backend, codes):
+    """Rows of a plane's delta codes ``codes`` (encoded a batch at a
+    time) that differ from one encode of the whole delta buffer: in each
+    differing subquantizer the two codewords must be an f32 tie, their
+    f64 distances to the row within ``TIE_REL`` of its scale.  Returns
+    (rows, largest relative gap)."""
+    from repro_torch.quant import encode_plane
+    codec = stream.plane(backend).codec
+    vecs = stream._delta.vectors
+    got, want = codes.cpu().numpy(), encode_plane(codec, vecs)
+    rows = np.nonzero((got != want).any(axis=1))[0]
+    books = codec.codebooks.double().cpu().numpy()        # (Mc, K, dsub)
+    dsub, worst = books.shape[2], 0.0
+    for r in rows.tolist():
+        for j in np.nonzero(got[r] != want[r])[0].tolist():
+            xs = vecs[r, j * dsub:(j + 1) * dsub].astype(np.float64)
+            d2 = ((books[j] - xs) ** 2).sum(axis=1)
+            scale = float(xs @ xs + (books[j] ** 2).sum(axis=1).max())
+            gap = abs(float(d2[got[r, j]] - d2[want[r, j]])) / scale
+            check(gap <= TIE_REL, f"stream: {backend} delta code of slot "
+                  f"{r}, subquantizer {j}: {got[r, j]} patched, "
+                  f"{want[r, j]} by a whole encode, relative gap "
+                  f"{gap:.3e}: not an f32 tie")
+            worst = max(worst, gap)
+    return rows, worst
+
+
+def assign_ties(torch, stream_vecs, centroids, a, b, cfg):
+    """Rows whose stored assignment ``a`` differs from a fresh one ``b``:
+    each must be an f32 tie, the f64 gap between the two decisions within
+    the rounding of an f32 (n, nlist) distance matmul.  Returns (rows,
+    largest relative gap)."""
+    rows = np.nonzero((a != b).any(axis=1))[0]
+    worst = 0.0
+    c64 = centroids.double().cpu()
+    for r in rows.tolist():
+        xr = stream_vecs[r].double().cpu()
+        d2 = ((c64 - xr) ** 2).sum(dim=1)
+        srt = torch.sort(d2)
+        cand = srt.indices[:cfg.n_cands]
+        res = c64[cand] - xr
+        loss = d2[cand] + cfg.lam * (res @ res[0])
+        scale = float(xr @ xr + (c64[cand] ** 2).sum(dim=1).max())
+        lists = sorted(set(a[r].tolist()) ^ set(b[r].tolist()))
+        gaps = []
+        for la in lists:
+            for lb in lists:
+                if la < lb:
+                    gaps.append(abs(float(d2[la] - d2[lb])))
+                    ia, ib = (cand == la).nonzero(), (cand == lb).nonzero()
+                    if ia.numel() and ib.numel():
+                        gaps.append(abs(float(loss[ia[0, 0]]
+                                              - loss[ib[0, 0]])))
+        gap = min(gaps) / scale if gaps else float("inf")
+        check(gap <= TIE_REL, f"stream compaction: row {r} assigned "
+              f"{a[r].tolist()} at insert and {b[r].tolist()} by a full "
+              f"build, relative gap {gap:.3e}: not an f32 tie")
+        worst = max(worst, gap)
+    return rows, worst
+
+
+def stream_compact(torch, stream, q, x, n, args):
+    """compact() bitwise against build_seil over the survivors' stored
+    assignments and codes; beside a full build_index with the frozen
+    training (rows assigned or encoded otherwise must be f32 ties);
+    begin_compact -> fold() on a thread while batches are served and the
+    stream mutates -> install(), external ids resolving across both
+    epochs; the stream saved, reloaded and answering alike."""
+    import tempfile
+    import threading
+    from repro_torch.core import (build_index, build_seil, load_index,
+                                  save_index)
+    from repro_torch.core.seil import SEIL_FIELDS
+    live = stream.live_mask()
+    keep_assigns = stream.assigns[live]
+    keep_codes = stream.codes[live]
+    keep_vecs = stream.vectors[torch.from_numpy(
+        np.nonzero(live)[0]).to(stream.device)]
+    handles = stream.external_ids(stream.live_ids()[::997])
+    torch.cuda.synchronize()
+    info = stream.compact()
+    torch.cuda.synchronize()
+    log(f"stream: compact() {info['seconds']:.2f} s (layout "
+        f"{info['layout_seconds']:.2f} s): {info['n_live']} live, "
+        f"{info['dropped']} dropped, epoch {info['epoch']}")
+    cfg = stream.config
+    want, want_stats = build_seil(
+        keep_assigns, keep_codes, np.arange(keep_codes.shape[0],
+                                            dtype=np.int32),
+        cfg.nlist, block=cfg.block, shared=cfg.seil and cfg.multi_m == 2,
+        code_bits=cfg.nbits, device=stream.device)
+    for f in SEIL_FIELDS:
+        check(torch.equal(getattr(stream.base.arrays, f), getattr(want, f)),
+              f"stream: the compacted layout differs from build_seil over "
+              f"the survivors on {f}")
+    check(stream.base.stats == want_stats and torch.equal(
+        stream.base.vectors, keep_vecs), "stream: compacted stats/vectors")
+    t0 = time.perf_counter()
+    full = build_index(keep_vecs, cfg, centroids=stream.centroids,
+                       codebook=stream.codebook, device=stream.device)
+    torch.cuda.synchronize()
+    rows, worst = assign_ties(torch, keep_vecs, stream.centroids,
+                              keep_assigns, full.assigns, cfg)
+    code_rows = np.nonzero((keep_codes != full.codes).any(axis=1))[0]
+    log(f"stream: a full build_index over the {keep_codes.shape[0]} "
+        f"survivors with the frozen training ({time.perf_counter() - t0:.2f}"
+        f" s) assigns {rows.size} rows otherwise than their inserts did "
+        f"(each an f32 tie, largest relative gap {worst:.2e}: {rows[:20]}) "
+        f"and encodes {code_rows.size} rows otherwise ({code_rows[:20]})")
+    same = all(torch.equal(getattr(full.arrays, f),
+                           getattr(stream.base.arrays, f))
+               for f in SEIL_FIELDS)
+    log(f"stream: the full build's layout is "
+        f"{'bitwise equal to' if same else 'not bitwise equal to'} the "
+        "compacted one")
+    del full, want
+    resolved = stream.resolve_ids(handles)
+    check((resolved >= 0).all() and np.array_equal(
+        stream.external_ids(resolved), handles), "stream: external ids do "
+        "not resolve after compact()")
+    # zero-downtime compaction with a mutation tail
+    stream.insert(x[n:n + 4096] + 0.002)
+    stream.delete(stream.live_ids()[:2048])
+    handles = stream.external_ids(stream.live_ids()[::991])
+    pend = stream.begin_compact()
+    worker = threading.Thread(target=pend.fold)
+    t0 = time.perf_counter()
+    worker.start()
+    served = 0
+    tail = []
+    while worker.is_alive() or served < 4:
+        tail.append(stream.external_ids(stream.insert(
+            x[n + 4096 + 256 * served:n + 4096 + 256 * (served + 1)]
+            + 0.003)))
+        stream.delete(stream.live_ids()[served * 64:(served + 1) * 64])
+        for mode, b in RUNS:
+            stream_session(stream, mode, b, True)(q[:b])
+        served += 1
+    worker.join()
+    t_fold = time.perf_counter() - t0
+    info = pend.install()
+    torch.cuda.synchronize()
+    tail_handles = np.concatenate(tail)
+    check(info["replayed_inserts"] > 0 and info["replayed_deletes"] > 0,
+          "stream: begin_compact replayed no tail")
+    for h in (handles, tail_handles):
+        got = stream.resolve_ids(h)
+        check(np.array_equal(stream.external_ids(got[got >= 0]),
+                             h[got >= 0]), "stream: external ids do not "
+              "round-trip across the epochs")
+    check((stream.resolve_ids(tail_handles) >= 0).sum() > 0,
+          "stream: no tail insert resolves after install()")
+    log(f"stream: begin_compact: fold() on a thread for {t_fold:.2f} s "
+        f"while {served} rounds of six batches were served and the stream "
+        f"mutated; install() {info['seconds']:.2f} s in all (layout "
+        f"{info['layout_seconds']:.2f} s), replayed "
+        f"{info['replayed_inserts']} inserts and "
+        f"{info['replayed_deletes']} deletes, epoch {info['epoch']}; "
+        "external ids resolve across both epochs")
+    res = stream_runs(torch, stream, q[:2048], "stream epoch 2")
+    # persistence: the mutated stream saved, reloaded, answering alike
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / "stream.npz"
+        t0 = time.perf_counter()
+        save_index(stream, path)
+        t1 = time.perf_counter()
+        back = load_index(path, device=stream.device)
+        torch.cuda.synchronize()
+        log(f"stream: saved {path.stat().st_size} bytes in {t1 - t0:.2f} s,"
+            f" loaded on the card in {time.perf_counter() - t1:.2f} s")
+    check(type(back).__name__ == "StreamingIndex" and back.version
+          == stream.version and np.array_equal(back.live_mask(),
+                                               stream.live_mask()),
+          "stream: the reloaded bundle's epoch state differs")
+    for mode, b in RUNS:
+        got = stream_session(back, mode, b, True)(q[:2048])
+        for f in got._fields:
+            check(torch.equal(getattr(got, f),
+                              getattr(res[(mode, True)], f)),
+                  f"stream: the reloaded stream differs in {mode} on {f}")
+    log("stream: the reloaded stream answers bitwise alike in the three "
+        "modes (fused)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2239,13 +2844,16 @@ def main() -> int:
     del index, results
     gc.collect()
     torch.cuda.empty_cache()
+    stream = stream_path(torch, dev, args, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
     ip_path(torch, dev, args.seed)
     multi_path(torch, dev, args.seed)
     nbits8 = nbits8_path(torch, dev, args.seed, rate)
     gist_rows, gist_launches = gist_path(torch, dev, args.seed, rate)
     small_reference(torch, dev, args.seed)
     kernels = kernel_json(rows, launches, gist_rows, gist_launches, *nbits8,
-                          *refine)
+                          *refine, *stream)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

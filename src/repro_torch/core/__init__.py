@@ -1,19 +1,26 @@
 """RAIRS core of the port: k-means IVF training, product quantization,
-AIR-metric assignment, the SEIL layout, the staged searcher and index
-persistence."""
+AIR-metric assignment, the SEIL layout, the staged searcher, streaming
+(a mutable index over a frozen base) and index persistence."""
 from .assign import (STRATEGY_REGISTRY, available_strategies,  # noqa: F401
                      candidate_lists, get_strategy, rair_assign,
                      rair_assign_multi, register_strategy, single_assign)
-from .index import IndexConfig, RairsIndex, build_index  # noqa: F401
+from .index import (IndexConfig, RairsIndex, build_index,  # noqa: F401
+                    insert_batch)
 from .io import (CHECKSUM_FORMAT_VERSION, INDEX_FORMAT,  # noqa: F401
                  INDEX_FORMAT_VERSION, PLANE_FORMAT_VERSION,
                  SHARDED_FORMAT_VERSION, load_index, read_index_meta,
                  save_index)
-from .kmeans import kmeans_fit, kmeans_loop, pairwise_sq_l2  # noqa: F401
+from .kmeans import (kmeans_fit, kmeans_loop, pairwise_sq_l2,  # noqa: F401
+                     segment_sum)
 from .metrics import ground_truth, recall_at_k  # noqa: F401
 from .params import (MAX_AUTO_BUCKET, RefineParams,  # noqa: F401
                      SearchParams)
 from .pq import PQCodebook, pq_encode, pq_lut, pq_lut_ip, pq_train  # noqa
 from .search import SearchResult, finalize_fetch, seil_search  # noqa: F401
 from .searcher import PlanStats, Searcher, SearcherStats  # noqa: F401
-from .seil import SeilArrays, SeilStats, build_seil  # noqa: F401
+from .seil import (SeilArrays, SeilStats, build_id_map,  # noqa: F401
+                   build_seil, build_seil_call_count, delete_ids)
+from .stream import (DeltaSegment, PendingCompaction,  # noqa: F401
+                     StaleSessionError, StreamConfig, StreamingIndex,
+                     StreamingSearcher, StreamStats, delta_adc,
+                     streaming_search)

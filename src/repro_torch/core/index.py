@@ -49,7 +49,7 @@ class IndexConfig:
     kmeans_iters: int = 15
     pq_iters: int = 12
     train_sample: int = 131072
-    delta_route_min: Optional[int] = None   # streaming (not ported)
+    delta_route_min: Optional[int] = None   # streaming: delta routing
 
     def __post_init__(self):
         if self.strategy not in STRATEGY_REGISTRY:
@@ -163,6 +163,23 @@ class RairsIndex:
             iters=self.config.pq_iters, generator=gen, device=self.device)
         return cache[backend]
 
+    def streaming(self, config=None):
+        """Wrap this (immutable) index as the base epoch of a mutable
+        ``StreamingIndex`` (core/stream/): inserts go to a delta segment,
+        deletes to a tombstone mask, ``compact()`` folds both into a
+        fresh base.  ``config`` is an optional ``StreamConfig``."""
+        from .stream import StreamingIndex
+        return StreamingIndex(self, config)
+
+    def searcher_stats(self) -> dict:
+        """Aggregate compile-cache stats over every cached session."""
+        sessions = list(self.__dict__.get("_searcher_cache", {}).values())
+        return {
+            "sessions": len(sessions),
+            "compiles": sum(s.stats.compiles for s in sessions),
+            "cache_hits": sum(s.stats.cache_hits for s in sessions),
+        }
+
     def search(self, queries, k: int, nprobe: int, k_factor: int = 10,
                max_scan: Optional[int] = None, use_kernel: bool = False,
                exec_mode: str = "paged", query_tile: int = 8, *,
@@ -247,3 +264,16 @@ def build_index(x, cfg: IndexConfig, *,
     return RairsIndex(config=cfg, centroids=centroids, codebook=codebook,
                       arrays=arrays, vectors=x, stats=stats,
                       assigns=assigns, codes=codes, build_seconds=times)
+
+
+def insert_batch(index, x_new):
+    """Append a batch through the streaming delta path (paper Fig. 12):
+    wraps ``index`` in a ``StreamingIndex`` (or reuses the one given) and
+    appends to its delta segment in O(batch).  The result reads like a
+    ``RairsIndex`` (vectors / search / searcher), new ids continue the
+    old numbering, and ``.compact()`` folds the delta into a fresh base."""
+    from .stream import StreamingIndex   # local: stream imports this module
+    stream = (index if isinstance(index, StreamingIndex)
+              else index.streaming())
+    stream.insert(x_new)
+    return stream

@@ -10,8 +10,14 @@ array (``meta_json``), headed by a format name and version.  Arrays keep
 the reference's names and dtypes: f32 floats, int32 ids and lists, uint8
 codes.
 
-* v1 / v2: one compressed npz (v2 may carry a streaming section: the
-  port cannot load those yet, ROADMAP.md Queue 1 item 5).
+* v1 / v2: one compressed npz.  v2 may carry a *streaming* section: a
+  ``StreamingIndex`` saved without compacting, its base epoch's arrays as
+  before plus the delta segment (``delta_vectors`` / ``_codes`` /
+  ``_assigns`` / ``_live``), the base tombstones bit-packed
+  (``base_live``, ``np.packbits``) and ``epoch`` / ``version`` /
+  ``stream_config`` in the meta.  ``save_index`` takes either index
+  type and ``load_index`` returns the type the bundle holds (every later
+  version carries the section alike; v1 is v2 without it).
 * v3: ``save_index(index, path, shards=N)`` writes a directory, a
   ``MANIFEST.json`` plus ``common-<crc>.npz`` (centroids, codebooks,
   per-list tables, planes) and ``shard_NNNN-<crc>.npz`` (block arrays by
@@ -27,10 +33,11 @@ codes.
   unreadable member, or a missing one raises ``CorruptBundleError``
   naming it.
 
-``load_index(path, device=None)`` rebuilds a ``RairsIndex`` on ``device``
-(None: CUDA), with ``SeilStats`` from the meta.  Serving a loaded index
-over a mesh (the reference's ``mesh=``) waits for ROADMAP.md Queue 1
-item 9.
+``load_index(path, device=None)`` rebuilds a ``RairsIndex`` (or a
+``StreamingIndex``) on ``device`` (None: CUDA), with ``SeilStats`` from
+the meta; a stream's planes come back as its carried codecs.  Serving a
+loaded index over a mesh (the reference's ``mesh=``) waits for
+ROADMAP.md Queue 1, item 4 (sharding).
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from ..errors import CorruptBundleError
 from .index import IndexConfig, RairsIndex
 from .pq import PQCodebook
 from .seil import SEIL_FIELDS, SeilStats, arrays_to_device
+from .stream import StreamConfig, StreamingIndex
 
 INDEX_FORMAT = "rairs-index"
 INDEX_FORMAT_VERSION = 2          # single-file bundles without planes
@@ -63,15 +71,18 @@ MANIFEST_NAME = "MANIFEST.json"
 _BLOCK_FIELDS = ("block_codes", "block_ids", "block_other")
 _TABLE_FIELDS = ("owned", "refs", "refs_other", "misc")
 _VECTOR_FIELDS = ("vectors", "assigns", "codes")   # shard by vector-id range
+# a StreamingIndex's epoch state; replicated in common.npz when sharded
+_STREAM_FIELDS = ("delta_vectors", "delta_codes", "delta_assigns",
+                  "delta_live", "base_live")
 # the reference's dtype of every array a frozen bundle holds
 _DTYPES = dict(centroids=np.float32, codebooks=np.float32,
                vectors=np.float32, assigns=np.int32, codes=np.uint8,
                block_codes=np.uint8, block_ids=np.int32,
                block_other=np.int32, owned=np.int32, refs=np.int32,
-               refs_other=np.int32, misc=np.int32)
-STREAMING_NOT_PORTED = (
-    "streaming bundles (a StreamingIndex's delta segment and tombstones) "
-    "are not ported yet: ROADMAP.md Queue 1, item 5 (streaming)")
+               refs_other=np.int32, misc=np.int32,
+               delta_vectors=np.float32, delta_codes=np.uint8,
+               delta_assigns=np.int32, delta_live=np.bool_,
+               base_live=np.uint8)
 
 
 def _fsync_dir(dirname: str) -> None:
@@ -127,9 +138,12 @@ def _host(a, dtype) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(a), dtype=dtype)
 
 
-def _gather_arrays(index: RairsIndex, extra: Optional[dict]) -> tuple:
+def _gather_arrays(index: Union[RairsIndex, StreamingIndex],
+                   extra: Optional[dict]) -> tuple:
     """(meta, arrays) shared by the single-file and sharded writers, in
     the reference's order."""
+    stream = index if isinstance(index, StreamingIndex) else None
+    index = stream.base if stream is not None else index
     meta = {
         "format": INDEX_FORMAT,
         "format_version": CHECKSUM_FORMAT_VERSION,
@@ -149,6 +163,19 @@ def _gather_arrays(index: RairsIndex, extra: Optional[dict]) -> tuple:
         arrays[f] = getattr(index.arrays, f)
     if index.codes is not None:
         arrays["codes"] = index.codes
+    if stream is not None:
+        d = stream._delta
+        meta["streaming"] = {
+            "epoch": stream.epoch,
+            "version": stream.version,
+            "delta_count": int(d.count),
+            "stream_config": dataclasses.asdict(stream.stream_config),
+        }
+        arrays["delta_vectors"] = d.vectors[:d.count]
+        arrays["delta_codes"] = d.codes[:d.count]
+        arrays["delta_assigns"] = d.assigns[:d.count]
+        arrays["delta_live"] = d.live[:d.count]
+        arrays["base_live"] = np.packbits(stream._base_live)
     arrays = {k: _host(a, _DTYPES[k]) for k, a in arrays.items()}
     # quantization-ladder planes (v4+): codec books + per-id codes only;
     # the packed block layout is re-derived on load
@@ -163,17 +190,20 @@ def _gather_arrays(index: RairsIndex, extra: Optional[dict]) -> tuple:
     return meta, arrays
 
 
-def save_index(index: RairsIndex, path: Union[str, os.PathLike],
-               extra: dict = None, *, shards: Optional[int] = None) -> None:
+def save_index(index: Union[RairsIndex, StreamingIndex],
+               path: Union[str, os.PathLike], extra: dict = None, *,
+               shards: Optional[int] = None) -> None:
     """Write ``index`` to ``path`` in format v5.
 
     Default: one compressed npz bundle at exactly ``path`` (no implicit
     .npz suffix).  With ``shards=N``, ``path`` becomes a directory holding
     a manifest and per-shard bundles (module docstring).  ``extra`` is a
     JSON-able dict of caller provenance readable via
-    ``read_index_meta``."""
-    if not isinstance(index, RairsIndex):
-        raise TypeError(f"save_index takes a RairsIndex, got {type(index)}")
+    ``read_index_meta``.  A ``StreamingIndex`` is saved without
+    compacting: its delta segment and tombstones travel as they are."""
+    if not isinstance(index, (RairsIndex, StreamingIndex)):
+        raise TypeError(f"save_index takes a RairsIndex or a "
+                        f"StreamingIndex, got {type(index)}")
     meta, arrays = _gather_arrays(index, extra)
     if shards is None:
         meta["checksums"] = _checksums(arrays)
@@ -223,8 +253,9 @@ def _save_sharded(meta: dict, arrays: dict, path, shards: int) -> None:
         shard_files.append(fname)
         checksums[fname] = crcs
     common = {f: arrays[f] for f in ("centroids", "codebooks")}
-    for f in _TABLE_FIELDS:
-        common[f] = arrays[f]
+    for f in _TABLE_FIELDS + _STREAM_FIELDS:
+        if f in arrays:
+            common[f] = arrays[f]
     # plane payloads are tiny (Mc << M) — they replicate with the tables
     for f in arrays:
         if f.startswith("plane_"):
@@ -405,11 +436,10 @@ def read_index_meta(path: Union[str, os.PathLike]) -> dict:
         return _load_npz_meta(path, z)
 
 
-def _index_from(meta: dict, get, device: torch.device) -> RairsIndex:
+def _index_from(meta: dict, get, device: torch.device
+                ) -> Union[RairsIndex, StreamingIndex]:
     """Rebuild the index on ``device`` from meta + an array accessor
     (shared by the single-file and sharded loaders)."""
-    if meta.get("streaming") is not None:
-        raise NotImplementedError(STREAMING_NOT_PORTED)
     from ..quant import PlanePack, plane_block_codes
 
     def tensor(name, dtype):
@@ -437,10 +467,29 @@ def _index_from(meta: dict, get, device: torch.device) -> RairsIndex:
                 codes=codes,
                 block_codes=plane_block_codes(codes, host["block_ids"],
                                               device))
-    return index
+    sm = meta.get("streaming")
+    if sm is None:
+        return index
+    stream = StreamingIndex(index, StreamConfig(**sm["stream_config"]))
+    if meta.get("planes"):
+        # restored codecs are the stream's carried ones: a later
+        # compaction re-encodes with them instead of retraining
+        stream._plane_codecs.update(
+            {b: index._planes[b].codec for b in meta["planes"]})
+    stream.restore_state(
+        epoch=sm["epoch"], version=sm["version"],
+        base_live=np.unpackbits(
+            _host(get("base_live"), np.uint8),
+            count=index.vectors.shape[0]).astype(bool),
+        delta_vectors=_host(get("delta_vectors"), np.float32),
+        delta_codes=_host(get("delta_codes"), np.uint8),
+        delta_assigns=_host(get("delta_assigns"), np.int32),
+        delta_live=_host(get("delta_live"), np.bool_))
+    return stream
 
 
-def _load_sharded(mpath: str, device: torch.device) -> RairsIndex:
+def _load_sharded(mpath: str, device: torch.device
+                  ) -> Union[RairsIndex, StreamingIndex]:
     manifest = _read_manifest(mpath)
     root = os.path.dirname(mpath)
     table = manifest.get("checksums")
@@ -461,13 +510,14 @@ def _load_sharded(mpath: str, device: torch.device) -> RairsIndex:
     return _index_from(dict(manifest["meta"]), get, device)
 
 
-def load_index(path: Union[str, os.PathLike],
-               device: DeviceLike = None) -> RairsIndex:
+def load_index(path: Union[str, os.PathLike], device: DeviceLike = None
+               ) -> Union[RairsIndex, StreamingIndex]:
     """Load a bundle written by either package's ``save_index`` (any
-    readable version, single file or sharded directory) as a
-    ``RairsIndex`` on ``device`` (None: CUDA).  A bundle that carries
-    streaming state raises ``NotImplementedError`` (ROADMAP.md Queue 1,
-    item 5); a corrupt one ``CorruptBundleError`` naming the member."""
+    readable version, single file or sharded directory) on ``device``
+    (None: CUDA): a ``RairsIndex``, or a ``StreamingIndex`` (delta
+    segment, tombstones, epoch / version restored) when the bundle
+    carries streaming state.  A corrupt bundle raises
+    ``CorruptBundleError`` naming the member."""
     dev = resolve_device(device)
     mpath = _manifest_path(path)
     if mpath is not None:

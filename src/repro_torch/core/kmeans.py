@@ -23,12 +23,30 @@ def assign_nearest(x: torch.Tensor, c: torch.Tensor,
     return torch.cat(outs).to(torch.int32)
 
 
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, k: int):
+    """Per-segment row sums and counts in a fixed order:
+    ``(sums (k, D), counts (k,))`` with ``sums[j]`` the sum of the rows
+    of ``x`` whose ``seg`` is ``j``.
+
+    The rows are stably sorted by segment and each segment is summed over
+    its rows in ascending row order, starting from zero
+    (``torch.segment_reduce``): the same order on every device and in
+    every run.  On the CPU that is the order of the reference's
+    ``jax.ops.segment_sum``, bitwise.  (``index_add_`` on a CUDA tensor
+    sums f32 with atomics, in an order that changes between runs.)
+    """
+    s = seg.long()
+    srt, order = torch.sort(s, stable=True)
+    bounds = torch.searchsorted(
+        srt, torch.arange(k + 1, dtype=torch.long, device=x.device))
+    lengths = bounds[1:] - bounds[:-1]
+    sums = torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+    return sums, lengths.to(x.dtype)
+
+
 def _update_centroids(x, assign, k, old_c):
-    a = assign.long()
-    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-    sums.index_add_(0, a, x)
-    counts = torch.zeros((k,), dtype=x.dtype, device=x.device)
-    counts.index_add_(0, a, torch.ones_like(x[:, 0]))
+    sums, counts = segment_sum(x, assign, k)
     new_c = sums / torch.clamp_min(counts, 1.0)[:, None]
     # keep empty clusters where they were (Faiss splits them; we freeze them)
     return torch.where((counts > 0)[:, None], new_c, old_c)

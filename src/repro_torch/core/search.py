@@ -71,13 +71,15 @@ def _stage_plan(arrays, codebook, selection, queries, *, max_scan, metric):
 
 def _stage_scan(arrays, plan, lut, rank_of, *, fetch, exec_mode,
                 query_tile, fused_topk, sel=None, perm=None, unions=None,
-                packed_codes=False):
+                packed_codes=False, live=None):
+    """Stage 3; ``live`` (a tombstone mask, fused only) drops dead ids
+    before K3's selection."""
     store = store_from_arrays(arrays)
     if fused_topk:
         return scan_blocks_topk(
             store, plan, lut, rank_of, fetch=fetch, exec_mode=exec_mode,
             query_tile=query_tile, sel=sel, perm=perm, unions=unions,
-            packed=packed_codes)
+            live=live, packed=packed_codes)
     return scan_blocks(store, plan, lut, rank_of, exec_mode=exec_mode,
                        query_tile=query_tile, sel=sel, perm=perm,
                        unions=unions, packed=packed_codes)

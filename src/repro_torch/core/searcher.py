@@ -31,6 +31,12 @@ block codes with the plane's codec and keep ``bigk_eff`` survivors for
 the exact re-rank; the plane's tensors are static inputs of the CUDA
 graphs like the index's own.  ``refine_factor=1`` and the "full" plane
 keep the plain program.
+
+The hooks ``_check_current``, ``_call_inputs`` / ``_scan_inputs`` (the
+tensors an executable takes after its queries), ``_search_fn`` /
+``_scan_fn``, ``_probe_exe_store`` and ``_graph_pool`` let
+``core/stream/``'s ``StreamingSearcher`` swap in the streaming pipeline,
+as the reference's hooks do.
 """
 from __future__ import annotations
 
@@ -118,14 +124,22 @@ class Searcher:
         # per dispatch bucket, a signature-keyed map of cached tile unions
         # ((list, run) -> (W,) row), LRU-bounded
         self._plan_cache: Dict[int, "collections.OrderedDict"] = {}
-        on_card = index.device.type == "cuda"
-        self._pool = torch.cuda.graph_pool_handle() if on_card else None
+        self._pool = self._graph_pool()
+
+    def _graph_pool(self):
+        """The memory pool of this session's CUDA graphs (None on the
+        CPU)."""
+        if self.index.device.type != "cuda":
+            return None
+        return torch.cuda.graph_pool_handle()
 
     @property
     def buckets(self):
-        """Batch-size buckets with an executable, ascending."""
+        """Batch-size buckets with an executable, ascending (with
+        plan_reuse the probe store may live outside ``_compiled``)."""
+        keys = set(self._compiled) | set(self._probe_exe_store())
         return tuple(sorted({k if isinstance(k, int) else k[1]
-                             for k in self._compiled}))
+                             for k in keys}))
 
     def compile_stats(self) -> Dict[str, Any]:
         d = self.stats.as_dict()
@@ -133,6 +147,11 @@ class Searcher:
         if self.params.plan_reuse:
             d["plan"] = self.plan_stats.summary()
         return d
+
+    def _check_current(self) -> None:
+        """Raise if the index has mutated past this session: a no-op for
+        an immutable ``RairsIndex`` (``StreamingSearcher`` raises
+        ``StaleSessionError``)."""
 
     def _scan_state(self) -> tuple:
         """(arrays, codebook, packed) the scan stages run over: with a
@@ -166,29 +185,59 @@ class Searcher:
             return fn
         return GraphExe(fn, inputs, pool=self._pool, clone=clone)
 
-    def _get_exe(self, key, make):
-        hit = key in self._compiled
+    def _get_exe(self, key, make, cache=None):
+        cache = self._compiled if cache is None else cache
+        hit = key in cache
         if not hit:
             with obs.span("searcher.compile", cat="compile", key=str(key)):
-                self._compiled[key] = make()
+                cache[key] = make()
             self.stats.compiles += 1
         else:
             self.stats.cache_hits += 1
-        return self._compiled[key]
+        return cache[key]
 
-    def _executable(self, bucket: int):
-        """The whole pipeline for one bucket."""
+    def _probe_exe_store(self) -> dict:
+        """Where plan_reuse probe executables live.  The probe half reads
+        only the base index, so a subclass whose ``_compiled`` is keyed by
+        delta shapes (core/stream/) keeps them in a longer-lived store."""
+        return self._compiled
+
+    def _call_inputs(self) -> tuple:
+        """Tensors the whole-pipeline executable takes after the queries
+        (static inputs of its CUDA graph)."""
+        return ()
+
+    def _scan_inputs(self) -> tuple:
+        """Tensors the scan executable takes after (queries, probe,
+        unions)."""
+        return ()
+
+    def _search_fn(self):
+        """``fn(q, *self._call_inputs())`` -> SearchResult."""
         idx = self.index
         kw = dict(self._search_kw(), nprobe=self.params.nprobe,
                   max_scan=self.params.max_scan)
-
         arrays, codebook = self._arrays, self._codebook
 
         def fn(q):
             return seil_search(arrays, idx.centroids, codebook, idx.vectors,
                                q, **kw)
-        return self._get_exe(bucket,
-                             lambda: self._make(fn, (self._zeros(bucket),)))
+        return fn
+
+    def _scan_fn(self):
+        """``fn(q, probe, unions, *self._scan_inputs())`` -> SearchResult."""
+        idx = self.index
+        kw = self._search_kw()
+        arrays = self._arrays
+
+        def fn(q, probe, unions):
+            return scan_finalize(arrays, idx.vectors, q, probe, unions, **kw)
+        return fn
+
+    def _executable(self, bucket: int):
+        """The whole pipeline for one bucket."""
+        return self._get_exe(bucket, lambda: self._make(
+            self._search_fn(), (self._zeros(bucket),) + self._call_inputs()))
 
     def _probe_exe(self, bucket: int):
         """Stages 1-2 and the batch's own unions for one bucket; returns
@@ -204,22 +253,18 @@ class Searcher:
             return q, probe_plan(arrays, idx.centroids, codebook, q, **kw)
         return self._get_exe(
             ("probe", bucket),
-            lambda: self._make(fn, (self._zeros(bucket),), clone=False))
+            lambda: self._make(fn, (self._zeros(bucket),), clone=False),
+            cache=self._probe_exe_store())
 
     def _scan_exe(self, bucket: int, qp, pr, width: int):
         """Stages 3-4 for one bucket at one union width, reading the
         probe executable's outputs ``(qp, pr)``."""
-        idx = self.index
-        kw = self._search_kw()
-        arrays = self._arrays
-
-        def fn(q, probe, unions):
-            return scan_finalize(arrays, idx.vectors, q, probe, unions, **kw)
-
         def make():
             unions = torch.full((pr.unions.shape[0], width), BIG,
-                                dtype=pr.unions.dtype, device=idx.device)
-            return self._make(fn, (qp, pr, unions))
+                                dtype=pr.unions.dtype,
+                                device=self.index.device)
+            return self._make(self._scan_fn(),
+                              (qp, pr, unions) + self._scan_inputs())
         return self._get_exe(("scan", bucket, width), make)
 
     # -- dispatch ---------------------------------------------------------
@@ -237,13 +282,13 @@ class Searcher:
         if not self.params.plan_reuse:
             if obs.enabled():
                 return self._dispatch_traced(qc)
-            return self._executable(bucket)(qc)
+            return self._executable(bucket)(qc, *self._call_inputs())
         qp, pr, unions_w = self._probe_merge(bucket, qc)
         wp = unions_w.shape[1]
         scan = self._scan_exe(bucket, qp, pr, wp)
         with obs.span("stage.scan_finalize", cat="device", bucket=bucket,
                       width=wp):
-            return obs.fence(scan(qp, pr, unions_w))
+            return obs.fence(scan(qp, pr, unions_w, *self._scan_inputs()))
 
     def _probe_merge(self, bucket: int, qc: torch.Tensor):
         """Probe a padded chunk and merge its tile unions with the plan
@@ -340,6 +385,7 @@ class Searcher:
         return self
 
     def __call__(self, queries) -> SearchResult:
+        self._check_current()
         dev = self.index.device
         if isinstance(queries, np.ndarray):
             queries = torch.from_numpy(queries)

@@ -21,7 +21,7 @@ stored once per assigned list, all blocks owned, no dedup metadata.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -238,6 +238,31 @@ def arrays_to_device(host: dict, device: torch.device) -> SeilArrays:
                          for f in SEIL_FIELDS})
 
 
+# Count of full layout builds in this process.  Streaming (core/stream/)
+# shows with it that an append builds no layout: a rebuild is the O(n)
+# cost the delta segment exists to avoid.
+_BUILD_SEIL_CALLS = 0
+
+
+def build_seil_call_count() -> int:
+    """Number of full layout builds since process start."""
+    return _BUILD_SEIL_CALLS
+
+
+def build_seil_host(assigns, codes, ids, nlist: int, block: int = 32,
+                    shared: bool = True, code_bits: int = 4):
+    """``build_seil`` up to the host arrays: ``(SEIL_FIELDS as numpy,
+    SeilStats)``.  Touches no device, so a compaction can fold on a
+    worker thread (``core/stream/``) and move the layout to the card
+    later (``arrays_to_device``).  Counts as a layout build."""
+    global _BUILD_SEIL_CALLS
+    _BUILD_SEIL_CALLS += 1
+    return _build_host(np.asarray(assigns, np.int32),
+                       np.asarray(codes, np.uint8),
+                       np.asarray(ids, np.int32), nlist, block, shared,
+                       code_bits)
+
+
 def build_seil(
     assigns: np.ndarray,        # (n, m) sorted list ids per vector
     codes: np.ndarray,          # (n, M) uint8
@@ -251,8 +276,41 @@ def build_seil(
     """Build the SEIL (or baseline duplicated) list layout (paper Alg. 4)
     on the host, then move it to ``device``."""
     dev = resolve_device(device)
-    host, stats = _build_host(np.asarray(assigns, np.int32),
-                              np.asarray(codes, np.uint8),
-                              np.asarray(ids, np.int32), nlist, block,
-                              shared, code_bits)
+    host, stats = build_seil_host(assigns, codes, ids, nlist, block, shared,
+                                  code_bits)
     return arrays_to_device(host, dev), stats
+
+
+def build_id_map(arrays: SeilArrays) -> Dict[int, list]:
+    """id -> [(block, slot), ...] (at most 2 per id, plus misc copies)."""
+    ids = arrays.block_ids.cpu().numpy()
+    out: Dict[int, list] = {}
+    bs, ss = np.nonzero(ids >= 0)
+    for b, s in zip(bs.tolist(), ss.tolist()):
+        out.setdefault(int(ids[b, s]), []).append((b, s))
+    return out
+
+
+def delete_ids(arrays: SeilArrays, id_map: Dict[int, list],
+               del_ids) -> SeilArrays:
+    """Deprecated: invalidate the layout entries of ``del_ids`` (paper
+    §6.1).
+
+    Layout only: it rewrites ``SeilArrays`` alone and leaves an index's
+    ``assigns`` / ``codes`` / ``vectors`` / ``SeilStats`` and its cached
+    sessions stale.  Delete through ``StreamingIndex.delete``
+    (core/stream/), which masks tombstones at query time and keeps every
+    view and session version coherent.  Warns with ``DeprecationWarning``
+    (the reference's text)."""
+    import warnings
+    warnings.warn(
+        "seil.delete_ids is layout-only and leaves assigns/codes/vectors/"
+        "stats and cached sessions stale; use StreamingIndex.delete "
+        "(index.streaming().delete(ids)) for index-level deletion",
+        DeprecationWarning, stacklevel=2)
+    ids = arrays.block_ids.cpu().numpy().copy()
+    for i in del_ids:
+        for (b, s) in id_map.get(int(i), ()):
+            ids[b, s] = -1
+    return dataclasses.replace(
+        arrays, block_ids=torch.from_numpy(ids).to(arrays.block_ids.device))

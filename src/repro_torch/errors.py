@@ -1,7 +1,7 @@
 """Typed error taxonomy (the port's own copy of ``repro/errors.py``).
 
-Every failure a caller can observe from persistence (and, once they
-are ported, the gateway and the streaming handover) is a subclass of
+Every failure a caller can observe from persistence and streaming (and,
+once it is ported, the gateway) is a subclass of
 ``RairsError``, so ``except RairsError`` catches "the system told me
 no" while genuine bugs (TypeError, KeyError, ...) propagate.  Several
 leaves also subclass the stdlib exception callers saw at that site
@@ -20,6 +20,7 @@ __all__ = [
     "HandoverFailed",
     "CorruptBundleError",
     "FaultInjected",
+    "StaleSessionError",
 ]
 
 
@@ -64,3 +65,11 @@ class FaultInjected(RairsError):
     """Raised by an installed ``FaultPlan`` at a ``raise``-kind fault
     site.  Only ever seen in chaos tests — production code paths treat
     it like any other dispatch/worker failure."""
+
+
+class StaleSessionError(RairsError, RuntimeError):
+    """A searcher session outlived the index state it compiled against:
+    a ``StreamingIndex`` mutated (or compacted) past the (epoch, version)
+    the session pinned.  Re-fetch the session with
+    ``stream.searcher(params)``.  (The reference defines it in
+    ``repro/core/stream/streaming.py``, with the same bases.)"""

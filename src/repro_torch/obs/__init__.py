@@ -10,7 +10,7 @@ tracer.  With one active, sessions dispatch through the stage-fenced
 so a stage's span covers its device time; results stay bitwise equal.
 
 Trace export and the unified stats schema (the reference's ``export.py``
-and ``stats.py``) are not ported yet: ROADMAP.md Queue 1, item 7.
+and ``stats.py``) are not ported yet: ROADMAP.md Queue 1, item 2.
 """
 from .tracer import (Tracer, enabled, fence, span, start, stop,  # noqa: F401
                      trace, tracer, work_count)

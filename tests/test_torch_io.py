@@ -10,8 +10,9 @@ packages, distances at rtol=atol=1e-5, as in tests/test_torch_search.py).
 Corruption (a flipped bit, a truncated or missing member, a checksum
 mismatch) raises ``CorruptBundleError`` naming the member, with the
 reference's message; ``FaultPlan`` decisions equal the reference's for
-the same seed and specs.  Streaming bundles raise, naming their ROADMAP
-item.
+the same seed and specs.  The golden streaming bundles (v2, v4) load as
+a ``StreamingIndex`` equal to the reference's load, one file or sharded,
+and answer alike.
 """
 import dataclasses
 import json
@@ -320,16 +321,53 @@ def test_golden_v1_answers_as_the_reference_load(tmp_path):
 
 
 @pytest.mark.parametrize("version", [2, 4])
-def test_streaming_bundles_raise_naming_their_item(version, tmp_path):
+def test_streaming_bundles_load_as_the_reference_load(version, tmp_path):
+    """golden_v2 / golden_v4 (a StreamingIndex with a delta segment and
+    tombstones; v4 with both planes), one file and resaved as 2 shards:
+    the same base, epoch state, delta and carried codecs as the
+    reference's load, and the same answers in the six modes (and on
+    each plane)."""
+    from repro.core import RefineParams as JRefine
+    from repro_torch.core import RefineParams, StreamingIndex
     path = GOLDEN[version]
     meta = read_index_meta(path)
     assert meta == j_meta(path) and meta["streaming"]["delta_count"] == 12
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        load_index(path, device="cpu")
     out = tmp_path / "sharded"
     j_save(j_load(path), out, shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        load_index(out, device="cpu")
+    for src in (path, out):
+        got, want = load_index(src, device="cpu"), j_load(src)
+        assert isinstance(got, StreamingIndex)
+        assert_same_index(got.base, want.base)
+        assert (got.epoch, got.version, got.n_live, got.n_delta) == (
+            want.epoch, want.version, want.n_live, want.n_delta)
+        assert dataclasses.asdict(got.stream_config) == dataclasses.asdict(
+            want.stream_config)
+        np.testing.assert_array_equal(got.live_mask(), want.live_mask())
+        for name in ("vectors", "codes", "assigns", "post", "post_n"):
+            np.testing.assert_array_equal(getattr(got._delta, name),
+                                          getattr(want._delta, name))
+        assert sorted(got._plane_codecs) == sorted(want._plane_codecs)
+        q = np.asarray(want.vectors)[-8:] + 0.01
+        for mode in ("paged", "grouped", "clustered"):
+            for fused in (False, True):
+                for plane in [None] + sorted(got._plane_codecs):
+                    kw = dict(k=5, nprobe=2, exec_mode=mode,
+                              fused_topk=fused)
+                    a = got.searcher(SearchParams(
+                        **kw, refine=plane and RefineParams(plane, 2)),
+                        device="cpu")(t(q))
+                    b = want.searcher(JParams(
+                        **kw, refine=plane and JRefine(plane, 2)))(
+                        jnp.asarray(q))
+                    _assert_results(
+                        {f: getattr(a, f).numpy() for f in a._fields},
+                        {f: np.asarray(getattr(b, f)) for f in b._fields},
+                        False)
+        # a resave by the port reloads alike in both packages
+        save_index(got, tmp_path / "resaved.npz")
+        again = j_load(tmp_path / "resaved.npz")
+        assert_same_index(again.base, want.base)
+        np.testing.assert_array_equal(again.live_mask(), want.live_mask())
 
 
 def test_unknown_versions_and_foreign_files_raise(tidx, tmp_path):
