@@ -87,6 +87,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 launches alone too, a torch.topk beside the select, K1 +
                 one torch.topk beside K3), and the
                 device time of each stage of one wide batch per mode;
+     gateway  — on the main index, the main path's params (paged, fused,
+                nprobe 32): the dense path on 1,024 queries against a
+                paged session whose budget drops no block (DCO and
+                scanned blocks equal, ids within 2; the nprobe sweep
+                bitwise single runs; seconds, peak memory); 4,096
+                queries through a Gateway (max_batch 256, 2 ms), fused
+                and unfused, each answer the direct session's or a
+                classified near-tie; the serve sweep (BENCH_serve.json's
+                protocol: per-request capacity, then 1.5x and 20x it,
+                20,000 requests a point: QPS, p50 / p95 / p99, mean
+                batch, 0 errors, recall@10 >= 0.5); overload
+                (BENCH_overload.json's: max_queue 1024, reject, a
+                two-level ladder at 0.5x / 1x / 2x the saturating rate,
+                beside the unbounded gateway at 2x, 10,000 requests a
+                point, each flush slowed by an injected 50 ms dispatch
+                delay so that one client thread can offer 2x; at 2x the
+                gateway sheds or steps down, and levels 1 and 2 answer
+                over the three points with recall@10 >= 0.4);
+                clustered with plan reuse behind signature admission; a
+                traced flush bitwise the untraced one, its trace
+                exported, validated and read back, the unified snapshot
+                as Prometheus text; launches of the gateway runs by
+                form; the card's busy share of the 20x point (its
+                flushes at their buckets' device times); K1, K3 and the
+                merge held and timed at the first flushed batch;
      stream   — streaming on the main index's configuration: a draw of
                 n + n/4 vectors of the sift1m spec, the index built on the
                 first n, the last n/4 inserted in 8 batches (append
@@ -106,8 +131,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 a full build whose differing assignments must be f32
                 ties; begin_compact with fold() on a thread while batches
                 are served and the stream mutates, then install(),
-                external ids resolving across the epochs; the stream
-                saved, reloaded and answering bitwise alike;
+                external ids resolving across the epochs; a Gateway over
+                the stream (`stream gateway` lines): insert / delete
+                round trips through external ids, open-loop traffic
+                before, during and after a compact_async handover whose
+                first fold attempt is made to fail (retried) while an
+                on_request hook inserts and deletes: no client error, no
+                deleted id served, every served id resolving after
+                install, latency percentiles of the three segments; the
+                stream saved, reloaded and answering bitwise alike;
      multi    — an m-assignment index (80,000 x 128, IVF1024, PQ64x4,
                 multi_m=3) built on the card, in the six modes;
      persist  — the nbits=8 index with both planes saved as one file and
@@ -123,6 +155,7 @@ The line before the last is a JSON object {"kernels": [...]}, the last
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import subprocess
@@ -173,6 +206,24 @@ STREAM_BATCHES = 8
 # the largest gap between two assignment decisions, relative to
 # |x|^2 + |c|^2, that an f32 distance matmul may round either way
 TIE_REL = 1e-5
+# the gateway phase: the main path's params (paged, fused) behind the
+# gateway; flushes of up to GW_BATCH requests, GW_DELAY_MS deadline
+GATEWAY = dict(SEARCH, exec_mode="paged", fused_topk=True)
+GW_BATCH, GW_DELAY_MS = 256, 2.0
+GW_EQUAL = 4096            # queries of the equality bursts
+GW_REQUESTS = 20_000       # requests of a serve or overload point
+GW_CALIBRATE = 2_000       # back-to-back requests that measure a capacity
+GW_SERVE_LOADS = (1.5, 20.0)          # x per-request capacity
+GW_OVERLOAD_LOADS = (0.5, 1.0, 2.0)   # x the batched saturating rate
+GW_OVERLOAD_REQUESTS = 10_000   # requests of an overload point
+GW_SLOW_S = 0.05           # the delay injected into each overload flush
+GW_DEGRADED_FLOOR = 0.4    # recall@10 of a degraded level (DESIGN.md §13)
+GW_MAX_QUEUE = 1024
+GW_WAIT = 120.0            # the longest any request is waited for
+DENSE_QUERIES = 1024
+# the stream's gateway: requests a segment (before / after the
+# handover; twice that during it), offered rate, vectors to insert
+STREAM_GW_REQUESTS, STREAM_GW_QPS, STREAM_GW_INSERTS = 3_000, 2_000.0, 16_384
 
 
 def log(*a):
@@ -1419,7 +1470,8 @@ def time_kernels(torch, index, queries, lookups_per_s):
 
 def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
                 nbits8_launches, plane_rows, plane_launches, wide_rows,
-                wide_launches, stream_rows, stream_launches):
+                wide_launches, stream_rows, stream_launches, gw_rows,
+                gw_launches):
     """The {"kernels": [...]} entries: K1 and K3 at the main path's first
     paged batch, K3's merge at its first grouped batch (where most of its
     launches run), the
@@ -1430,8 +1482,9 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
     candidate-row form (its scan to rows, and the row select) at the
     wide case's first paged batch, and K1, K3 with the tombstones' dead
     tile and K3's merge on the stream phase (paged, the merge grouped,
-    after the deletes; launches of its twelve six-mode runs), with their
-    launches on the runs that use them."""
+    after the deletes; launches of its twelve six-mode runs), and K1, K3
+    and its merge at the gateway phase's first flushed batch (launches of
+    the gateway runs), with their launches on the runs that use them."""
     src = "src/repro_torch/kernels/csrc/"
     planes = []
     for b in sorted(plane_rows):
@@ -1442,6 +1495,18 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
             (f"pq_scan_topk_kernel[{b} plane]", src + "pq_scan_topk.cu",
              "src/repro/kernels/pq_scan.py:311", plane_rows[b]["paged"]["K3"],
              plane_launches[b]["pq_scan_topk_kernel"])]
+    gateway = [
+        ("pq_scan_tiled_kernel[gateway, fast]", src + "pq_scan.cu",
+         "src/repro/kernels/pq_scan.py:112", gw_rows["K1"],
+         gw_launches["pq_scan_tiled_kernel[fast]"]),
+        ("pq_scan_topk_kernel[gateway, shared]", src + "pq_scan_topk.cu",
+         "src/repro/kernels/pq_scan.py:311", gw_rows["K3"],
+         gw_launches["pq_scan_topk_kernel[shared]"])]
+    if "merge" in gw_rows:      # K3 split at the first flush
+        gateway.append(("merge_topk_kernel[gateway]",
+                        src + "pq_scan_topk.cu",
+                        "src/repro/kernels/topk.py:103", gw_rows["merge"],
+                        gw_launches["merge_topk_kernel"]))
     out = []
     for name, source, replaces, row, n in planes + [
             ("pq_scan_topk_kernel[candidate rows]", src + "pq_scan_topk.cu",
@@ -1475,7 +1540,7 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
             ("merge_topk_kernel[stream]", src + "pq_scan_topk.cu",
              "src/repro/kernels/topk.py:103", stream_rows["grouped"]["merge"],
              stream_launches["merge_topk_kernel"]),
-        ] + [
+        ] + gateway + [
             (f"{kern}[k256, nbits8 {mode}]", src + source,
              f"src/repro/kernels/pq_scan.py:{line}", nbits8_rows[mode][kid],
              nbits8_launches[mode][kern])
@@ -1844,19 +1909,29 @@ def batch_size_ties(torch, index, q, a, b, bsz_a, bsz_b, what):
           "stage-1 selections agree")
     worst = 0.0
     for r in torch.nonzero(sel_differ).flatten().tolist():
-        j = int(torch.nonzero(sa[r] != sb[r])[0])
-        da, db = ca[r, sa[r, j].long()].item(), ca[r, sb[r, j].long()].item()
-        noise = (ca[r] - cb[r]).abs().max().item()
-        check(abs(da - db) <= 2 * noise,
-              f"{what}: query {r} selects list {int(sa[r, j])} or "
-              f"{int(sb[r, j])} at rank {j}, {da} against {db}, beyond the "
-              f"rounding {noise} between the batch sizes: not a tie")
-        worst = max(worst, abs(da - db) / max(abs(da), 1e-30))
+        worst = max(worst, stage1_tie(r, sa[r], sb[r], ca[r], cb[r],
+                                      f"{what}: B={bsz_a} / B={bsz_b}"))
     log(f"{what}: B={bsz_a} and B={bsz_b} runs disagree on "
         f"{int(differ.sum())} of {n} queries, each a stage-1 near-tie "
         f"({int(sel_differ.sum())} queries select lists in another order "
         "at the two batch sizes, each swap within the rounding between "
         f"them; largest relative gap {worst:.2e})")
+
+
+def stage1_tie(r, sa, sb, ca, cb, what):
+    """Query ``r``'s stage-1 selections ``sa`` / ``sb`` at two batch
+    shapes, from its centroid distances ``ca`` / ``cb`` at each: the first
+    two lists that swap must lie within twice the rounding between the
+    shapes (the largest difference between ``ca`` and ``cb``).  Returns
+    their relative gap."""
+    j = int((sa != sb).nonzero()[0])
+    da, db = ca[sa[j].long()].item(), ca[sb[j].long()].item()
+    noise = (ca - cb).abs().max().item()
+    check(abs(da - db) <= 2 * noise,
+          f"{what}: query {r} selects list {int(sa[j])} or {int(sb[j])} at "
+          f"rank {j}, {da} against {db}, beyond the rounding {noise} "
+          "between the two shapes: not a tie")
+    return abs(da - db) / max(abs(da), 1e-30)
 
 
 def nbits8_path(torch, dev, seed, lookups_per_s):
@@ -2768,7 +2843,10 @@ def stream_compact(torch, stream, q, x, n, args):
         f"{info['replayed_inserts']} inserts and "
         f"{info['replayed_deletes']} deletes, epoch {info['epoch']}; "
         "external ids resolve across both epochs")
-    res = stream_runs(torch, stream, q[:2048], "stream epoch 2")
+    stream_runs(torch, stream, q[:2048], "stream epoch 2")
+    stream_gateway(torch, stream, q, x, n, args.seed)
+    res = {(mode, True): stream_session(stream, mode, b, True)(q[:2048])
+           for mode, b in RUNS}
     # persistence: the mutated stream saved, reloaded, answering alike
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -2792,6 +2870,660 @@ def stream_compact(torch, stream, q, x, n, args):
                   f"stream: the reloaded stream differs in {mode} on {f}")
     log("stream: the reloaded stream answers bitwise alike in the three "
         "modes (fused)")
+
+
+# ---------------------------------------------------------------------------
+# phase gateway: the serving gateway over the main index's sessions
+# ---------------------------------------------------------------------------
+class Recorder:
+    """A gateway as ``run_open_loop`` sees it (``submit``) that keeps each
+    request's handle: the load generator returns ids, not each answer's
+    batch size or quality level."""
+
+    def __init__(self, gw):
+        self.gw, self.reqs = gw, []
+
+    def submit(self, query):
+        req = self.gw.submit(query)
+        self.reqs.append(req)
+        return req
+
+
+def recording_gateway():
+    """``Gateway`` that keeps the queries of its first flushed batch
+    (``first``), the batch K1 and K3 are held at."""
+    from repro_torch.gateway import Gateway
+
+    class Recording(Gateway):
+        first = None
+
+        def _dispatch(self, batch):
+            if self.first is None:
+                self.first = np.stack([r.query for r in batch])
+            super()._dispatch(batch)
+    return Recording
+
+
+def gw_answers(reqs, k=10):
+    """Host arrays of finished requests: ok, ids (n, k) (-1 where the
+    request failed), dists, batch size, quality level, epoch; and
+    ``errors``, the distinct failures other than shedding, each with its
+    count and the traceback of its first occurrence."""
+    from repro_torch.errors import Overloaded
+    import traceback
+    n = len(reqs)
+    out = dict(ok=np.zeros(n, bool), ids=np.full((n, k), -1, np.int64),
+               dists=np.full((n, k), np.inf, np.float32),
+               batch=np.zeros(n, np.int64), level=np.zeros(n, np.int64),
+               epoch=np.zeros(n, np.int64), errors={})
+    for i, req in enumerate(reqs):
+        try:
+            r = req.result(GW_WAIT)
+        except Overloaded:
+            continue
+        except Exception as e:
+            err = out["errors"].setdefault(repr(e), [0, "".join(
+                traceback.format_exception(type(e), e, e.__traceback__))])
+            err[0] += 1
+            continue
+        out["ok"][i] = True
+        out["ids"][i], out["dists"][i] = r.ids, r.dists
+        out["batch"][i], out["level"][i], out["epoch"][i] = (
+            r.batch, r.level, r.epoch)
+    return out
+
+
+def level_recall(ans, gt, pool):
+    """recall@10 of the answered requests by quality level (request i
+    asked query i % pool)."""
+    from repro_torch.core import recall_at_k
+    qi = np.arange(ans["ok"].size) % pool
+    out = {}
+    for lv in np.unique(ans["level"][ans["ok"]]):
+        m = ans["ok"] & (ans["level"] == lv)
+        out[int(lv)] = recall_at_k(ans["ids"][m], gt[qi[m]])
+    return out
+
+
+def gw_errors(ans) -> str:
+    """The distinct failures gw_answers found, for a failure message."""
+    return "; ".join(f"{n} x {e}\n{tb}"
+                     for e, (n, tb) in ans["errors"].items())
+
+
+def gw_point(what, pt, rec, floor=0.5, ans=None, degraded_floor=None):
+    """Check and log one open-loop point: every request typed (no untyped
+    error), level-0 recall@10 at or above ``floor`` and that of the
+    degraded levels at or above ``degraded_floor``."""
+    check(pt["errors"] == 0 and pt["closed"] == 0,
+          f"{what}: {pt['errors']} untyped errors, {pt['closed']} closed"
+          + (": " + gw_errors(ans) if ans is not None else ""))
+    check(pt["n_ok"] + pt["shed"] + pt["deadline_failed"]
+          == pt["n_requests"], f"{what}: requests unaccounted for")
+    check(0 not in rec or rec[0] >= floor,
+          f"{what}: level-0 recall@10 {rec.get(0)} below {floor}")
+    check(degraded_floor is None or all(
+        v >= degraded_floor for lv, v in rec.items() if lv > 0),
+          f"{what}: a degraded level's recall@10 below {degraded_floor}: "
+          f"{rec}")
+    log(f"{what}: offered {pt['offered_qps']:.1f} qps, achieved "
+        f"{pt['achieved_qps']:.1f} qps, p50 / p95 / p99 {pt['p50_ms']:.3f} / "
+        f"{pt['p95_ms']:.3f} / {pt['p99_ms']:.3f} ms, mean batch "
+        f"{pt['mean_batch']:.2f}; {pt['n_ok']} ok, {pt['shed']} shed, "
+        f"{pt['deadline_failed']} deadline-failed, 0 errors; responses by "
+        f"level {json.dumps(pt['levels'])}, recall@10 by level "
+        + json.dumps({k: round(v, 4) for k, v in rec.items()}))
+
+
+def gateway_ties(torch, index, q, pairs, want_bsz, what):
+    """Rows a gateway answered otherwise than the direct session (run at
+    batch size ``want_bsz``): ``pairs`` of (query row, the gateway
+    batch's bucket).  As in batch_size_ties, each must be a stage-1
+    near-tie (stage1_tie) between the query at row 0 of a zero-padded
+    batch of the bucket and in its chunk of ``want_bsz``.  Returns the
+    largest relative gap."""
+    from repro_torch.core.engine import select_lists
+    from repro_torch.core.kmeans import pairwise_sq_l2
+
+    def stage1(qb, b):
+        qb = torch.cat([qb, qb.new_zeros((b - qb.shape[0], qb.shape[1]))])
+        return (select_lists(qb, index.centroids, nprobe=SEARCH["nprobe"]).sel,
+                pairwise_sq_l2(qb, index.centroids))
+    direct, worst = {}, 0.0
+    for r, b in pairs:
+        sa, ca = (t[0] for t in stage1(q[r:r + 1], int(b)))
+        c = r // want_bsz
+        if c not in direct:
+            direct[c] = stage1(q[c * want_bsz:(c + 1) * want_bsz], want_bsz)
+        sb, cb = (t[r % want_bsz] for t in direct[c])
+        check(not torch.equal(sa, sb), f"{what}: query {r} (bucket {b}) is "
+              "answered otherwise than by the session although stage 1 "
+              "agrees")
+        worst = max(worst, stage1_tie(r, sa, sb, ca, cb,
+                                      f"{what}: buckets {b} / {want_bsz}"))
+    return worst
+
+
+def gw_equal(torch, index, q, ans, rows, want, want_bsz, params, what):
+    """A gateway's answers (``gw_answers`` of requests asking query
+    ``rows[i]``; the gateway's ``params`` bucket its batches) against the
+    direct session's host ids / dists at batch size ``want_bsz``:
+    differing rows classified (gateway_ties) and logged."""
+    p = params
+    check(bool(ans["ok"].all()),
+          f"{what}: a request failed: " + gw_errors(ans))
+    wi, wd = want
+    differ = np.nonzero((ans["ids"] != wi[rows]).any(axis=1))[0]
+    pairs = [(int(rows[i]), p.bucket_for(int(ans["batch"][i])))
+             for i in differ]
+    same = np.setdiff1d(np.arange(rows.size), differ)
+    check(np.allclose(ans["dists"][same], wd[rows[same]], rtol=1e-5,
+                      atol=1e-5), f"{what}: equal ids with other distances")
+    worst = gateway_ties(torch, index, q, pairs, want_bsz, what)
+    log(f"{what}: {rows.size} answers, {rows.size - differ.size} equal to "
+        f"the direct session's (B={want_bsz}); {differ.size} differ, each a "
+        f"stage-1 near-tie (the centroid product rounds otherwise at the "
+        f"gateway's bucket; largest relative gap {worst:.2e})")
+    return differ.size
+
+
+def gw_reserved(torch, what):
+    log(f"{what}: device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
+
+
+def dense_check(torch, index, q):
+    """The dense path on the first DENSE_QUERIES queries at the main
+    path's nprobe against a paged session whose budget drops no block,
+    at the dense chunk's batch size (one stage-1 shape for both): DCO
+    and scanned blocks equal, ids within 2 a row; the nprobe sweep
+    against single runs; seconds and peak memory."""
+    from repro_torch.core import (dense_search, dense_search_multi,
+                                  make_dense_aux)
+    idx = index
+    qd = q[:DENSE_QUERIES].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    idx._dense_aux = make_dense_aux(idx.arrays, idx.codebook)
+    torch.cuda.synchronize()
+    t_aux = time.perf_counter() - t0
+    aux_b = sum(t.numel() * t.element_size()
+                for t in vars(idx._dense_aux).values())
+    dense_search(idx, qd[:128], nprobe=SEARCH["nprobe"], k=SEARCH["k"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rd = dense_search(idx, qd, nprobe=SEARCH["nprobe"], k=SEARCH["k"])
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    a = idx.arrays
+    cap = SEARCH["nprobe"] * (a.owned.shape[1] + a.refs.shape[1]
+                              + a.misc.shape[1])
+    sess = session(idx, "paged", 128, True, max_scan=cap)
+    sess.warmup(128)
+    rb = sess(qd)
+    check(int(rb.dropped_blocks.max()) == 0, "dense: the blocked session "
+          "dropped blocks")
+    for f in ("approx_dco", "refine_dco", "scanned_blocks"):
+        check(torch.equal(getattr(rb, f), getattr(rd, f)),
+              f"dense: {f} differs from the blocked session's")
+    gb, gd = rb.ids.cpu().numpy(), rd.ids.cpu().numpy()
+    sym = [len(set(gb[i][gb[i] >= 0].tolist())
+               ^ set(gd[i][gd[i] >= 0].tolist())) for i in range(len(gb))]
+    check(max(sym) <= 2, f"dense: ids of a query differ by {max(sym)} from "
+          "the blocked session's (at most 2)")
+    multi = dense_search_multi(idx, qd, nprobes=(8, SEARCH["nprobe"]),
+                               k=SEARCH["k"])
+    for p, r in zip((8, SEARCH["nprobe"]), multi):
+        single = rd if p == SEARCH["nprobe"] else dense_search(
+            idx, qd, nprobe=p, k=SEARCH["k"])
+        for f in r._fields:
+            check(torch.equal(getattr(r, f), getattr(single, f)),
+                  f"dense: the nprobe sweep differs from nprobe={p} on {f}")
+    log(f"dense: aux built in {t_aux:.2f} s ({aux_b / 2 ** 30:.3f} GiB on "
+        f"the card: {idx._dense_aux.dec.shape[0]} decoded items); "
+        f"{DENSE_QUERIES} queries at nprobe {SEARCH['nprobe']} in "
+        f"{t_dense:.4f} s ({DENSE_QUERIES / t_dense:.1f} qps, chunks of "
+        f"128), peak device memory {peak / 2 ** 30:.3f} GiB above the "
+        f"index; against paged B=128 max_scan={cap} (drops no block): "
+        f"approx / refine DCO and scanned blocks equal per query (approx "
+        f"DCO/q {rd.approx_dco.float().mean().item():.1f}), ids equal on "
+        f"{sum(s == 0 for s in sym)} of {len(sym)} queries, the rest within "
+        f"{max(sym)}; the nprobe sweep (8, {SEARCH['nprobe']}) bitwise "
+        "equal to single runs")
+    idx._dense_aux = None
+    release_sessions(torch, "dense")
+
+
+def gateway_path(torch, index, q, gt, results, lookups_per_s):
+    """The serving gateway on the main index (module docstring, phase
+    gateway).  Returns (kernel rows at the fused gateway's first flushed
+    batch, launches of the gateway runs by name and form)."""
+    from repro_torch.core import SearchParams
+    from repro_torch.gateway import Gateway, GatewayConfig, run_open_loop
+    from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
+    dense_check(torch, index, q)
+    qh = q.cpu().numpy()            # clients submit host vectors
+    # the direct sessions' answers (the main path's B=1024 runs) on the
+    # host: this thread does no CUDA work while a gateway is live
+    want = {key: (results[key].ids.cpu().numpy().astype(np.int64),
+                  results[key].dists.cpu().numpy())
+            for key in (("paged", True), ("paged", False),
+                        ("clustered", True))}
+    pb = dict(RUNS)["paged"]
+    params = SearchParams(**GATEWAY)
+    cfg = GatewayConfig(max_batch=GW_BATCH, max_delay_ms=GW_DELAY_MS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    # equality: a burst of GW_EQUAL queries through a fused gateway (K3
+    # and its merge) and an unfused one (K1)
+    eq, first = {}, None
+    for fused in (True, False):
+        t0 = time.perf_counter()
+        gw = recording_gateway()(index, dataclasses.replace(
+            params, fused_topk=fused), config=cfg)
+        warm = time.perf_counter() - t0
+        with gw:
+            t0 = time.perf_counter()
+            ans = gw_answers([gw.submit(qh[i]) for i in range(GW_EQUAL)])
+            dt = time.perf_counter() - t0
+            tel = gw.stats()["telemetry"]
+        if fused:
+            first = gw.first
+        eq[fused] = (ans, dt, warm, tel)
+    for fused in (True, False):
+        ans, dt, warm, tel = eq[fused]
+        gw_equal(torch, index, q, ans, np.arange(GW_EQUAL),
+                 want[("paged", fused)], pb, params,
+                 f"gateway equality fused={int(fused)}")
+        log(f"gateway equality fused={int(fused)}: {GW_EQUAL} queries in "
+            f"{dt:.3f} s ({GW_EQUAL / dt:.1f} qps, a burst), batches "
+            f"{tel['counters']['batches']}, batch fill "
+            f"{tel['batch_fill']:.2f}, bucket fill {tel['bucket_fill']:.3f}; "
+            f"dispatch p50 / p99 {tel['dispatch']['p50_ms']:.3f} / "
+            f"{tel['dispatch']['p99_ms']:.3f} ms; the ladder's "
+            f"{tel['counters'].get('warmup_compiles', 0)} CUDA graphs "
+            f"captured in {warm:.2f} s at start")
+    gw_reserved(torch, "gateway equality")
+    # the serve sweep (BENCH_serve.json's protocol at full width)
+    per = GatewayConfig(max_batch=1, max_delay_ms=0.0, admission="fifo")
+    with Gateway(index, params, config=per) as gw:
+        gw.search(qh[0], timeout=GW_WAIT)
+        cal = run_open_loop(gw, qh, 1e6, GW_CALIBRATE, seed=99,
+                            timeout_s=GW_WAIT)
+        ptel = gw.stats()["telemetry"]
+    check(cal["errors"] == 0 and cal["n_ok"] == GW_CALIBRATE,
+          "gateway: per-request calibration failed requests")
+    cap = cal["achieved_qps"]
+    log(f"gateway serve: per-request capacity (max_batch=1, max_delay_ms=0, "
+        f"{GW_CALIBRATE} back-to-back arrivals) {cap:.1f} qps, p50 / p99 "
+        f"{cal['p50_ms']:.3f} / {cal['p99_ms']:.3f} ms; dispatch p50 "
+        f"{ptel['dispatch']['p50_ms']:.4f} ms")
+    with Gateway(index, params, config=cfg) as gw:
+        gw_reserved(torch, "gateway serve, batched gateway warm")
+        for i, f in enumerate(GW_SERVE_LOADS):
+            rec = Recorder(gw)
+            pt = run_open_loop(rec, qh, f * cap, GW_REQUESTS, seed=i,
+                               timeout_s=GW_WAIT)
+            ans = gw_answers(rec.reqs)
+            gw_point(f"gateway serve {f}x per-request capacity", pt,
+                     level_recall(ans, gt, qh.shape[0]), ans=ans)
+        served = (pt, ans)
+        # the saturating rate of the batched gateway (back-to-back arrivals)
+        sat = run_open_loop(gw, qh, 1e6, GW_CALIBRATE, seed=98,
+                            timeout_s=GW_WAIT)["achieved_qps"]
+        tel = gw.stats()["telemetry"]
+        t_sig = gw_signature_us(gw, qh)
+    log(f"gateway serve: batched saturating rate {sat:.1f} qps "
+        f"({sat / cap:.2f}x per-request); over the sweep batch fill "
+        f"{tel['batch_fill']:.2f}, bucket fill {tel['bucket_fill']:.3f}, "
+        f"dispatch p50 / p99 {tel['dispatch']['p50_ms']:.3f} / "
+        f"{tel['dispatch']['p99_ms']:.3f} ms, queue wait p50 / p99 "
+        f"{tel['queue_wait']['p50_ms']:.3f} / "
+        f"{tel['queue_wait']['p99_ms']:.3f} ms; admission signature "
+        f"{t_sig:.1f} us a query on the host")
+    gw_overload(torch, index, qh, gt, params, cfg)
+    # clustered with plan reuse behind signature admission
+    cl = dataclasses.replace(params, exec_mode="clustered", plan_reuse=True,
+                             batch_buckets=(GW_BATCH,))
+    t0 = time.perf_counter()
+    with Gateway(index, cl, config=cfg) as gw:
+        warm = time.perf_counter() - t0
+        rec = Recorder(gw)
+        pt = run_open_loop(rec, qh[:GW_EQUAL], GW_SERVE_LOADS[-1] * cap,
+                           2 * GW_EQUAL, seed=5, timeout_s=GW_WAIT)
+        st = gw.stats()["session"]
+    ans = gw_answers(rec.reqs)
+    gw_point("gateway clustered plan_reuse", pt,
+             level_recall(ans, gt, GW_EQUAL), ans=ans)
+    gw_equal(torch, index, q, ans, np.arange(2 * GW_EQUAL) % GW_EQUAL,
+             want[("clustered", True)], pb, cl,
+             "gateway clustered plan_reuse")
+    pl = st["plan"]
+    log(f"gateway clustered plan_reuse: {warm:.2f} s to warm "
+        f"({st['warmup_compiles']} CUDA graphs, the width ladder of bucket "
+        f"{GW_BATCH}); hit_rate {pl['hit_rate']:.4f} tiles {pl['tiles']} "
+        f"hits {pl['hits']} extends {pl['extends']} misses {pl['misses']} "
+        f"mean_width {pl['mean_width']:.1f} mean_union_live "
+        f"{pl['mean_union_live']:.1f}")
+    gw_traced(torch, index, qh, params)
+    torch.cuda.synchronize()
+    launches = launch_counts(forms=True)
+    log(f"gateway: launches over the gateway runs {json.dumps(launches)}")
+    for kern, form in (("pq_scan_tiled_kernel", "fast"),
+                       ("pq_scan_topk_kernel", "shared")):
+        check(launches[kern] > 0 and launches[f"{kern}[{form}]"]
+              == launches[kern], f"gateway: {kern} launches "
+              f"{launches[kern]}, {launches[f'{kern}[{form}]']} {form}")
+    gw_flush_split(torch, index, qh, served, tel, t_sig, sat)
+    release_gateway_sessions(torch, index)
+    # K1, K3 and the merge at the fused gateway's first flushed batch
+    b = params.bucket_for(first.shape[0])
+    qf = torch.from_numpy(first).to(q.device)
+    qf = torch.cat([qf, qf.new_zeros((b - qf.shape[0], qf.shape[1]))])
+    held = hold_kernels(torch, index, qf, "paged",
+                        f"gateway first flush ({first.shape[0]} queries)",
+                        global_tables=False, form="fast")
+    rows = kernel_rows(torch, held, "paged", "gateway", lookups_per_s)
+    check("merge" not in rows or launches["merge_topk_kernel"] > 0,
+          "gateway: K3 splits at the first flush and no merge launched")
+    return rows, launches
+
+
+def gw_overload(torch, index, qh, gt, params, cfg):
+    """BENCH_overload.json's protocol at full width: the unbounded
+    gateway and a bounded one (reject, a two-level ladder) at fractions
+    of their saturating rate.  The one-thread client submits about as
+    fast as the batched gateway serves, so it cannot offer twice that
+    rate: every flush is slowed by GW_SLOW_S (a ``gateway.dispatch``
+    delay fault) so that the dispatcher saturates first.  At 2x the
+    bounded gateway must shed or step down, and over the three points
+    levels 1 and 2 must answer, each above its recall floor."""
+    from repro_torch.faults import FaultPlan, FaultSpec
+    from repro_torch.gateway import (Gateway, GatewayConfig, degrade_ladder,
+                                     run_open_loop)
+    slow = FaultPlan(0, (FaultSpec("gateway.dispatch", kind="delay",
+                                   prob=1.0, delay_s=GW_SLOW_S),))
+    ladder = degrade_ladder(params, 2)
+    ov = GatewayConfig(max_batch=GW_BATCH, max_delay_ms=GW_DELAY_MS,
+                       max_queue=GW_MAX_QUEUE, overload="reject",
+                       degrade=ladder[1:])
+    with slow.installed():
+        with Gateway(index, params, config=cfg) as gw:
+            gw.search(qh[0], timeout=GW_WAIT)
+            sat = run_open_loop(gw, qh, 1e6, GW_CALIBRATE, seed=96,
+                                timeout_s=GW_WAIT)["achieved_qps"]
+            rec = Recorder(gw)
+            unb = run_open_loop(rec, qh, 2 * sat, GW_OVERLOAD_REQUESTS,
+                                seed=97, timeout_s=GW_WAIT)
+        ans = gw_answers(rec.reqs)
+        gw_point("gateway overload 2x, unbounded", unb,
+                 level_recall(ans, gt, qh.shape[0]), ans=ans)
+        check(unb["shed"] == 0, "gateway overload: the unbounded gateway shed")
+        t0 = time.perf_counter()
+        with Gateway(index, params, config=ov) as gw:
+            log(f"gateway overload: flushes slowed by {GW_SLOW_S * 1e3:.0f} "
+                f"ms; saturating rate {sat:.1f} qps; ladder nprobe "
+                f"{[p.nprobe for p in ladder]} max_scan "
+                f"{[p.max_scan for p in gw._ladder]}, "
+                f"{gw.telemetry.counter('warmup_compiles')} CUDA graphs "
+                f"captured in {time.perf_counter() - t0:.2f} s")
+            gw_reserved(torch, "gateway overload, 3 levels warm")
+            levels = {}
+            for i, f in enumerate(GW_OVERLOAD_LOADS):
+                rec = Recorder(gw)
+                down = gw.telemetry.counter("degrade_steps_down")
+                pt = run_open_loop(rec, qh, f * sat, GW_OVERLOAD_REQUESTS,
+                                   seed=10 + i, timeout_s=GW_WAIT)
+                down = gw.telemetry.counter("degrade_steps_down") - down
+                ans = gw_answers(rec.reqs)
+                gw_point(f"gateway overload {f}x saturating, degrade", pt,
+                         level_recall(ans, gt, qh.shape[0]), ans=ans,
+                         degraded_floor=GW_DEGRADED_FLOOR)
+                for lv, n in pt["levels"].items():
+                    levels[lv] = levels.get(lv, 0) + n
+            c = gw.stats()["telemetry"]["counters"]
+    # the ladder keeps its level from one point to the next (as in the
+    # reference's bench), so it may reach level 2 before the 2x point
+    check(pt["shed"] > 0 or down > 0, "gateway overload: nothing shed and "
+          "the ladder never stepped down at 2x")
+    check(all(levels.get(str(lv), 0) > 0 for lv in (1, 2)),
+          f"gateway overload: levels 1 and 2 did not both answer over the "
+          f"three points ({levels})")
+    log(f"gateway overload: p99 at 2x {pt['p99_ms']:.3f} ms bounded against "
+        f"{unb['p99_ms']:.3f} ms unbounded; steps down "
+        f"{c.get('degrade_steps_down', 0)}, up {c.get('degrade_steps_up', 0)}"
+        f", shed {c.get('shed', 0)}, responses by level "
+        f"{json.dumps(levels)} over the three points; at 2x shed "
+        f"{pt['shed']}, steps down {down}")
+
+
+def gw_signature_us(gw, qh, n=1000):
+    """Microseconds of one admission signature on the host: the
+    gateway's own scorer, its dispatcher idle."""
+    t0 = time.perf_counter()
+    for i in range(n):
+        gw._signature(qh[i])
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def gw_flush_split(torch, index, qh, served, tel, t_sig, sat):
+    """Where the serve sweep's top point (``served``: its run_open_loop
+    result and gw_answers) spent its time: each flush it counted (its
+    requests' batch sizes) at its bucket's device time (one session call,
+    a graph replay: CUDA events around calls back to back), summed over
+    the point's wall time, is the card's busy share; beside the
+    telemetry's dispatch time and the host's admission cost."""
+    from repro_torch.core import SearchParams
+    pt, ans = served
+    params = SearchParams(**GATEWAY)
+    sess = index.searcher(params, device=index.device)
+    sizes, reqs = np.unique(ans["batch"][ans["ok"]], return_counts=True)
+    flushes = {}
+    for s, n in zip(sizes.tolist(), reqs.tolist()):
+        check(n % s == 0, f"gateway split: {n} requests in batches of {s}")
+        b = params.bucket_for(s)
+        flushes[b] = flushes.get(b, 0) + n // s
+    ms = {}
+    for b in sorted(flushes):
+        qb = torch.from_numpy(qh[:b]).to(index.device)
+        ms[b] = cuda_ms(torch, lambda: sess(qb))
+    busy = sum(flushes[b] * ms[b] for b in flushes)
+    log(f"gateway split: the {GW_SERVE_LOADS[-1]}x point's "
+        f"{sum(flushes.values())} flushes by bucket "
+        f"{json.dumps(flushes)}, a session call at each bucket "
+        + ", ".join(f"B={b} {ms[b]:.4f} ms" for b in sorted(ms))
+        + f": the card busy {busy:.1f} ms of the point's "
+        f"{pt['wall_s'] * 1e3:.1f} ms ({100 * busy / (pt['wall_s'] * 1e3):.1f}"
+        f"%); the gateway's dispatch (take to fulfil: host, copies and card) "
+        f"p50 {tel['dispatch']['p50_ms']:.4f} ms; admission {t_sig:.1f} us a "
+        f"request on the client's thread, {t_sig * sat / 1e4:.1f}% of a "
+        f"second at the saturating {sat:.1f} qps")
+
+
+def gw_traced(torch, index, qh, params):
+    """A deterministic flush (every request queued before the batch is
+    taken) untraced and under the tracer: bitwise equal answers; the
+    exported trace valid with gateway.request / gateway.flush events,
+    written and read back by the export CLI; the unified snapshot renders
+    to Prometheus text."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.gateway import Gateway, GatewayConfig
+    from repro_torch.obs.export import main as export_main
+    n = GW_BATCH
+    det = GatewayConfig(max_batch=n, max_delay_ms=60_000.0)
+    with Gateway(index, params, config=det) as gw:
+        plain = gw_answers([gw.submit(qh[i]) for i in range(n)])
+        with obs.trace() as tr:
+            traced = gw_answers([gw.submit(qh[i]) for i in range(n)])
+        snap = obs.snapshot_all(gateway=gw, tracer=tr)
+    check(bool((plain["batch"] == n).all() and (traced["batch"] == n).all()),
+          "gateway traced: the flush was not one batch")
+    check(np.array_equal(plain["ids"], traced["ids"]) and np.array_equal(
+        plain["dists"], traced["dists"]), "gateway traced: the traced "
+          "answers differ from the untraced ones")
+    doc = obs.validate_trace(obs.to_trace_events(tr))
+    names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    check({"gateway.request", "gateway.flush", "gateway.submit",
+           "searcher.dispatch"} <= names,
+          f"gateway traced: events {sorted(names)}")
+    text = obs.to_prometheus(snap)
+    check(len(text.splitlines()) > 50 and "rairs_gateway_telemetry_qps"
+          in text, "gateway traced: the Prometheus text is empty")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / "gateway_trace.json"
+        obs.write_trace(tr, str(path))
+        check(export_main([str(path)]) == 0, "gateway traced: the export "
+              "CLI refused the trace")
+        size = path.stat().st_size
+    spans = tr.stage_summary()
+    log(f"gateway traced: a flush of {n} bitwise equal to the untraced one; "
+        f"{len(doc['traceEvents'])} trace events ({size} bytes), "
+        f"{tr.fences} fences; {len(text.splitlines())} Prometheus lines; "
+        f"spans (ms, mean): " + ", ".join(
+            f"{k} {v['mean_ms']:.4f}" for k, v in sorted(spans.items())))
+
+
+def release_gateway_sessions(torch, index):
+    """Drop the sessions the gateways made on the index (its searcher
+    cache) and the device memory of their CUDA graphs."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    n = len(index.__dict__.pop("_searcher_cache", {}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gateway: {n} sessions released; device memory reserved fell by "
+        f"{(before - torch.cuda.memory_reserved()) / 2 ** 30:.3f} GiB")
+def stream_gateway(torch, stream, q, x, n, seed):
+    """A gateway over the stream (module docstring, phase stream): insert
+    / delete round trips through external ids, then open-loop traffic
+    before, during and after a ``compact_async`` handover whose first
+    fold attempt is made to fail (retried), with an ``on_request`` hook
+    inserting and deleting meanwhile: no client error, no deleted id
+    served, every served id resolving after install."""
+    import threading
+    from repro_torch.core import SearchParams
+    from repro_torch.faults import FaultPlan, FaultSpec
+    from repro_torch.gateway import Gateway, GatewayConfig, run_open_loop
+    qh = q[:GW_EQUAL].cpu().numpy()
+    xs = (x[n:n + STREAM_GW_INSERTS] + 0.005).cpu().numpy()
+    epoch0 = stream.epoch
+    cfg = GatewayConfig(max_batch=GW_BATCH, max_delay_ms=GW_DELAY_MS,
+                        handover_retries=2, handover_backoff_s=0.05)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gw = Gateway(stream, SearchParams(**GATEWAY), config=cfg)
+    warm = time.perf_counter() - t0
+    plan = FaultPlan(seed, (FaultSpec("gateway.fold", kind="raise",
+                                      at=(0,)),))
+    served, deleted, pts = [], set(), {}
+    state = {"next": 256}
+    try:
+        ext = gw.insert(xs[:256])
+        r = gw.search(xs[0], timeout=GW_WAIT)
+        check(int(r.ids[0]) == int(ext[0]), "stream gateway: an inserted "
+              "vector is not its own nearest neighbour by external id")
+        check(gw.delete(ext[:64]) == 64, "stream gateway: delete count")
+        res = gw.resolve_ids(ext)
+        check(bool((res[:64] == -1).all() and (res[64:] >= 0).all()),
+              "stream gateway: external ids do not round-trip")
+        deleted.update(ext[:64].tolist())
+        pre = set(deleted)
+
+        def segment(name, count, seed_, hook=None):
+            rec = Recorder(gw)
+            pt = run_open_loop(rec, qh, STREAM_GW_QPS, count, seed=seed_,
+                               timeout_s=GW_WAIT, on_request=hook)
+            ans = gw_answers(rec.reqs)
+            check(pt["n_ok"] == count and pt["errors"] == 0
+                  and pt["shed"] == 0 and pt["closed"] == 0,
+                  f"stream gateway {name}: client errors {json.dumps(pt)}: "
+                  + gw_errors(ans))
+            served.append(ans["ids"][ans["ok"]].ravel())
+            pts[name] = (pt, ans)
+            return ans
+
+        segment("before", STREAM_GW_REQUESTS, 21)
+
+        def hook(i):
+            if i == 0:
+                state["t0"] = time.perf_counter()
+                h = state["h"] = gw.compact_async("gateway")
+                threading.Thread(target=lambda: (
+                    h._done.wait(GW_WAIT),
+                    state.setdefault("t1", time.perf_counter())),
+                    daemon=True).start()
+            if i % 40 == 20 and state["next"] + 16 <= xs.shape[0]:
+                s = state["next"]
+                state["next"] = s + 16
+                new = gw.insert(xs[s:s + 16])
+                gw.delete(new[:4])
+                deleted.update(new[:4].tolist())
+
+        with plan.installed():
+            during = segment("during", 2 * STREAM_GW_REQUESTS, 22, hook)
+            info = state["h"].wait(GW_WAIT)
+        handover_s = state.get("t1", time.perf_counter()) - state["t0"]
+        check(state["h"].state == "installed" and plan.fired() == 1
+              and gw.telemetry.counter("handover_retries") == 1,
+              "stream gateway: the injected fold failure was not retried "
+              "into an install")
+        check(not set(during["ids"].ravel().tolist()) & pre,
+              "stream gateway: an id deleted before the handover was served")
+        after = segment("after", STREAM_GW_REQUESTS, 23)
+        check(not set(after["ids"].ravel().tolist()) & deleted,
+              "stream gateway: a deleted id was served after install")
+        # a capacity jump in the new epoch drops every graph of the old
+        # capacity; the gateway's next flush captures into the epoch's
+        # pool again (kept alive by its anchor graph)
+        cap = stream._delta.capacity
+        grow = cap - stream._delta.count + 1
+        s = state["next"]
+        check(s + grow <= xs.shape[0], "stream gateway: too few vectors "
+              "left for a capacity jump")
+        jumped = gw.insert(xs[s:s + grow])
+        state["next"] = s + grow
+        check(stream._delta.capacity > cap, "stream gateway: no capacity "
+              "jump")
+        r = gw.search(xs[s + grow - 1], timeout=GW_WAIT)
+        check(int(r.ids[0]) == int(jumped[-1]), "stream gateway: the "
+              "capacity jump's last insert is not its own nearest neighbour")
+        served.append(r.ids)
+        check(bool((after["epoch"] == stream.epoch).all()),
+              "stream gateway: an answer after install from an old epoch")
+        ids = np.unique(np.concatenate(served))
+        ids = ids[(ids >= 0) & ~np.isin(ids, list(deleted))]
+        check(bool((gw.resolve_ids(ids) >= 0).all()), "stream gateway: a "
+              "served id does not resolve after install")
+        c = gw.stats()["telemetry"]["counters"]
+    finally:
+        gw.close()
+    check(c.get("errors", 0) == 0, "stream gateway: dispatch errors")
+    ep = np.bincount(during["epoch"] - epoch0, minlength=2)
+    log(f"stream gateway: ladder warm in {warm:.2f} s; insert / delete "
+        f"round trip through external ids; handover {handover_s:.3f} s from "
+        f"compact_async to installed (fold retried once after an injected "
+        f"failure; fold + install {info['seconds']:.3f} s, layout "
+        f"{info['layout_seconds']:.3f} s, replayed "
+        f"{info['replayed_inserts']} inserts and {info['replayed_deletes']} "
+        f"deletes, epoch {epoch0} -> {info['epoch']}); {len(deleted) - 64} "
+        f"deletes by the on_request hook; a capacity jump after install "
+        f"(capacity {cap} -> {stream._delta.capacity}) captured again; "
+        f"'during' answers by epoch {ep.tolist()}; {ids.size} served ids "
+        f"resolve after install; stale retries {c.get('stale_retries', 0)},"
+        f" client errors 0")
+    for name in ("before", "during", "after"):
+        pt = pts[name][0]
+        log(f"stream gateway {name}: {pt['n_ok']} requests at "
+            f"{pt['offered_qps']:.0f} qps offered, achieved "
+            f"{pt['achieved_qps']:.1f}, p50 / p95 / p99 {pt['p50_ms']:.3f} / "
+            f"{pt['p95_ms']:.3f} / {pt['p99_ms']:.3f} ms, mean batch "
+            f"{pt['mean_batch']:.2f}")
 
 
 def main() -> int:
@@ -2841,6 +3573,7 @@ def main() -> int:
     rows = time_kernels(torch, index, q[:1024].contiguous(), rate)
     stage_breakdown(torch, index, q[:1024].contiguous())
     refine = refine_path(torch, index, q, gt, results, rate)
+    gateway = gateway_path(torch, index, q, gt, results, rate)
     del index, results
     gc.collect()
     torch.cuda.empty_cache()
@@ -2853,7 +3586,7 @@ def main() -> int:
     gist_rows, gist_launches = gist_path(torch, dev, args.seed, rate)
     small_reference(torch, dev, args.seed)
     kernels = kernel_json(rows, launches, gist_rows, gist_launches, *nbits8,
-                          *refine, *stream)
+                          *refine, *stream, *gateway)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

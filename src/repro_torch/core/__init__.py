@@ -1,9 +1,13 @@
 """RAIRS core of the port: k-means IVF training, product quantization,
-AIR-metric assignment, the SEIL layout, the staged searcher, streaming
-(a mutable index over a frozen base) and index persistence."""
-from .assign import (STRATEGY_REGISTRY, available_strategies,  # noqa: F401
-                     candidate_lists, get_strategy, rair_assign,
-                     rair_assign_multi, register_strategy, single_assign)
+AIR-metric assignment, the SEIL layout, the staged searcher, the dense
+(product) scoring path, streaming (a mutable index over a frozen base)
+and index persistence."""
+from .assign import (STRATEGY_REGISTRY, air_skip_fraction,  # noqa: F401
+                     available_strategies, candidate_lists, get_strategy,
+                     rair_assign, rair_assign_multi, register_strategy,
+                     single_assign)
+from .dense import (DenseAux, dense_search, dense_search_multi,  # noqa: F401
+                    make_dense_aux)
 from .index import (IndexConfig, RairsIndex, build_index,  # noqa: F401
                     insert_batch)
 from .io import (CHECKSUM_FORMAT_VERSION, INDEX_FORMAT,  # noqa: F401
@@ -12,14 +16,17 @@ from .io import (CHECKSUM_FORMAT_VERSION, INDEX_FORMAT,  # noqa: F401
                  save_index)
 from .kmeans import (kmeans_fit, kmeans_loop, pairwise_sq_l2,  # noqa: F401
                      segment_sum)
-from .metrics import ground_truth, recall_at_k  # noqa: F401
+from .metrics import (dco_summary, ground_truth,  # noqa: F401
+                      per_query_recall, recall_at_k)
 from .params import (MAX_AUTO_BUCKET, RefineParams,  # noqa: F401
                      SearchParams)
-from .pq import PQCodebook, pq_encode, pq_lut, pq_lut_ip, pq_train  # noqa
+from .pq import (PQCodebook, pq_adc, pq_decode, pq_encode,  # noqa: F401
+                 pq_lut, pq_lut_ip, pq_train)
 from .search import SearchResult, finalize_fetch, seil_search  # noqa: F401
 from .searcher import PlanStats, Searcher, SearcherStats  # noqa: F401
 from .seil import (SeilArrays, SeilStats, build_id_map,  # noqa: F401
-                   build_seil, build_seil_call_count, delete_ids)
+                   build_seil, build_seil_call_count, cell_stats,
+                   delete_ids, vectors_in_large_cells)
 from .stream import (DeltaSegment, PendingCompaction,  # noqa: F401
                      StaleSessionError, StreamConfig, StreamingIndex,
                      StreamingSearcher, StreamStats, delta_adc,

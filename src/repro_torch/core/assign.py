@@ -190,3 +190,17 @@ def _strategy_rair(x, centroids, cfg):
 def _strategy_srair(x, centroids, cfg):
     """SRAIR: AIR metric, strictly two distinct lists."""
     return _rair_family(x, centroids, cfg, metric="air", strict=True)
+
+
+def air_skip_fraction(x: torch.Tensor, centroids: torch.Tensor, lam=0.5,
+                      n_cands=10, chunk=8192) -> float:
+    """Fraction of vectors for which RAIR keeps single assignment
+    (loss_min attained by the primary list: ||r'||^2+lam r^T r' >=
+    (1+lam)||r||^2)."""
+    a = rair_assign(x, centroids, metric="air", lam=lam, n_cands=n_cands,
+                    strict=False, chunk=chunk)
+    single = (a[:, 0] == a[:, 1]).to(torch.float32).sum()
+    # the reference's f32 mean: the count times the f32 reciprocal of n
+    inv = torch.reciprocal(torch.tensor(float(a.shape[0]),
+                                        dtype=torch.float32))
+    return float(single.cpu() * inv)

@@ -74,3 +74,22 @@ def pq_lut_ip(cb: PQCodebook, q: torch.Tensor) -> torch.Tensor:
     b, d = q.shape
     m, ksub, dsub = cb.codebooks.shape
     return -torch.einsum("bmd,mkd->bmk", q.reshape(b, m, dsub), cb.codebooks)
+
+
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Estimated distances of one query: ``sum_m lut[m, codes[..., m]]``,
+    summed over ascending m.  lut: (M, ksub); codes: (M,) or (n, M)."""
+    m = lut.shape[0]
+    g = lut[torch.arange(m, device=lut.device), codes.long()]   # (..., M)
+    out = g[..., 0]
+    for j in range(1, m):
+        out = out + g[..., j]
+    return out
+
+
+def pq_decode(cb: PQCodebook, codes: torch.Tensor) -> torch.Tensor:
+    """Reconstruct vectors from codes: (n, M) -> (n, D)."""
+    m, ksub, dsub = cb.codebooks.shape
+    rec = cb.codebooks[torch.arange(m, device=codes.device)[None, :],
+                       codes.long()]                            # (n, M, dsub)
+    return rec.reshape(codes.shape[0], m * dsub)

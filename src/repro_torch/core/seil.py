@@ -71,6 +71,20 @@ class SeilStats:
                    + self.n_ref_entries * self.ref_entry_bytes)
 
 
+def cell_stats(assigns: np.ndarray) -> Dict[str, np.ndarray]:
+    """Cell-size distribution (paper Fig 5). assigns: (n, 2) with l1<=l2."""
+    a = np.asarray(assigns)
+    keys = a[:, 0].astype(np.int64) * (a.max() + 1) + a[:, 1]
+    _, counts = np.unique(keys, return_counts=True)
+    return {"cell_sizes": counts}
+
+
+def vectors_in_large_cells(assigns: np.ndarray, block: int = 32) -> float:
+    """Fraction of vectors residing in cells >= one block (paper: ~50%)."""
+    sizes = cell_stats(assigns)["cell_sizes"]
+    return float(sizes[sizes >= block].sum() / sizes.sum())
+
+
 def _pad_table(groups: np.ndarray, values: np.ndarray, nlist: int,
                pad_to: Optional[int] = None) -> np.ndarray:
     """Scatter `values` grouped by `groups` into (nlist, MAX) with -1 pad."""

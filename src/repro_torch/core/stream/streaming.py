@@ -42,7 +42,11 @@ On the card (what the reference's functional arrays do not need):
   * the graphs of every session of an epoch allocate from one memory pool
     owned by the stream's epoch (``_pool``), because an executable
     outlives the session that captured it.  One session at a time
-    (``core/graphs.py``);
+    (``core/graphs.py``).  The epoch also keeps a one-op graph captured
+    into that pool (``_pool_anchor``): PyTorch releases a pool once its
+    last graph dies and refuses a later capture into it, and a capacity
+    jump drops every graph of the old capacity (``_prune_executables``)
+    while the epoch goes on capturing into its pool;
   * ``PendingCompaction.fold()`` touches no device (numpy and
     ``seil.build_seil_host`` on the snapshot), so it cannot break a
     capture on the serving thread; ``install()``, on the serving thread,
@@ -146,6 +150,17 @@ class _Folded(NamedTuple):
 def _host_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A copy of ``a`` on ``device`` (never a view of the host buffer)."""
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _pool_anchor(pool, device: torch.device):
+    """A one-op CUDA graph captured into ``pool``, kept for as long as the
+    pool is captured into (module docstring): PyTorch counts the graphs of
+    a pool and asserts at a capture into a pool whose count fell to 0."""
+    buf = torch.zeros(1, device=device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        buf.add_(1.0)
+    return graph, buf
 
 
 def _fold_host(cfg, base_codes: np.ndarray, base_assigns: np.ndarray,
@@ -371,6 +386,8 @@ class StreamingIndex:
         # sessions because the executables are
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
+        self._pool_anchor = (_pool_anchor(self._pool, self.device)
+                             if self._pool is not None else None)
 
     # ------------------------------------------------------------------
     # sizes / views

@@ -1,9 +1,9 @@
 """Typed error taxonomy (the port's own copy of ``repro/errors.py``).
 
-Every failure a caller can observe from persistence and streaming (and,
-once it is ported, the gateway) is a subclass of
-``RairsError``, so ``except RairsError`` catches "the system told me
-no" while genuine bugs (TypeError, KeyError, ...) propagate.  Several
+Every failure a caller can observe from persistence, streaming and the
+gateway is a subclass of ``RairsError``, so ``except RairsError``
+catches "the system told me no" while genuine bugs (TypeError,
+KeyError, ...) propagate.  Several
 leaves also subclass the stdlib exception callers saw at that site
 (``CorruptBundleError`` is a ValueError, ``DeadlineExceeded`` a
 TimeoutError, ``GatewayClosed`` a RuntimeError).  Same names and bases

@@ -5,10 +5,12 @@ A ``FaultPlan`` is a seeded schedule of failures that code paths ask
 about at named sites::
 
     plan = FaultPlan(seed=7, specs=(
+        FaultSpec("gateway.dispatch", kind="raise", prob=0.2),
+        FaultSpec("gateway.fold", kind="raise", at=(0, 1)),
         FaultSpec("io.read_array", kind="bitflip", at=(3,)),
     ))
     with plan.installed():
-        ...  # the 4th array read from a bundle has one bit flipped
+        ...  # every fire("gateway.dispatch") now fails ~20% of visits
 
 A site's Nth visit under seed S always makes the same fire/skip
 decision: each (site, spec) pair has its own ``random.Random`` stream
@@ -19,6 +21,10 @@ decisions in both packages.
 Sites the port asks about:
 
 ====================  =====================================================
+``gateway.dispatch``  per-batch, before the search runs (kinds: raise,
+                      delay)
+``gateway.fold``      per compaction-fold attempt on the worker thread
+                      (kind: raise — simulates a compaction worker crash)
 ``io.read_array``     per array loaded from a bundle; ``corrupt_array``
                       applies truncate/bitflip to the raw bytes *before*
                       checksum verification

@@ -1,19 +1,35 @@
-"""Observability of the port: the span tracer (counterpart of ``repro/obs``).
+"""Observability of the port: the span tracer, trace export and the
+unified stats snapshot (counterpart of ``repro/obs``).
 
-The tracer (``tracer.py``) records spans threaded through the search
-sessions (``Searcher`` dispatch, then the engine stages).  It is off by
-default: every instrumentation point goes through ``span()`` /
-``fence()``, which are no-ops (a shared singleton span, no device
-synchronize, no recorded work) until ``start()`` installs an active
-tracer.  With one active, sessions dispatch through the stage-fenced
-``seil_search_traced`` and each fence is a ``torch.cuda.synchronize``,
-so a stage's span covers its device time; results stay bitwise equal.
+The tracer (``tracer.py``) records spans threaded through the serving
+stack (``Gateway`` flush, then ``Searcher`` dispatch, then the engine
+stages).  It is off by default: every instrumentation point goes
+through ``span()`` / ``fence()``, which are no-ops (a shared singleton
+span, no device synchronize, no recorded work) until ``start()``
+installs an active tracer.  With one active, sessions dispatch through
+the stage-fenced ``seil_search_traced`` and each fence is a
+``torch.cuda.synchronize``, so a stage's span covers its device time;
+results stay bitwise equal.
 
-Trace export and the unified stats schema (the reference's ``export.py``
-and ``stats.py``) are not ported yet: ROADMAP.md Queue 1, item 2.
+Export paths:
+  * ``write_trace`` — Chrome/Perfetto trace-event JSON;
+    ``validate_trace`` is its schema gate (``python -m
+    repro_torch.obs.export FILE``).
+  * ``to_prometheus`` — text exposition of any nested stats dict.
+  * ``snapshot_all`` — the one documented stats schema unifying session
+    compile stats, plan-cache stats, per-stage DCO from span counters,
+    gateway telemetry, and the modeled memory traffic of the scan stage.
 """
+from .export import (to_prometheus, to_trace_events,  # noqa: F401
+                     validate_trace, write_trace)
+from .stats import (scan_traffic_model, session_traffic_model,  # noqa: F401
+                    snapshot_all)
 from .tracer import (Tracer, enabled, fence, span, start, stop,  # noqa: F401
                      trace, tracer, work_count)
 
-__all__ = ["Tracer", "enabled", "fence", "span", "start", "stop", "trace",
-           "tracer", "work_count"]
+__all__ = [
+    "Tracer", "enabled", "fence", "span", "start", "stop", "trace",
+    "tracer", "work_count",
+    "to_trace_events", "write_trace", "validate_trace", "to_prometheus",
+    "snapshot_all", "scan_traffic_model", "session_traffic_model",
+]

@@ -23,6 +23,11 @@ bad = sorted(n for n in sys.modules
              or n == "repro" or n.startswith("repro."))
 print(len([n for n in sys.modules if n.startswith("repro_torch")]))
 print(",".join(bad))
+print(",".join(sorted(n for n in sys.modules
+                      if n.startswith("repro_torch.gateway")
+                      or n in ("repro_torch.core.dense",
+                               "repro_torch.obs.export",
+                               "repro_torch.obs.stats"))))
 """
 
 
@@ -31,8 +36,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.splitlines()
-    assert int(out[0]) >= 20, out          # every submodule was imported
+    assert int(out[0]) >= 45, out          # every submodule was imported
     assert out[1] == "", f"loaded: {out[1]}"
+    assert out[2].split(",") == [
+        "repro_torch.core.dense", "repro_torch.gateway",
+        "repro_torch.gateway.gateway", "repro_torch.gateway.loadgen",
+        "repro_torch.gateway.queue", "repro_torch.gateway.telemetry",
+        "repro_torch.obs.export", "repro_torch.obs.stats"], out
 
 
 def _imported_roots(path: Path):
