@@ -112,6 +112,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 form; the card's busy share of the 20x point (its
                 flushes at their buckets' device times); K1, K3 and the
                 merge held and timed at the first flushed batch;
+     sharded  — on the main index, a one-shard mesh and a four-shard mesh
+                on cuda:0 (make_mesh) in the six runs: one shard bitwise
+                the plain session (ids, distances, four counters); four
+                shards held by the reference's multi-device contract
+                (counters and sorted distances exact, id sets equal;
+                recall@10 >= 0.5) to a plain session at one shard's
+                derived budget, which never truncates (the main path's
+                max_scan drops blocks, and a per-shard window would drop
+                others); QPS beside the plain sessions', one batch through
+                the graph and through the eager step, a traced batch
+                bitwise equal (stage.shard_scan, stage.gather_finalize);
+                each shard's K1 and K3 (and merge) held bitwise and timed
+                at each mode's first batch; golden_v1 at four shards on the
+                card and on the CPU, its four-way v3 bundle loaded with
+                mesh=; the serve CLI (--ndev 4) as a subprocess, closed
+                loop and behind the gateway.  In phase stream: the stream
+                at four shards, at capacity 131,072 against the stream's
+                sessions and at 262,144 against one shard, a pinned
+                session stale after the deletes, the shards placed anew
+                after the compaction;
      stream   — streaming on the main index's configuration: a draw of
                 n + n/4 vectors of the sift1m spec, the index built on the
                 first n, the last n/4 inserted in 8 batches (append
@@ -1471,7 +1491,7 @@ def time_kernels(torch, index, queries, lookups_per_s):
 def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
                 nbits8_launches, plane_rows, plane_launches, wide_rows,
                 wide_launches, stream_rows, stream_launches, gw_rows,
-                gw_launches):
+                gw_launches, shard_rows, shard_launches):
     """The {"kernels": [...]} entries: K1 and K3 at the main path's first
     paged batch, K3's merge at its first grouped batch (where most of its
     launches run), the
@@ -1484,7 +1504,10 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
     tile and K3's merge on the stream phase (paged, the merge grouped,
     after the deletes; launches of its twelve six-mode runs), and K1, K3
     and its merge at the gateway phase's first flushed batch (launches of
-    the gateway runs), with their launches on the runs that use them."""
+    the gateway runs), and K1, K3 (and its merge, where K3 splits there)
+    at shard 0's first paged (the merge: grouped) batch of the four-shard
+    mesh (launches of its six runs), with their launches on the runs that
+    use them."""
     src = "src/repro_torch/kernels/csrc/"
     planes = []
     for b in sorted(plane_rows):
@@ -1507,8 +1530,20 @@ def kernel_json(rows, launches, gist_rows, gist_launches, nbits8_rows,
                         src + "pq_scan_topk.cu",
                         "src/repro/kernels/topk.py:103", gw_rows["merge"],
                         gw_launches["merge_topk_kernel"]))
+    shards = [
+        ("pq_scan_tiled_kernel[shard, fast]", src + "pq_scan.cu",
+         "src/repro/kernels/pq_scan.py:112", shard_rows["paged"]["K1"],
+         shard_launches["pq_scan_tiled_kernel[fast]"]),
+        ("pq_scan_topk_kernel[shard, shared]", src + "pq_scan_topk.cu",
+         "src/repro/kernels/pq_scan.py:311", shard_rows["paged"]["K3"],
+         shard_launches["pq_scan_topk_kernel[shared]"])]
+    if "merge" in shard_rows["grouped"]:
+        shards.append(("merge_topk_kernel[shard]", src + "pq_scan_topk.cu",
+                       "src/repro/kernels/topk.py:103",
+                       shard_rows["grouped"]["merge"],
+                       shard_launches["merge_topk_kernel"]))
     out = []
-    for name, source, replaces, row, n in planes + [
+    for name, source, replaces, row, n in planes + shards + [
             ("pq_scan_topk_kernel[candidate rows]", src + "pq_scan_topk.cu",
              "src/repro/kernels/pq_scan.py:311", wide_rows["paged"]["rows"],
              wide_launches["pq_scan_topk_kernel"]),
@@ -2562,6 +2597,7 @@ def stream_path(torch, dev, args, lookups_per_s):
                   f"{routed}")
             state = "routed" if routed else "exhaustive"
             stream_runs(torch, stream, q, f"stream {state} ({i + 1} batches)")
+            shard_view, pinned = sharded_stream(torch, stream, q, state)
     launches = launch_counts(forms=True)
     check(build_seil_call_count() == builds, "stream: an insert built a "
           "layout")
@@ -2585,6 +2621,8 @@ def stream_path(torch, dev, args, lookups_per_s):
     check(stream.n_dead == victims.size, "stream: delete count")
     log(f"stream: deleted {victims.size} ids (half base, half delta) at "
         f"{victims.size / dt:.1f} vectors/s")
+    sharded_stream_stale(torch, shard_view, pinned, q)
+    del pinned
     stream_runs(torch, stream, q, "stream deleted")
     # plan reuse (grouped B=64) and the pq4 plane at refine factor 4
     bsz = dict(RUNS)["grouped"]
@@ -2663,6 +2701,7 @@ def stream_path(torch, dev, args, lookups_per_s):
         f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB with the "
         "stream's graphs")
     stream_compact(torch, stream, q, x, n, args)
+    sharded_stream_compacted(torch, stream, shard_view, q)
     return rows, launches
 
 
@@ -3526,6 +3565,435 @@ def stream_gateway(torch, stream, q, x, n, seed):
             f"{pt['mean_batch']:.2f}")
 
 
+# ---------------------------------------------------------------------------
+# phase sharded: one index over a mesh of shards, and the serve CLI
+# ---------------------------------------------------------------------------
+SHARDS = 4                  # the phase's mesh: four shards on cuda:0
+SHARD_STREAM_RUNS = (("paged", False), ("paged", True), ("clustered", True))
+CLI_SERVE = ("--ndev", "4", "--batches", "4", "--batch-size", "1024",
+             "--fused-topk")
+CLI_GATEWAY = ("--ndev", "4", "--gateway", "--offered-qps", "2000",
+               "--gateway-requests", "2048", "--max-batch", "256")
+
+
+def shard_session(sharded, mode, bsz, fused, **params):
+    """A ShardedSearcher of one run (``params`` override SEARCH), kept in
+    SESSIONS; its CUDA graphs live in the placement's executable cache
+    until release_shards."""
+    from repro_torch.core import SearchParams, ShardedSearcher
+    p = SearchParams(**{**SEARCH, "exec_mode": mode, "fused_topk": fused,
+                        "batch_buckets": (bsz,), **params})
+    key = (id(sharded), p)
+    if key not in SESSIONS:
+        SESSIONS[key] = ShardedSearcher(sharded, p)
+    return SESSIONS[key]
+
+
+def release_shards(torch, index, what):
+    """Drop the index's sharded views, their placements (with the
+    executable caches and graph pools) and the sessions of SESSIONS."""
+    index.__dict__.pop("_shard_cache", None)
+    index.__dict__.pop("_placement_cache", None)
+    release_sessions(torch, what)
+
+
+def mesh_contract(torch, got, want, what):
+    """The reference's multi-device contract (tests/test_sharded.py):
+    every counter exact, sorted distances exact, the same id set per
+    query.  Returns how many rows have the same ids in the same order."""
+    for f in ("approx_dco", "refine_dco", "scanned_blocks",
+              "dropped_blocks"):
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"{what}: {f} differs")
+    check(torch.equal(got.dists.sort(dim=1).values,
+                      want.dists.sort(dim=1).values),
+          f"{what}: sorted distances differ")
+    a, b = got.ids.cpu().numpy(), want.ids.cpu().numpy()
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(set(x[x >= 0]) == set(y[y >= 0]),
+              f"{what}: query {i} returns another id set")
+    return int((a == b).all(axis=1).sum())
+
+
+def timed_run(torch, sess, q, bsz):
+    """A session's graphs captured (``warmup``), then one run over all of
+    ``q``: (result, QPS, warmup seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.warmup(bsz)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = sess(q)
+    torch.cuda.synchronize()
+    return res, q.shape[0] / (time.perf_counter() - t0), warm
+
+
+def sharded_run(torch, sess, q, gt, mode, bsz, fused, tag):
+    """``timed_run`` of a mesh session, after the recall floor and shape
+    checks, with its log line: (result, QPS)."""
+    from repro_torch.core import recall_at_k
+    res, qps, warm = timed_run(torch, sess, q, bsz)
+    rec = recall_at_k(res.ids.cpu().numpy(), gt)
+    log(f"{tag}: {mode:9s} B={bsz:4d} fused={int(fused)} recall@10="
+        f"{rec:.4f} approx_dco/q={res.approx_dco.float().mean().item():.1f} "
+        f"dropped/q={res.dropped_blocks.float().mean().item():.3f} "
+        f"qps={qps:.1f} (max_scan_local {sess.max_scan_local}, max_scan "
+        f"{sess.params.max_scan}); {sess.stats.warmup_compiles} CUDA graph "
+        f"captured by warmup in {warm:.2f} s")
+    check(rec >= 0.5, f"{tag}: recall@10 {rec} below the 0.5 floor")
+    check(bool(torch.isfinite(res.dists).all()), f"{tag}: non-finite dists")
+    check(tuple(res.ids.shape) == (q.shape[0], SEARCH["k"]),
+          f"{tag}: result ids of the wrong shape")
+    return res, qps
+
+
+def shard_inputs(torch, sess, queries, mode, rank):
+    """K1's and K3's inputs (mode_inputs' tuple) of shard ``rank`` at one
+    batch of the mesh session ``sess``, as its serve step makes them: the
+    shard's own block rows, its windowed plan at ``max_scan_local``."""
+    from repro_torch.core.distributed import plan_shard, shard_geometry
+    from repro_torch.core.engine import select_lists
+    from repro_torch.core.pq import PQCodebook, pq_lut
+    from repro_torch.core.search import finalize_fetch
+    shards = sess._call_inputs()
+    sh = shards[rank]
+    p = sess.params
+    sel = select_lists(queries, sh.centroids, nprobe=p.nprobe)
+    lut = pq_lut(PQCodebook(sh.codebooks), queries)
+    store, plan = plan_shard(sh, sel,
+                             block_lo=shard_geometry(shards, rank)[0],
+                             max_scan_local=sess.max_scan_local)
+    fetch = finalize_fetch(p.bigk_eff, sess.index.result_oversample,
+                           sess.index.needs_result_dedup)
+    return scan_inputs(sess.index, fetch, store, plan, lut, sel.rank_of,
+                       sel.sel, mode, p.query_tile)
+
+
+def sharded_path(torch, index, q, gt, results, lookups_per_s, smi):
+    """The main index over a one-shard mesh and a four-shard mesh on
+    cuda:0 (module docstring, phase sharded).  Returns (kernel rows of
+    shard 0 at each mode's first batch, launches of the four-shard six
+    runs by name and form)."""
+    from repro_torch import obs
+    from repro_torch.core import make_mesh
+    from repro_torch.kernels.pq_scan import launch_counts
+    dev = index.device
+    on = None if dev.type == "cuda" else dev   # the CPU: a rehearsal
+    meshes = {1: make_mesh(1, device=on), SHARDS: make_mesh(SHARDS,
+                                                            device=on)}
+    card = meshes[1].devices[0]
+    check(meshes[SHARDS].devices == (card,) * SHARDS,
+          f"sharded: make_mesh({SHARDS}) on one card gave "
+          f"{meshes[SHARDS].devices}")
+    nprobe = SEARCH["nprobe"]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    budgets = {n: index.shard(m).derived_max_scan_local(nprobe)
+               for n, m in meshes.items()}
+    index.shard(meshes[SHARDS])._ensure_state()
+    torch.cuda.synchronize()
+    log(f"sharded: {SHARDS} shards on {card}: placed with "
+        f"{(torch.cuda.memory_allocated() - mem0) / 2 ** 20:.1f} MiB of new "
+        f"device memory (views of the index; a padded last block shard is "
+        f"a copy); derived per-shard budgets at nprobe {nprobe}: "
+        f"{json.dumps(budgets)} against the session's max_scan "
+        f"{index.default_max_scan(nprobe)}, which drops blocks: the "
+        f"{SHARDS}-shard runs are held to a plain session at max_scan "
+        f"{budgets[1]} (one shard's derived budget, which never "
+        f"truncates), the one-shard runs bitwise to the main path's")
+    release_shards(torch, index, "sharded placement")
+    qps, launches = {}, {1: {}, SHARDS: {}}
+    for mode, bsz in RUNS:
+        for fused in (False, True):
+            key = (mode, fused)
+            plain, qps[("plain",) + key], _ = timed_run(
+                torch, session(index, mode, bsz, fused), q, bsz)
+            full, qps[("full",) + key], _ = timed_run(
+                torch, session(index, mode, bsz, fused, max_scan=budgets[1]),
+                q, bsz)
+            for f in plain._fields:
+                check(torch.equal(getattr(plain, f), getattr(results[key], f)),
+                      f"sharded: the plain {mode} fused={int(fused)} rerun "
+                      f"differs from the main path's on {f}")
+            check(not bool(full.dropped_blocks.any()), "sharded: max_scan "
+                  f"{budgets[1]} dropped blocks")
+            out = {}
+            for ndev, mesh in meshes.items():
+                sess = shard_session(index.shard(mesh), mode, bsz, fused)
+                before = launch_counts(forms=True)
+                out[ndev], qps[(ndev,) + key] = sharded_run(
+                    torch, sess, q, gt, mode, bsz, fused, f"sharded {ndev}")
+                after = launch_counts(forms=True)
+                for k in after:
+                    launches[ndev][k] = (launches[ndev].get(k, 0) + after[k]
+                                         - before[k])
+            for f in plain._fields:
+                check(torch.equal(getattr(out[1], f), getattr(plain, f)),
+                      f"sharded 1: {mode} fused={int(fused)} is not bitwise "
+                      f"the plain session on {f}")
+            same = mesh_contract(torch, out[SHARDS], full,
+                                 f"sharded {SHARDS}: {mode} "
+                                 f"fused={int(fused)}")
+            # the graph against the eager step, and a traced batch
+            sess = shard_session(index.shard(meshes[SHARDS]), mode, bsz,
+                                 fused)
+            qb = q[:bsz].contiguous()
+            want = sess(qb)
+            fn, ins = sess._search_fn(), sess._call_inputs()
+            eager = fn(qb, *ins)
+            for f in want._fields:
+                check(torch.equal(getattr(eager, f), getattr(want, f)),
+                      f"sharded {SHARDS}: the eager step differs from the "
+                      f"graph on {f}")
+            torch.cuda.synchronize()
+            with obs.trace() as tr:
+                traced = sess(qb)
+            for f in want._fields:
+                check(torch.equal(getattr(traced, f), getattr(want, f)),
+                      f"sharded {SHARDS}: traced {mode} fused={int(fused)} "
+                      f"differs from the untraced batch on {f}")
+            spans = tr.stage_summary()
+            for name in ("stage.shard_scan", "stage.gather_finalize"):
+                check(name in spans, f"sharded {SHARDS}: no {name} span")
+            g_ms = cuda_ms(torch, lambda: sess(qb))
+            e_ms = cuda_ms(torch, lambda: fn(qb, *ins))
+            log(f"sharded {SHARDS}: {mode:9s} B={bsz:4d} fused={int(fused)}: "
+                f"counters and sorted distances exact, id sets equal to the "
+                f"plain session at max_scan {budgets[1]} ({same} of "
+                f"{q.shape[0]} rows in its order); qps "
+                f"{qps[(SHARDS,) + key]:.1f} against the plain session's "
+                f"{qps[('plain',) + key]:.1f} (at max_scan {budgets[1]}: "
+                f"{qps[('full',) + key]:.1f}) and one shard's "
+                f"{qps[(1,) + key]:.1f}; one batch (CUDA events, 10 back to "
+                f"back): graph {g_ms:.4f} ms, eager step {e_ms:.4f} ms; a "
+                f"traced batch bitwise equal, spans (ms) "
+                + ", ".join(f"{k} {v['mean_ms']:.4f}" for k, v in
+                            spans.items() if k.startswith("stage."))
+                + f" ({smi})")
+            del fn, ins
+            release_shards(torch, index, f"sharded {mode} fused={int(fused)}")
+    for ndev, tally in launches.items():
+        for kern, form in (("pq_scan_tiled_kernel", "fast"),
+                           ("pq_scan_topk_kernel", "shared")):
+            check(tally[kern] > 0 and tally[f"{kern}[{form}]"]
+                  == tally[kern], f"sharded {ndev}: {kern} launches "
+                  f"{tally[kern]}, {tally[f'{kern}[{form}]']} {form}")
+        log(f"sharded {ndev}: launches over the six runs "
+            f"{json.dumps(tally)}")
+    check(launches[SHARDS]["pq_scan_tiled_kernel"]
+          == SHARDS * launches[1]["pq_scan_tiled_kernel"],
+          "sharded: four shards did not launch K1 four times as often as "
+          "one shard")
+    # each shard's K1 and K3 at each mode's first batch, bitwise against
+    # their plain versions, and timed
+    rows = {}
+    sharded = index.shard(meshes[SHARDS])
+    for mode, bsz in RUNS:
+        sess = shard_session(sharded, mode, bsz, False)
+        qb = q[:bsz].contiguous()
+        for rank in range(SHARDS):
+            held = hold_inputs(torch, shard_inputs(torch, sess, qb, mode,
+                                                   rank),
+                               mode, f"sharded shard {rank}",
+                               global_tables=False, form="fast",
+                               k3_form="shared")
+            r = kernel_rows(torch, held, mode, f"timing: shard {rank}",
+                            lookups_per_s)
+            if rank == 0:
+                rows[mode] = r
+            del held
+    check("merge" not in rows["grouped"]
+          or launches[SHARDS]["merge_topk_kernel"] > 0,
+          "sharded: K3 splits at a shard's grouped batch and no merge ran")
+    release_shards(torch, index, "sharded kernels")
+    sharded_small(torch, on)
+    sharded_cli(torch, on)
+    return rows, launches[SHARDS]
+
+
+def sharded_small(torch, on):
+    """tests/data/golden_v1.npz (14 blocks, 96 vectors: a padded last
+    block shard) at four shards on the card and on the CPU: ids and DCO
+    exact, distances within 1e-5; its four-way v3 bundle, written from the
+    mesh and loaded with ``mesh=``, bitwise the mesh in memory (and over
+    two shards within the multi-device contract)."""
+    import tempfile
+    from repro_torch.core import (SearchParams, load_index, make_mesh,
+                                  save_index)
+    golden = ROOT / "tests" / "data" / "golden_v1.npz"
+    on_card = load_index(golden, device=on).shard(make_mesh(SHARDS,
+                                                             device=on))
+    on_cpu = load_index(golden, device="cpu").shard(
+        make_mesh(SHARDS, device="cpu"))
+    qg = on_cpu.vectors[:8] + 0.01
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        save_index(on_card, Path(tmp) / "golden4")
+        n_files = len(list((Path(tmp) / "golden4").glob("shard_*.npz")))
+        check(n_files == SHARDS, f"sharded: {n_files} bundle shards")
+        back = load_index(Path(tmp) / "golden4",
+                          mesh=make_mesh(SHARDS, device=on))
+        two = load_index(Path(tmp) / "golden4", mesh=make_mesh(2, device=on))
+        for mode in ("paged", "grouped", "clustered"):
+            for fused in (False, True):
+                p = SearchParams(k=5, nprobe=2, exec_mode=mode,
+                                 fused_topk=fused)
+                a = on_card.searcher(p)(qg)
+                b = on_cpu.searcher(p)(qg)
+                for f in ("ids", "approx_dco", "refine_dco",
+                          "scanned_blocks", "dropped_blocks"):
+                    check(torch.equal(getattr(a, f).cpu(), getattr(b, f)),
+                          f"sharded golden v1 {mode} fused={int(fused)}: "
+                          f"card and CPU differ on {f}")
+                check(torch.allclose(a.dists.cpu(), b.dists, rtol=1e-5,
+                                     atol=1e-5),
+                      f"sharded golden v1 {mode}: distances beyond 1e-5")
+                c = back.searcher(p)(qg)
+                for f in a._fields:
+                    check(torch.equal(getattr(c, f), getattr(a, f)),
+                          f"sharded: the reloaded 4-shard bundle {mode} "
+                          f"differs on {f}")
+                mesh_contract(torch, two.searcher(p)(qg), a,
+                              f"sharded: the bundle over 2 shards {mode}")
+    log(f"sharded: tests/data/golden_v1.npz at {SHARDS} shards answers "
+        "alike on the card and on the CPU in all six modes (ids and DCO "
+        f"equal, distances within 1e-5); its {SHARDS}-way v3 bundle, "
+        "loaded with mesh=, bitwise equal, and over 2 shards within the "
+        "multi-device contract")
+
+
+def sharded_cli(torch, on):
+    """``python -m repro_torch.launch.serve --ndev 4`` as a subprocess,
+    closed loop and behind the gateway, on its default device (the card;
+    ``on``, the CPU, in a rehearsal): each exits 0 and reads recall@10
+    >= 0.5 (the gateway with no client error)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    where = () if on is None else ("--device", str(on))
+    for argv in (CLI_SERVE + where, CLI_GATEWAY + where):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=600)
+        dt = time.perf_counter() - t0
+        check(out.returncode == 0, f"sharded CLI {' '.join(argv)} exited "
+              f"{out.returncode}: {out.stderr[-2000:]}")
+        lines = out.stdout.splitlines()
+        recs = [float(w.split("=")[1]) for ln in lines for w in ln.split()
+                if w.startswith("recall@10=")]
+        check(recs and min(recs) >= 0.5, f"sharded CLI {' '.join(argv)}: "
+              f"recall {recs}")
+        if "--gateway" in argv:
+            check(all("errors=0" in ln for ln in lines
+                      if ln.startswith("load ")), "sharded CLI gateway: "
+                  "client errors")
+        for ln in lines:
+            if ln.startswith(("built", "serving", "batch", "load",
+                              "gateway", "sharded searcher")):
+                log(f"sharded CLI: {ln}")
+        log(f"sharded CLI: {' '.join(argv)}: exit 0 in {dt:.1f} s, "
+            f"recall@10 {min(recs):.4f}-{max(recs):.4f}")
+
+
+def own_counts(fn):
+    """Run ``fn()`` outside the launch counts around it: returns its
+    result and its own launches, which are taken back out of the
+    counters (a phase's counts stay those of its own runs)."""
+    from repro_torch.kernels.pq_scan import add_launch_counts, launch_counts
+    before = launch_counts(forms=True)
+    out = fn()
+    after = launch_counts(forms=True)
+    mine = {k: after[k] - before[k] for k in after}
+    add_launch_counts({k: -n for k, n in mine.items()})
+    return out, mine
+
+
+def sharded_stream(torch, stream, q, state):
+    """The stream sharded four ways on cuda:0 in SHARD_STREAM_RUNS, at one
+    shard's derived budget (which never truncates, so that the counters
+    can agree): at the exhaustive capacity held to the stream's own
+    sessions, at the routed one to a one-shard mesh (a mesh's delta scan
+    is always exhaustive).  Their launches stay out of the stream's
+    counts.  Returns the four-shard view and a session pinned now (the
+    stale check after the deletes)."""
+    from repro_torch.core import make_mesh
+    on = None if stream.device.type == "cuda" else stream.device
+    sharded = stream.shard(make_mesh(SHARDS, device=on))
+    one = stream.shard(make_mesh(1, device=on))
+    full = one.derived_max_scan_local(SEARCH["nprobe"])
+
+    def run():
+        for mode, fused in SHARD_STREAM_RUNS:
+            bsz = dict(RUNS)[mode]
+            sess = shard_session(sharded, mode, bsz, fused, max_scan=full)
+            res, qps, _ = timed_run(torch, sess, q, bsz)
+            if state == "exhaustive":
+                against = "the stream's session"
+                ref = stream_session(stream, mode, bsz, fused, max_scan=full)
+            else:
+                against = "one shard"
+                ref = shard_session(one, mode, bsz, fused, max_scan=full)
+            ref, ref_qps, _ = timed_run(torch, ref, q, bsz)
+            same = mesh_contract(torch, res, ref, f"sharded stream {state} "
+                                 f"{mode} fused={int(fused)}")
+            log(f"sharded stream {state} (capacity "
+                f"{stream._delta.capacity}): {mode:9s} B={bsz:4d} "
+                f"fused={int(fused)} at {SHARDS} shards, max_scan {full}: "
+                f"qps {qps:.1f}, approx_dco/q "
+                f"{res.approx_dco.float().mean().item():.1f}; against "
+                f"{against} (qps {ref_qps:.1f}): counters and sorted "
+                f"distances exact, id sets equal, {same} of {q.shape[0]} "
+                f"rows in its order")
+    _, mine = own_counts(run)
+    log(f"sharded stream {state}: launches (outside the stream's counts) "
+        f"{json.dumps({k: n for k, n in mine.items() if n})}")
+    sess = shard_session(sharded, "paged", dict(RUNS)["paged"], False,
+                         max_scan=full)
+    for view in (sharded, one):
+        view._placement.exec_cache.clear()
+    release_sessions(torch, f"sharded stream {state}")
+    return sharded, sess
+
+
+def sharded_stream_stale(torch, sharded, sess, q):
+    """After the deletes the pinned mesh session raises StaleSessionError,
+    and a fresh one answers."""
+    from repro_torch.errors import StaleSessionError
+    try:
+        sess(q[:64])
+        fail("sharded stream: a session pinned before the deletes answered")
+    except StaleSessionError as e:
+        log(f"sharded stream: after the deletes the pinned session raised "
+            f"StaleSessionError ({str(e)[:80]}...)")
+
+
+def sharded_stream_compacted(torch, stream, sharded, q):
+    """After compaction the mesh places the new epoch's base and answers
+    as the stream's own session does (at one shard's derived budget)."""
+    from repro_torch.core import make_mesh
+    pl = sharded._placement
+    base0 = pl.base
+    on = None if stream.device.type == "cuda" else stream.device
+    full = stream.shard(make_mesh(1, device=on)).derived_max_scan_local(
+        SEARCH["nprobe"])
+
+    def run():
+        bsz = dict(RUNS)["paged"]
+        res = shard_session(sharded, "paged", bsz, True, max_scan=full)(q)
+        want = stream_session(stream, "paged", bsz, True, max_scan=full)(q)
+        return mesh_contract(torch, res, want, "sharded stream compacted")
+    same, _ = own_counts(run)
+    check(pl.base is not base0 and pl.base_epoch == stream.epoch,
+          "sharded stream: compaction did not re-place the shards")
+    log(f"sharded stream: after compaction (epoch {stream.epoch}) the "
+        f"shards were placed anew and paged fused answers as the stream's "
+        f"session ({same} of {q.shape[0]} rows in its order)")
+    stream.__dict__.pop("_shard_cache", None)
+    stream.__dict__.pop("_placement_cache", None)
+    release_sessions(torch, "sharded stream compacted")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3574,6 +4042,7 @@ def main() -> int:
     stage_breakdown(torch, index, q[:1024].contiguous())
     refine = refine_path(torch, index, q, gt, results, rate)
     gateway = gateway_path(torch, index, q, gt, results, rate)
+    shard = sharded_path(torch, index, q, gt, results, rate, smi)
     del index, results
     gc.collect()
     torch.cuda.empty_cache()
@@ -3586,7 +4055,7 @@ def main() -> int:
     gist_rows, gist_launches = gist_path(torch, dev, args.seed, rate)
     small_reference(torch, dev, args.seed)
     kernels = kernel_json(rows, launches, gist_rows, gist_launches, *nbits8,
-                          *refine, *stream, *gateway)
+                          *refine, *stream, *gateway, *shard)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

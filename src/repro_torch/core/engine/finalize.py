@@ -26,9 +26,32 @@ def preselect_candidates(flat_d, flat_i, *, fetch: int):
     return d, torch.gather(flat_i, 1, pos)
 
 
+def score_candidates(cand_ids, cand_ok, vectors, queries, *, metric,
+                     vec_lo=None):
+    """Exact distances of the candidates, +inf where ``cand_ok`` is
+    False.  With ``vec_lo`` the refine store is a row shard holding
+    global ids [vec_lo, vec_lo + len(vectors)): only the candidates it
+    owns are scored, +inf elsewhere (the sharded tail)."""
+    if vec_lo is None:
+        cv = vectors[cand_ids.clamp_min(0).long()]            # (B, bigK, D)
+        score_ok = cand_ok
+    else:
+        nloc = vectors.shape[0]
+        rel = cand_ids - vec_lo
+        score_ok = cand_ok & (rel >= 0) & (rel < nloc)        # owner mask
+        cv = vectors[rel.clamp(0, nloc - 1).long()]
+    if metric == "l2":
+        diff = cv - queries[:, None, :]
+        exact = torch.sum(diff * diff, dim=-1)
+    else:
+        exact = -torch.einsum("bkd,bd->bk", cv, queries)
+    return torch.where(score_ok, exact, torch.inf)
+
+
 def finalize_candidates(flat_d, flat_i, *, bigk, k, vectors, queries,
                         metric, dedup_results, oversample: int = 2,
-                        extra_d=None, extra_i=None, live=None):
+                        extra_d=None, extra_i=None, live=None,
+                        shards=None):
     """Shared tail of the search paths: top-bigK (+ id-dedup for
     duplicated layouts), exact-distance refinement, top-K.
 
@@ -39,6 +62,15 @@ def finalize_candidates(flat_d, flat_i, *, bigk, k, vectors, queries,
     ``extra_d``/``extra_i`` (B, C) are merged into the stream ahead of
     selection; ``live`` (n_total,) bool forces dead ids to +inf before
     selection.  Both are inert when unused.
+
+    ``shards`` (the sharded tail, ``core/distributed.py``) replaces
+    ``vectors`` with a sequence of ``(vectors_r, vec_lo_r)`` row shards
+    in mesh order, each on its own device: each scores only the
+    candidates it owns (``score_candidates``), +inf elsewhere, and the
+    exact distances are min-reduced across the shards in mesh order on
+    the queries' device (the reference's ``pmin``), so refinement never
+    moves vector rows.  One shard with ``vec_lo=0`` is bitwise the
+    unsharded path.
     Returns ``(ids (B, k) int32, dists (B, k) f32, refine_dco (B,) int32)``.
     """
     if extra_d is not None:
@@ -64,13 +96,17 @@ def finalize_candidates(flat_d, flat_i, *, bigk, k, vectors, queries,
         cand_ok &= torch.cumsum(cand_ok.to(torch.int32), dim=1) <= bigk
     cand_ids = torch.where(cand_ok, cand_ids, torch.full_like(cand_ids, -1))
 
-    cv = vectors[cand_ids.clamp_min(0).long()]                # (B, bigK, D)
-    if metric == "l2":
-        diff = cv - queries[:, None, :]
-        exact = torch.sum(diff * diff, dim=-1)
+    if shards is None:
+        exact = score_candidates(cand_ids, cand_ok, vectors, queries,
+                                 metric=metric)
     else:
-        exact = -torch.einsum("bkd,bd->bk", cv, queries)
-    exact = torch.where(cand_ok, exact, torch.inf)
+        exact = None
+        for vecs, lo in shards:
+            dev = vecs.device
+            e = score_candidates(cand_ids.to(dev), cand_ok.to(dev), vecs,
+                                 queries.to(dev), metric=metric,
+                                 vec_lo=lo).to(queries.device)
+            exact = e if exact is None else torch.minimum(exact, e)
     refine_dco = cand_ok.sum(dim=1).to(torch.int32)
     out_d, posk = _stable_smallest(exact, k)
     out_ids = torch.gather(cand_ids, 1, posk)

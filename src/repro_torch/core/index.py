@@ -171,6 +171,18 @@ class RairsIndex:
         from .stream import StreamingIndex
         return StreamingIndex(self, config)
 
+    def shard(self, mesh, axes=("data",), max_scan_local=None):
+        """Deploy this index over ``mesh`` (``core/sharded.py::make_mesh``)
+        as a ``ShardedIndex``: block rows and refine vectors shard by id
+        range, centroids, tables and codebooks replicate, and
+        ``.searcher(params)`` sessions run the mesh's serve step with the
+        single-host bucket and cache machinery.  Cached per (mesh, axes,
+        max_scan_local), so repeated shards of one index share placed
+        tensors and executables."""
+        from .sharded import shard_index
+        return shard_index(self, mesh, axes=axes,
+                           max_scan_local=max_scan_local)
+
     def searcher_stats(self) -> dict:
         """Aggregate compile-cache stats over every cached session."""
         sessions = list(self.__dict__.get("_searcher_cache", {}).values())

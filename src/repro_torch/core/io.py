@@ -35,9 +35,12 @@ codes.
 
 ``load_index(path, device=None)`` rebuilds a ``RairsIndex`` (or a
 ``StreamingIndex``) on ``device`` (None: CUDA), with ``SeilStats`` from
-the meta; a stream's planes come back as its carried codecs.  Serving a
-loaded index over a mesh (the reference's ``mesh=``) waits for
-ROADMAP.md Queue 1, item 4 (sharding).
+the meta; a stream's planes come back as its carried codecs.  With
+``mesh=`` it returns the loaded index deployed over that mesh
+(``loaded.shard(mesh, ...)``, ``core/sharded.py``), loaded on the mesh's
+first device unless ``device`` says otherwise; a bundle of any shard
+count loads onto a mesh of any size.  ``save_index`` of a
+``ShardedIndex`` writes v3 with one bundle shard per mesh shard.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ from ..errors import CorruptBundleError
 from .index import IndexConfig, RairsIndex
 from .pq import PQCodebook
 from .seil import SEIL_FIELDS, SeilStats, arrays_to_device
+from .sharded import ShardedIndex
 from .stream import StreamConfig, StreamingIndex
 
 INDEX_FORMAT = "rairs-index"
@@ -190,20 +194,24 @@ def _gather_arrays(index: Union[RairsIndex, StreamingIndex],
     return meta, arrays
 
 
-def save_index(index: Union[RairsIndex, StreamingIndex],
-               path: Union[str, os.PathLike], extra: dict = None, *,
-               shards: Optional[int] = None) -> None:
+def save_index(index, path: Union[str, os.PathLike], extra: dict = None,
+               *, shards: Optional[int] = None) -> None:
     """Write ``index`` to ``path`` in format v5.
 
     Default: one compressed npz bundle at exactly ``path`` (no implicit
-    .npz suffix).  With ``shards=N``, ``path`` becomes a directory holding
-    a manifest and per-shard bundles (module docstring).  ``extra`` is a
-    JSON-able dict of caller provenance readable via
-    ``read_index_meta``.  A ``StreamingIndex`` is saved without
-    compacting: its delta segment and tombstones travel as they are."""
+    .npz suffix).  With ``shards=N``, or when ``index`` is a
+    ``ShardedIndex`` (N defaulting to its shard count), ``path`` becomes
+    a directory holding a manifest and per-shard bundles (module
+    docstring).  ``extra`` is a JSON-able dict of caller provenance
+    readable via ``read_index_meta``.  A ``StreamingIndex`` is saved
+    without compacting: its delta segment and tombstones travel as they
+    are."""
+    if isinstance(index, ShardedIndex):
+        shards = shards or index.ndev
+        index = index.index
     if not isinstance(index, (RairsIndex, StreamingIndex)):
-        raise TypeError(f"save_index takes a RairsIndex or a "
-                        f"StreamingIndex, got {type(index)}")
+        raise TypeError(f"save_index takes a RairsIndex, a StreamingIndex "
+                        f"or a ShardedIndex, got {type(index)}")
     meta, arrays = _gather_arrays(index, extra)
     if shards is None:
         meta["checksums"] = _checksums(arrays)
@@ -510,22 +518,31 @@ def _load_sharded(mpath: str, device: torch.device
     return _index_from(dict(manifest["meta"]), get, device)
 
 
-def load_index(path: Union[str, os.PathLike], device: DeviceLike = None
-               ) -> Union[RairsIndex, StreamingIndex]:
+def load_index(path: Union[str, os.PathLike], device: DeviceLike = None,
+               *, mesh=None, axes=("data",),
+               max_scan_local: Optional[int] = None):
     """Load a bundle written by either package's ``save_index`` (any
     readable version, single file or sharded directory) on ``device``
-    (None: CUDA): a ``RairsIndex``, or a ``StreamingIndex`` (delta
-    segment, tombstones, epoch / version restored) when the bundle
-    carries streaming state.  A corrupt bundle raises
-    ``CorruptBundleError`` naming the member."""
+    (None: CUDA, or with ``mesh`` the mesh's first device): a
+    ``RairsIndex``, or a ``StreamingIndex`` (delta segment, tombstones,
+    epoch / version restored) when the bundle carries streaming state.
+    With ``mesh=`` the loaded index is deployed at once: returns
+    ``loaded.shard(mesh, axes=axes, max_scan_local=max_scan_local)``.  A
+    corrupt bundle raises ``CorruptBundleError`` naming the member."""
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     dev = resolve_device(device)
     mpath = _manifest_path(path)
     if mpath is not None:
-        return _load_sharded(mpath, dev)
-    fname = os.path.basename(os.fspath(path))
-    with _open_member(os.fspath(path)) as z:
-        meta = _load_npz_meta(path, z)
-        members = _verify_members(
-            fname, _read_members(fname, z, skip=("meta_json",)),
-            meta.get("checksums"))
-    return _index_from(meta, members.__getitem__, dev)
+        index = _load_sharded(mpath, dev)
+    else:
+        fname = os.path.basename(os.fspath(path))
+        with _open_member(os.fspath(path)) as z:
+            meta = _load_npz_meta(path, z)
+            members = _verify_members(
+                fname, _read_members(fname, z, skip=("meta_json",)),
+                meta.get("checksums"))
+        index = _index_from(meta, members.__getitem__, dev)
+    if mesh is not None:
+        return index.shard(mesh, axes=axes, max_scan_local=max_scan_local)
+    return index

@@ -1,7 +1,7 @@
 """K-means (Lloyd's) for IVF list training and PQ sub-codebooks."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -75,3 +75,23 @@ def kmeans_fit(x: torch.Tensor, k: int, iters: int = 20, chunk: int = 16384,
         xt = x
     perm = torch.randperm(xt.shape[0], generator=generator)[:k]
     return kmeans_loop(xt, xt[perm.to(x.device)], iters, chunk)
+
+
+def kmeans_step_sharded(x_shards: Sequence[torch.Tensor],
+                        c: torch.Tensor) -> torch.Tensor:
+    """One Lloyd step over a corpus held as row shards, each on its own
+    device (a mesh's shards, ``core/sharded.py``); the centroids ``c``
+    are replicated.  Each shard assigns its rows and sums them in the
+    fixed order of ``segment_sum``; the sums and counts are then added
+    across the shards in mesh order on ``c``'s device (the reference's
+    ``psum``), and empty clusters keep their centroid.  -> (k, D) on
+    ``c``'s device."""
+    k = c.shape[0]
+    sums = counts = None
+    for x in x_shards:
+        s, n = segment_sum(x, assign_nearest(x, c.to(x.device)), k)
+        s, n = s.to(c.device), n.to(c.device)
+        sums = s if sums is None else sums + s
+        counts = n if counts is None else counts + n
+    new_c = sums / torch.clamp_min(counts, 1.0)[:, None]
+    return torch.where((counts > 0)[:, None], new_c, c)

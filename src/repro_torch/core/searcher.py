@@ -34,9 +34,11 @@ keep the plain program.
 
 The hooks ``_check_current``, ``_call_inputs`` / ``_scan_inputs`` (the
 tensors an executable takes after its queries), ``_search_fn`` /
-``_scan_fn``, ``_probe_exe_store`` and ``_graph_pool`` let
-``core/stream/``'s ``StreamingSearcher`` swap in the streaming pipeline,
-as the reference's hooks do.
+``_scan_fn``, ``_dispatch_traced``, ``_probe_exe_store``,
+``_graph_pool`` and ``device`` let ``core/stream/``'s
+``StreamingSearcher`` swap in the streaming pipeline and
+``core/sharded.py``'s ``ShardedSearcher`` the mesh's serve step, as the
+reference's hooks do.
 """
 from __future__ import annotations
 
@@ -126,10 +128,17 @@ class Searcher:
         self._plan_cache: Dict[int, "collections.OrderedDict"] = {}
         self._pool = self._graph_pool()
 
+    @property
+    def device(self) -> torch.device:
+        """Where the session takes its queries and returns its results:
+        the index's device (a mesh session's result device,
+        ``core/sharded.py``)."""
+        return self.index.device
+
     def _graph_pool(self):
         """The memory pool of this session's CUDA graphs (None on the
         CPU)."""
-        if self.index.device.type != "cuda":
+        if self.device.type != "cuda":
             return None
         return torch.cuda.graph_pool_handle()
 
@@ -174,9 +183,8 @@ class Searcher:
                     packed_codes=self._packed)
 
     def _zeros(self, bucket: int) -> torch.Tensor:
-        idx = self.index
-        return torch.zeros((bucket, idx.vectors.shape[1]),
-                           dtype=torch.float32, device=idx.device)
+        return torch.zeros((bucket, self.index.vectors.shape[1]),
+                           dtype=torch.float32, device=self.device)
 
     def _make(self, fn, inputs, clone: bool = True):
         """``fn`` as an executable: a CUDA graph over the static
@@ -262,7 +270,7 @@ class Searcher:
         def make():
             unions = torch.full((pr.unions.shape[0], width), BIG,
                                 dtype=pr.unions.dtype,
-                                device=self.index.device)
+                                device=self.device)
             return self._make(self._scan_fn(),
                               (qp, pr, unions) + self._scan_inputs())
         return self._get_exe(("scan", bucket, width), make)
@@ -343,7 +351,7 @@ class Searcher:
                     misses=t - n_hit - n_ext, union_live=int(live.sum()),
                     width=wp, sig_deep_split=deep_split)
             unions_w = torch.from_numpy(
-                np.ascontiguousarray(used[:, :wp])).to(self.index.device)
+                np.ascontiguousarray(used[:, :wp])).to(self.device)
         return qp, pr, unions_w
 
     # -- warmup -----------------------------------------------------------
@@ -386,7 +394,7 @@ class Searcher:
 
     def __call__(self, queries) -> SearchResult:
         self._check_current()
-        dev = self.index.device
+        dev = self.device
         if isinstance(queries, np.ndarray):
             queries = torch.from_numpy(queries)
         q = queries.to(device=dev, dtype=torch.float32)

@@ -185,6 +185,15 @@ def _delta_candidates(lut, delta_codes, delta_ids, delta_post,
     if route_delta:
         return _routed_chunks(lut, delta_codes, delta_ids, delta_post,
                               delta_assigns, sel, rank_of, fetch)
+    return exhaustive_delta_candidates(lut, delta_codes, delta_ids, fetch)
+
+
+def exhaustive_delta_candidates(lut, delta_codes, delta_ids, fetch: int):
+    """Every live slot of ``delta_codes`` / ``delta_ids`` (-1: dead or
+    unused) scored for every query, each query's stream cut to its
+    stable top-``fetch`` in query chunks (module docstring): ``(dd, di,
+    per-query delta DCO)``.  A mesh shard passes its own slots
+    (``core/distributed.py``)."""
     b = lut.shape[0]
     alive = delta_ids >= 0                                  # (cap,)
     cap = delta_ids.shape[0]

@@ -868,10 +868,17 @@ class StreamingIndex:
             self.compact(reason="dead_threshold")
 
     def shard(self, mesh, axes=("data",), max_scan_local=None):
-        """Deploy this mutable index over a mesh: not ported yet."""
-        raise NotImplementedError(
-            "sharding a StreamingIndex is not ported yet: ROADMAP.md "
-            "Queue 1, item 4 (sharding)")
+        """Deploy this mutable index over ``mesh`` as a ``ShardedIndex``
+        (``core/sharded.py``): the base epoch shards by block and vector
+        range, the delta segment and tombstone mask replicate, and a
+        compaction places the new base at the next session fetch.
+        Mutations keep flowing through this index (the sharded view
+        forwards insert / delete / compact); mesh sessions pin (epoch,
+        version) as single-host ones do.  Cached per (mesh, axes,
+        max_scan_local)."""
+        from ..sharded import shard_index
+        return shard_index(self, mesh, axes=axes,
+                           max_scan_local=max_scan_local)
 
     # ------------------------------------------------------------------
     # sessions

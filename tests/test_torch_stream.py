@@ -532,7 +532,7 @@ def test_stream_config_and_inputs_validate(pair):
     assert stream.insert(np.zeros((0, 32), np.float32)).size == 0
     assert stream.delete([]) == 0
     assert stream.version == 0
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(TypeError, match="mesh must be a repro_torch Mesh"):
         stream.shard(None)
 
 
