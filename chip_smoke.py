@@ -169,6 +169,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 copy refused with CorruptBundleError naming the member
                 (the 1M index is not saved: compressing its ~0.6 GB
                 would dominate the run).
+     lm       — the LM serving path, after every session and index is
+                released (no kernel of its own: the reference's LM side
+                reaches no pallas_call): the ten architectures reduced
+                (B 2, S 64), params from a CPU generator, prefill,
+                decode and train_loss on the card against the CPU
+                (logits within 2e-2 of max|CPU|, argmax over all 128
+                rows >= 0.95, every sublayer from the CPU's input within
+                5e-3, loss in (3, 12)), and decode against teacher-forced
+                prefill for the reference's five (capacity 8: < 0.05,
+                argmax > 0.9); Qwen3-8B at full width and depth (36
+                layers, bf16 serving weights from a seeded CUDA
+                generator, B 1 of prefill_32k's 32): prefill at S 32,768
+                (ms, tokens/s), the teacher-forcing pair, 32 greedy decode
+                steps (ms/step beside the bytes bound), peak memory; the
+                long_500k shape at its width (2 of 36 layers; keys and
+                values made on the card with bursty topics): the kNN
+                cache build (blocks used of nb_cap, dropped table
+                entries; S halved while it passes nb_cap, listed as a
+                cut), the attention output against exact attention over
+                all keys at nprobe 1 / 4 / 16 / 64, decode_step_long
+                ms/step over 16 steps, and nprobe == nlist exact within
+                0.05 at S 16,384 (no entry dropped).  Callable alone:
+                ``chip_smoke.lm_path(torch, torch.device("cuda"), 0)``.
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -3994,6 +4017,423 @@ def sharded_stream_compacted(torch, stream, sharded, q):
     release_sessions(torch, "sharded stream compacted")
 
 
+# ---------------------------------------------------------------------------
+# phase lm: the LM serving path (the ten architectures reduced, card against
+# CPU; Qwen3-8B at full width and depth; RAIRS-kNN attention at long_500k)
+# ---------------------------------------------------------------------------
+LM_ARCH = "qwen3-8b"        # the full-width model of the phase
+LM_TOL = 2e-2               # whole-model logits, card against CPU
+LM_SUBLAYER_TOL = 5e-3      # one sublayer from the CPU's input
+LM_ARGMAX_MIN = 0.95
+LM_TF_ARCHS = ("qwen3-8b", "gemma-2b", "qwen2-vl-7b", "jamba-1.5-large-398b",
+               "mamba2-2.7b")
+LM_B, LM_S = 2, 64          # the reduced architectures' batch
+LM_FULL_S = 32_768          # prefill_32k's length; its batch of 32 cut to 1
+LM_DECODE_STEPS = 32
+LM_LONG_S = 524_288         # long_500k's length (B 1)
+LM_LONG_PERIODS = 2         # of Qwen3-8B's 36: a K+V pool is 4.3 GB a layer
+LM_LONG_STEPS = 16
+LM_NPROBES = (1, 4, 16, 64)
+LM_EXACT = dict(s=16_384, nlist=64, nprobe=64, max_blocks_per_list=64,
+                window=16)  # nprobe == nlist, no entry dropped: exact
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def lm_batch(torch, cfg, seed, b=LM_B, s=LM_S):
+    """A batch of the reference tests' shape, from numpy with ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.frontend == "frame":
+        out["frames"] = rng.standard_normal((b, s, cfg.d_model)).astype(
+            np.float32)
+    if cfg.frontend == "patch":
+        out["patch_embeds"] = rng.standard_normal(
+            (b, s // 4, cfg.patch_dim)).astype(np.float32)
+    if cfg.m_rope:
+        out["positions3"] = np.ascontiguousarray(np.broadcast_to(
+            np.arange(s, dtype=np.int32)[None, None], (3, b, s)))
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def rel_err(torch, ref, got) -> float:
+    ref, got = ref.float().cpu(), got.float().cpu()
+    return float((ref - got).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def on(torch, tree, dev):
+    from repro_torch.models.mamba2 import MambaState
+    if isinstance(tree, dict):
+        return {k: on(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, MambaState):
+        return MambaState(*(t.to(dev) for t in tree))
+    if isinstance(tree, tuple):
+        return tuple(t.to(dev) for t in tree)
+    return tree.to(dev)
+
+
+def lm_sublayers(torch, cfg, cpu_p, dev_p, batch, dev) -> float:
+    """Every sublayer of every period on the card from the CPU's input,
+    held to the CPU's output and cache piece; the largest error."""
+    from repro_torch.models import transformer as T
+    worst = 0.0
+    h = T.embed_inputs(cpu_p, cfg, batch)
+    pos = T._positions(cfg, batch, h)
+    dpos = pos.to(dev)
+    for p in range(cfg.n_periods):
+        cp, dp = T._index(cpu_p["blocks"], p), T._index(dev_p["blocks"], p)
+        for j, (mixer, mlp) in enumerate(cfg.slot_kinds()):
+            hin = h.to(dev)
+            if mixer == "attn":
+                h, c = T._attn_sublayer(cfg, cp[f"s{j}"], h, pos, "prefill")
+                dh, dc = T._attn_sublayer(cfg, dp[f"s{j}"], hin, dpos,
+                                          "prefill")
+            else:
+                h, c = T._ssm_sublayer(cfg, cp[f"s{j}"], h, "prefill")
+                dh, dc = T._ssm_sublayer(cfg, dp[f"s{j}"], hin, "prefill")
+            errs = [rel_err(torch, h, dh)] + [rel_err(torch, a, b)
+                                              for a, b in zip(c, dc)]
+            if mlp != "none":
+                hin = h.to(dev)
+                h = T._mlp_sublayer(cfg, cp[f"s{j}"], h, mlp)
+                errs.append(rel_err(torch, h, T._mlp_sublayer(
+                    cfg, dp[f"s{j}"], hin, mlp)))
+            check(max(errs) <= LM_SUBLAYER_TOL,
+                  f"lm {cfg.name} period {p} slot {j} ({mixer}/{mlp}): card "
+                  f"against CPU {max(errs):.3e} > {LM_SUBLAYER_TOL}")
+            worst = max(worst, *errs)
+    return worst
+
+
+def lm_reduced(torch, dev, seed, smi):
+    """The ten architectures reduced: prefill, decode and the loss on the
+    card and on the CPU from one set of params (a CPU generator)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cpu = torch.device("cpu")
+    for arch in sorted(ARCHS):
+        t0 = time.perf_counter()
+        cfg = ARCHS[arch].reduced()
+        cpu_p = T.init_params(cfg, torch.Generator().manual_seed(seed), cpu)
+        dev_p = on(torch, cpu_p, dev)
+        batch = lm_batch(torch, cfg, seed)
+        dbatch = on(torch, batch, dev)
+        lc, cc = T.prefill(cpu_p, cfg, batch, cache_slack=2)
+        ld, cd = T.prefill(dev_p, cfg, dbatch, cache_slack=2)
+        err = rel_err(torch, lc, ld)
+        check(torch.isfinite(ld).all().item(), f"lm {arch}: prefill logits")
+        hc, _ = T.forward(cpu_p, cfg, batch, mode="prefill")
+        hd, _ = T.forward(dev_p, cfg, dbatch, mode="prefill")
+        ac = L._dot(hc, T._unembed_w(cpu_p, cfg)).argmax(-1)
+        ad = L._dot(hd, T._unembed_w(dev_p, cfg)).argmax(-1).cpu()
+        agree = (ac == ad).float().mean().item()
+        loss = float(T.train_loss(dev_p, cfg, dbatch))
+        line = (f"lm {arch}: card against CPU prefill logits {err:.3e} "
+                f"(<= {LM_TOL}), argmax over {ac.numel()} rows {agree:.4f}, "
+                f"train_loss {loss:.4f}")
+        check(err <= LM_TOL, line)
+        check(agree >= LM_ARGMAX_MIN, line)
+        check(3.0 < loss < 12.0, line)
+        line += (f", sublayers from the CPU's input <= "
+                 f"{lm_sublayers(torch, cfg, cpu_p, dev_p, batch, dev):.3e}")
+        if cfg.has_decode:
+            tok = batch["tokens"][:, :1]
+            dc, _ = T.decode_step(cpu_p, cfg, cc, tok)
+            dd, _ = T.decode_step(dev_p, cfg, cd, tok.to(dev))
+            derr = rel_err(torch, dc, dd)
+            line += f", decode {derr:.3e}"
+            check(derr <= LM_TOL and torch.isfinite(dd).all().item(), line)
+        if arch in LM_TF_ARCHS:
+            tf_err, tf_agree = lm_teacher_forcing(torch, arch, seed, dev)
+            line += f", decode vs teacher-forced prefill {tf_err:.3e} " \
+                    f"argmax {tf_agree:.2f}"
+            check(tf_err < 0.05 and tf_agree > 0.9, line)
+        log(line + f" ({time.perf_counter() - t0:.2f} s) [{smi}]")
+
+
+def lm_teacher_forcing(torch, arch, seed, dev):
+    """tests/test_models.py's check on the card: capacity_factor 8, decode
+    of token S-1 against prefill of S.  -> (relative error, argmax share)"""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), capacity_factor=8.0)
+    params = on(torch, T.init_params(cfg, torch.Generator().manual_seed(seed),
+                                     "cpu"), dev)
+    batch = on(torch, lm_batch(torch, cfg, seed), dev)
+    batch.pop("labels")
+    full, _ = T.prefill(params, cfg, batch)
+    short = {k: (v[:, :, :LM_S - 1] if k == "positions3"
+                 else v[:, :LM_S - 1] if v.shape[1] == LM_S else v)
+             for k, v in batch.items()}
+    _, cache = T.prefill(params, cfg, short, cache_slack=2)
+    dec, _ = T.decode_step(params, cfg, cache,
+                           batch["tokens"][:, LM_S - 1:LM_S])
+    a, b = full[:, 0], dec[:, 0]
+    return (rel_err(torch, a, b),
+            (a.argmax(-1) == b.argmax(-1)).float().mean().item())
+
+
+def leaves(tree):
+    """The tensors of a nested dict / tuple tree."""
+    if isinstance(tree, dict):
+        tree = tuple(tree.values())
+    if isinstance(tree, tuple):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def timed_s(torch, fn):
+    """Host seconds of fn(), from a synchronised card to a synchronised
+    card, and fn's result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def lm_full(torch, dev, seed, smi, cfg=None, s=LM_FULL_S):
+    """Qwen3-8B at full width and depth, B=1: prefill at s, the
+    teacher-forcing pair (prefill s-1, decode token s against prefill
+    s's last logits), then greedy decode steps.  Returns the params."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as T
+    cfg = cfg or ARCHS[LM_ARCH]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t_init, params = timed_s(torch, lambda: T.init_params(
+        cfg, g, dev, serve_dtype=torch.bfloat16))
+    n_par = sum(t.numel() for t in leaves(params))
+    w_bytes = tree_bytes(params)
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=g, device=dev,
+                           dtype=torch.int32)
+    t_short, (_, short) = timed_s(torch, lambda: T.prefill(
+        params, cfg, {"tokens": tokens[:, :s - 1]}, cache_slack=1))
+    dec, _ = T.decode_step(params, cfg, short, tokens[:, s - 1:s])
+    del short
+    torch.cuda.empty_cache()
+    t_pre, (last, cache) = timed_s(torch, lambda: T.prefill(
+        params, cfg, {"tokens": tokens}, cache_slack=LM_DECODE_STEPS))
+    tf_err = rel_err(torch, last[:, 0], dec[:, 0])
+    same = bool((last[:, 0].argmax(-1) == dec[:, 0].argmax(-1)).all())
+    check(torch.isfinite(last).all().item() and tf_err < 0.05,
+          f"lm full: decode of token {s} against prefill {s}: {tf_err:.3e}")
+    tok = last.argmax(-1).to(torch.int32)
+    steps = []
+    for _ in range(LM_DECODE_STEPS):
+        dt, (logits, cache) = timed_s(torch, lambda: T.decode_step(
+            params, cfg, cache, tok))
+        check(torch.isfinite(logits).all().item(), "lm full: decode logits")
+        tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        steps.append(dt)
+    check(int(cache["len"][0]) == s + LM_DECODE_STEPS, "lm full: cache len")
+    kv_bytes = tree_bytes(cache["blocks"])
+    embed_row = cfg.d_model * params["embed"].element_size()
+    step_bytes = w_bytes - params["embed"].numel() * params[
+        "embed"].element_size() + embed_row + kv_bytes
+    ms = 1e3 * float(np.median(steps[1:]))
+    bound = 1e3 * step_bytes / HBM_BYTES_PER_S
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"lm full: {cfg.name} d {cfg.d_model} x {cfg.n_layers} layers, "
+        f"{n_par / 1e9:.3f} B params ({w_bytes / 2**30:.2f} GiB in serving "
+        f"dtypes, init {t_init:.1f} s), B 1 [{smi}]")
+    log(f"lm full: prefill S {s}: {1e3 * t_pre:.1f} ms, "
+        f"{s / t_pre:.1f} tokens/s (S {s - 1}: {1e3 * t_short:.1f} ms, the "
+        f"first call) [{smi}]")
+    log(f"lm full: teacher forcing (prefill {s - 1} + decode token {s} "
+        f"against prefill {s}): rel err {tf_err:.3e} (< 0.05), argmax "
+        f"{'equal' if same else 'differs'} [{smi}]")
+    log(f"lm full: {LM_DECODE_STEPS} greedy decode steps at kv {s}: "
+        f"{ms:.3f} ms/step median (first {1e3 * steps[0]:.3f}), bound "
+        f"{bound:.3f} ms ({step_bytes / 1e9:.3f} GB a step: weights "
+        f"{(step_bytes - kv_bytes) / 1e9:.3f} + f32 K/V cache "
+        f"{kv_bytes / 1e9:.3f}, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"{bound / ms:.3f} of it; peak {peak:.2f} GiB [{smi}]")
+    del cache, last, dec
+    return params
+
+
+def topic_kv(torch, dev, seed, s, kvh, hd, n_topics=16, burst=128):
+    """Keys with examples/long_context_retrieval.py's structure, made on
+    the card: bursty topics along the sequence plus noise; random values.
+    -> (keys (1, s, kvh, hd), values, topics)"""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    topics = torch.randn((n_topics, kvh, hd), generator=g, device=dev)
+    topic_of = (torch.arange(s, device=dev) // burst) % n_topics
+    keys = topics[topic_of] + 0.3 * torch.randn((s, kvh, hd), generator=g,
+                                                device=dev)
+    vals = torch.randn((1, s, kvh, hd), generator=g, device=dev)
+    return keys[None], vals, topics
+
+
+def exact_attention(torch, q, keys, vals):
+    """Softmax attention of one query over every key, in f32.
+    q (1, 1, H, hd); keys/vals (1, S, kvH, hd)."""
+    _, _, h, hd = q.shape
+    kvh = keys.shape[2]
+    qg = q[0, 0].reshape(kvh, h // kvh, hd)
+    sc = torch.einsum("grd,sgd->grs", qg / float(np.sqrt(hd)), keys[0])
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("grs,sgd->grd", p, vals[0]).reshape(1, 1, h, hd)
+
+
+def lm_exact_invariant(torch, dev, seed, smi, cfg):
+    """nprobe == nlist with no table entry dropped equals exact attention
+    within 0.05 (tests/test_models.py's invariant) at the model's width."""
+    from repro_torch.models.retrieval import (KnnAttnConfig, build_knn_cache,
+                                              rairs_attention_decode)
+    e = LM_EXACT
+    kcfg = KnnAttnConfig(nlist=e["nlist"], nprobe=e["nprobe"],
+                         max_blocks_per_list=e["max_blocks_per_list"],
+                         window=e["window"])
+    keys, vals, _ = topic_kv(torch, dev, seed + 101, e["s"], cfg.n_kv_heads,
+                             cfg.hd)
+    cache, st = build_knn_cache(keys, vals, kcfg, seed=seed)
+    check(sum(st.dropped) == 0, f"lm exact: {sum(st.dropped)} table entries "
+          "dropped where the invariant needs none")
+    q = torch.randn((1, 1, cfg.n_heads, cfg.hd), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    out = rairs_attention_decode(q, cache, torch.tensor(
+        [e["s"]], dtype=torch.int32, device=dev), kcfg)
+    err = rel_err(torch, exact_attention(torch, q, keys, vals), out)
+    check(err < 0.05, f"lm exact: nprobe == nlist off exact by {err:.3e}")
+    log(f"lm long: invariant at S {e['s']}, nlist {e['nlist']} = nprobe, "
+        f"maxb {e['max_blocks_per_list']} (blocks used {max(st.blocks)} of "
+        f"{st.nb_cap}, 0 dropped): rel err against exact attention "
+        f"{err:.3e} (< 0.05) [{smi}]")
+
+
+def lm_long(torch, dev, seed, smi, params, cfg=None, s=LM_LONG_S):
+    """long_500k at Qwen3-8B's width: a RAIRS-kNN cache per attention
+    layer of the first LM_LONG_PERIODS (keys and values made on the card),
+    the error against exact attention by nprobe, and decode_step_long."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.retrieval import (KnnAttnConfig, build_knn_cache,
+                                              rairs_attention_decode)
+    from repro_torch.serve import make_long_decode_step
+    periods = LM_LONG_PERIODS
+    cfg = dataclasses.replace(cfg or ARCHS[LM_ARCH],
+                              n_layers=periods * (cfg or ARCHS[LM_ARCH]).period)
+    kcfg = KnnAttnConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_exact_invariant(torch, dev, seed, smi, cfg)
+    cuts = []
+    while True:
+        try:
+            t_build, slots, first = lm_long_build(torch, dev, seed, smi, cfg,
+                                                  kcfg, s)
+            break
+        except IndexError as e:             # the reference raises here too
+            log(f"lm long: S {s}: {e} [{smi}]")
+            check(s > kcfg.window, "lm long: no S fits nb_cap")
+            s //= 2
+            cuts.append(s)
+    if cuts:
+        log(f"lm long: cut: S {LM_LONG_S} -> {s} (the largest power of two "
+            f"whose cells fit nb_cap {kcfg.nlist * kcfg.max_blocks_per_list // 2})")
+    keys, vals, topics = first
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    q = (topics[5][:, None].expand(cfg.n_kv_heads, rep, cfg.hd)
+         .reshape(1, 1, cfg.n_heads, cfg.hd)
+         + 0.1 * torch.randn((1, 1, cfg.n_heads, cfg.hd), generator=g,
+                             device=dev))
+    ref = exact_attention(torch, q, keys, vals)
+    layer0 = {k: v[0] for k, v in slots.items()}
+    errs = []
+    for nprobe in LM_NPROBES:
+        out = rairs_attention_decode(
+            q, layer0, torch.tensor([s], dtype=torch.int32, device=dev),
+            dataclasses.replace(kcfg, nprobe=nprobe))
+        errs.append(f"nprobe {nprobe}: {rel_err(torch, ref, out):.3e}")
+    del keys, vals, layer0
+    log(f"lm long: attention output against exact attention over all {s} "
+        f"keys (layer 0, one query near topic 5): " + ", ".join(errs)
+        + f" [{smi}]")
+    sub = {k: (v if k != "blocks" else _slice_periods(v, periods))
+           for k, v in params.items()}
+    cache = {"blocks": {"s0": slots},
+             "len": torch.full((1,), s, dtype=torch.int32, device=dev)}
+    step = make_long_decode_step(cfg, kcfg)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    times = []
+    for _ in range(LM_LONG_STEPS):
+        dt, (logits, cache) = timed_s(torch, lambda: step(sub, cache, tok))
+        check(torch.isfinite(logits).all().item(), "lm long: logits")
+        tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        times.append(dt)
+    check(int(cache["len"][0]) == s + LM_LONG_STEPS, "lm long: cache len")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"lm long: decode_step_long, {periods} of {ARCHS[LM_ARCH].n_layers} "
+        f"layers at kv {s} (nprobe {kcfg.nprobe}, window {kcfg.window}): "
+        f"{1e3 * float(np.median(times[1:])):.3f} ms/step median over "
+        f"{LM_LONG_STEPS} (first {1e3 * times[0]:.3f}); build "
+        f"{t_build:.2f} s; peak {peak:.2f} GiB [{smi}]")
+    log(f"lm long: cut: depth {ARCHS[LM_ARCH].n_layers} -> {periods} layers "
+        f"(a layer's bf16 K+V block pool is "
+        f"{2 * slots['k_blocks'][0].numel() * 2 / 1e9:.2f} GB)")
+
+
+def _slice_periods(tree, n):
+    if isinstance(tree, dict):
+        return {k: _slice_periods(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def lm_long_build(torch, dev, seed, smi, cfg, kcfg, s):
+    """One kNN slot cache per layer, stacked over the layers.  Raises
+    IndexError where a layer's cells pass nb_cap."""
+    from repro_torch.models.retrieval import build_knn_cache
+    t0 = time.perf_counter()
+    per, first = [], None
+    for p in range(cfg.n_periods):
+        keys, vals, topics = topic_kv(torch, dev, seed + 11 * p, s,
+                                      cfg.n_kv_heads, cfg.hd)
+        dt, (cache, st) = timed_s(torch, lambda: build_knn_cache(
+            keys, vals, kcfg, seed=seed + p))
+        log(f"lm long: layer {p} kNN cache at S {s}: built in {dt:.2f} s, "
+            f"blocks used {min(st.blocks)}-{max(st.blocks)} of nb_cap "
+            f"{st.nb_cap} per kv head, table entries dropped "
+            f"{sum(st.dropped)} (per kv head {min(st.dropped)}-"
+            f"{max(st.dropped)}) [{smi}]")
+        per.append(cache)
+        first = first or (keys, vals, topics)
+        del keys, vals
+    slots = {k: torch.stack([c[k] for c in per]) for k in per[0]}
+    del per
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0, slots, first
+
+
+def lm_path(torch, dev, seed, smi=None):
+    """Phase lm, callable alone (build no kernel: the LM side has none)."""
+    smi = smi or smi_line()
+    t0 = time.perf_counter()
+    lm_reduced(torch, dev, seed, smi)
+    params = lm_full(torch, dev, seed, smi)
+    lm_long(torch, dev, seed, smi, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm: phase {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4013,10 +4453,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     log(f"device: {name} x{torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -4054,6 +4491,9 @@ def main() -> int:
     nbits8 = nbits8_path(torch, dev, args.seed, rate)
     gist_rows, gist_launches = gist_path(torch, dev, args.seed, rate)
     small_reference(torch, dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_path(torch, dev, args.seed, smi)
     kernels = kernel_json(rows, launches, gist_rows, gist_launches, *nbits8,
                           *refine, *stream, *gateway, *shard)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -20,5 +20,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+# The LM path's bf16 products (models/layers.py) keep an f32 accumulator
+# throughout, as the reference's do.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from .device import resolve_device  # noqa: E402,F401

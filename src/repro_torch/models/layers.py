@@ -1,0 +1,215 @@
+"""Transformer building blocks: RMSNorm, RoPE / M-RoPE, GQA attention
+(chunked-flash for train/prefill, single-token for decode), gated MLPs.
+
+Params are a plain nested dict of tensors (no ``nn.Module`` inside).
+Every matmul multiplies bf16 operands into an f32 result, as the
+reference's ``preferred_element_type=float32`` products do:
+
+* on the card, ``torch.mm`` / ``torch.bmm`` with ``out_dtype=float32``
+  (cuBLAS bf16 GEMMs that keep the f32 accumulator; the package turns
+  reduced-precision bf16 reductions off);
+* on the CPU, the f32 product of the bf16-rounded operands, which is
+  what XLA's CPU backend computes.
+
+Products of three operands (the SSD einsums) are taken in f32 from the
+bf16-rounded operands on every device: a product of three bf16 values
+is exact in f32, as in the reference's pairwise contraction.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 and held in f32 (the CPU's operand)."""
+    return x.to(COMPUTE_DTYPE).to(torch.float32)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with bf16 operands -> f32 (..., N)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda":
+        y = torch.mm(x2.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE),
+                     out_dtype=torch.float32)
+    else:
+        y = _bf(x2) @ _bf(w)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a (..., M, K) @ b (..., K, N), same leading dims, bf16
+    operands -> f32 (..., M, N)."""
+    lead = a.shape[:-2]
+    if a.device.type == "cuda":
+        y = torch.bmm(a.to(COMPUTE_DTYPE).reshape(-1, *a.shape[-2:]),
+                      b.to(COMPUTE_DTYPE).reshape(-1, *b.shape[-2:]),
+                      out_dtype=torch.float32)
+        return y.reshape(*lead, a.shape[-2], b.shape[-1])
+    return _bf(a) @ _bf(b)
+
+
+def _dot_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (T, K) @ w (K, N) in bf16 with a bf16 result: the reference's
+    plain ``@`` of two bf16 arrays (f32 accumulation, one rounding)."""
+    if x.device.type == "cuda":
+        return torch.mm(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
+    return (_bf(x) @ _bf(w)).to(COMPUTE_DTYPE)
+
+
+def rms_norm(x, scale, eps=1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+            ).to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# RoPE / M-RoPE
+# ----------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float = 1e4, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def _rotate(x, ang):
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (B, S, H, hd); positions: (B, S) int32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (hd/2,)
+    ang = positions[:, :, None].to(torch.float32) * freqs   # (B, S, hd/2)
+    return _rotate(x, ang)
+
+
+def apply_m_rope(x, positions3, sections, theta: float = 1e4):
+    """Qwen2-VL multimodal RoPE.  positions3: (3, B, S) for (t, h, w);
+    `sections` partitions hd/2 frequencies across the three axes."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (hd/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])
+    pos = positions3[sec]                                   # (hd/2, B, S)
+    ang = torch.movedim(pos, 0, -1).to(torch.float32) * freqs
+    return _rotate(x, ang)
+
+
+# ----------------------------------------------------------------------------
+# Attention
+# ----------------------------------------------------------------------------
+def _repeat_kv(k, n_rep):
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _attn_scale(hd: int) -> float:
+    """1/sqrt(hd) as the reference's f32 scalar, held in a Python float."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def flash_attention(q, k, v, *, causal: bool, chunk: int = 1024,
+                    window: Optional[int] = None):
+    """Online-softmax attention over KV chunks (O(S) memory per chunk).
+    q: (B, Sq, H, hd); k, v: (B, Sk, KvH, hd) — KvH repeated to H here.
+    Every chunk is computed, the causally masked ones included."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    n_rep = h // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    qf = (q.to(torch.float32) * _attn_scale(hd)).to(COMPUTE_DTYPE)
+    qf = qf.permute(0, 2, 1, 3)                             # (b, h, q, d)
+    nchunks = max(sk // chunk, 1)
+    csize = sk // nchunks
+    kc = k.reshape(b, nchunks, csize, h, hd)
+    vc = v.reshape(b, nchunks, csize, h, hd)
+    q_pos = torch.arange(sq, device=q.device)
+
+    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
+    for j in range(nchunks):
+        kj = kc[:, j].permute(0, 2, 3, 1)                   # (b, h, d, k)
+        vj = vc[:, j].permute(0, 2, 1, 3)                   # (b, h, k, d)
+        s = _bmm(qf, kj)                                    # (b, h, q, k)
+        kv_pos = j * csize + torch.arange(csize, device=q.device)
+        mask = torch.ones((sq, csize), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= kv_pos[None, :]
+        if window is not None:
+            mask &= q_pos[:, None] - kv_pos[None, :] < window
+        s.masked_fill_(~mask, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = s.sub_(m_new[..., None]).exp_()
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _bmm(p.to(COMPUTE_DTYPE), vj)
+        m = m_new
+        del s, p
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)              # (B, Sq, H, hd)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """Single-token attention against a (B, Smax, KvH, hd) cache.
+    kv_len: (B,) current lengths (positions >= kv_len masked)."""
+    b, smax, kvh, hd = k_cache.shape
+    h = q.shape[2]
+    n_rep = h // kvh
+    qh = (q[:, 0].to(torch.float32) * _attn_scale(hd)).to(COMPUTE_DTYPE)
+    qg = qh.reshape(b, kvh, n_rep, hd)
+    s = _bmm(qg, k_cache.to(COMPUTE_DTYPE).permute(0, 2, 3, 1))
+    mask = torch.arange(smax, device=q.device)[None] < kv_len[:, None]
+    s = s.masked_fill(~mask[:, None, None], -math.inf)      # (B,KvH,rep,S)
+    p = torch.softmax(s, dim=-1)
+    out = _bmm(p.to(COMPUTE_DTYPE),
+               v_cache.to(COMPUTE_DTYPE).permute(0, 2, 1, 3))
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Projections / MLP
+# ----------------------------------------------------------------------------
+def attention_proj(x, wq, wk, wv, n_heads, n_kv_heads, head_dim,
+                   q_norm=None, k_norm=None):
+    b, s, _ = x.shape
+    q = _dot(x, wq).reshape(b, s, n_heads, head_dim)
+    k = _dot(x, wk).reshape(b, s, n_kv_heads, head_dim)
+    v = _dot(x, wv).reshape(b, s, n_kv_heads, head_dim)
+    if q_norm is not None:                      # Qwen3 qk_norm (per head_dim)
+        q = rms_norm(q, q_norm)
+        k = rms_norm(k, k_norm)
+    return q, k, v
+
+
+def activation(g, act: str):
+    return F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+
+
+def gated_mlp(x, w_gate, w_up, w_down, act: str = "silu"):
+    g = _dot(x, w_gate)
+    u = _dot(x, w_up)
+    return _dot((activation(g, act) * u).to(x.dtype), w_down)
+
+
+# ----------------------------------------------------------------------------
+# Init helpers
+# ----------------------------------------------------------------------------
+def dense_init(generator: torch.Generator, shape, scale=None, device=None):
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device) * s

@@ -57,7 +57,8 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "tools/k1_limits.py", "tools/k3_phases.py"]))
+    + ["chip_smoke.py", "tools/k1_limits.py", "tools/k3_phases.py",
+       "tools/lm_profile.py"]))
 def test_no_file_imports_jax_or_reference(path):
     roots = set(_imported_roots(ROOT / path))
     assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
