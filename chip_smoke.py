@@ -192,6 +192,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 ms/step over 16 steps, and nprobe == nlist exact within
                 0.05 at S 16,384 (no entry dropped).  Callable alone:
                 ``chip_smoke.lm_path(torch, torch.device("cuda"), 0)``.
+     train    — the training path, after phase lm (no kernel of its own:
+                the reference's training reaches no pallas_call): the
+                ten architectures reduced (B 2, S 64, accum 2), params
+                from a CPU generator, on the card against the CPU: the
+                loss (within 1e-3 relative), every leaf's gradient
+                (within 5e-2 of max|CPU|; hubert's embed exactly zero),
+                grad_norm (1e-2 relative), remat on and off bitwise on
+                the card, every sublayer's VJP from the CPU's input and
+                cotangent (2e-2), adamw_update from the CPU's gradients
+                (1e-6), make_train_step bitwise its parts; _dot / _bmm
+                backward at Qwen3-1.7B's layer shapes against the CPU's
+                autograd (1e-2); on the reduced qwen3-1.7b a checkpoint
+                restored bitwise and the next step from it bitwise the
+                uninterrupted one; the train CLI (3 steps, a checkpoint
+                every 2) and its rerun resuming at step 2 with the same
+                loss, as subprocesses; Qwen3-1.7B at full width and depth
+                (f32 masters and AdamW state; S 4096, global batch 8 of
+                train_4k's 256, TrainConfig(): accum 8, remat): 4 steps
+                on one synthetic batch, the loss finite and falling,
+                seconds, tokens/s, model FLOP/s and its share of the
+                bf16 dense peak, the last step under torch.profiler
+                (card against host time, kernels by time), adamw_update
+                alone, parameter and state bytes, peak memory.
+                Callable alone: ``chip_smoke.train_path(torch,
+                torch.device("cuda"), 0)``.
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -4434,6 +4459,471 @@ def lm_path(torch, dev, seed, smi=None):
     log(f"lm: phase {time.perf_counter() - t0:.1f} s [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# phase train: the training path (the ten architectures reduced, card against
+# CPU; Qwen3-1.7B at full width and depth; checkpoint resume; the train CLI)
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen3-1.7b"     # the full-width model of the phase
+TRAIN_GRAD_TOL = 5e-2         # a leaf's gradient, card against CPU
+TRAIN_SUB_TOL = 2e-2          # a sublayer's VJP from the CPU's input
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_UPDATE_TOL = 1e-6       # adamw_update from identical gradients
+TRAIN_MM_TOL = 1e-2           # _dot / _bmm backward against CPU autograd
+TRAIN_S = 4096                # train_4k's length
+TRAIN_BATCH = 8               # train_4k's global batch of 256, cut
+TRAIN_STEPS = 4
+TRAIN_SMALL = dict(batch=4, seq=64, accum=2)   # resume check (reduced)
+BF16_PEAK_FLOPS = 989e12      # H100 SXM dense bf16
+TRAIN_TOP_KERNELS = 16
+TRAIN_GNORM_RTOL = 1e-2       # grad_norm, card against CPU
+CLI_TRAIN = ("--arch", TRAIN_ARCH, "--steps", "3", "--ckpt-every", "2")
+
+
+def named_leaves(tree, path=""):
+    """(path, tensor) in the order of ``repro_torch.tree.leaves``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, tuple):
+        names = getattr(tree, "_fields", None) or range(len(tree))
+        for k, v in zip(names, tree):
+            yield from named_leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def to_dev(tree, dev):
+    """A tree of tensors (``OptState`` included) on ``dev``."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def leaf_errs(torch, ref, got):
+    """{path: max|ref - got| / max|ref|} over matching leaves (an all-zero
+    reference leaf reads max|got|)."""
+    out = {}
+    for (n, a), (_, b) in zip(named_leaves(ref), named_leaves(got)):
+        a, b = a.float().cpu(), b.float().cpu()
+        m = float(a.abs().max())
+        out[n] = float((a - b).abs().max()) / m if m > 0 \
+            else float(b.abs().max())
+    return out
+
+
+def train_grads(torch, cfg, params, batch, remat=True, accum=2):
+    from repro_torch.train import TrainConfig, accumulate_grads
+    return accumulate_grads(cfg, TrainConfig(accum=accum, remat=remat),
+                            params, batch)
+
+
+def train_sublayers(torch, cfg, cpu_p, dev_p, batch, dev, seed) -> float:
+    """Every sublayer's VJP on the card from the CPU's input and a random
+    cotangent, held to the CPU's (the input's cotangent and each param's
+    gradient); the largest error."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, unflatten
+    g = torch.Generator().manual_seed(seed + 7)
+    worst = 0.0
+    h = T.embed_inputs(cpu_p, cfg, batch)
+    pos = T._positions(cfg, batch, h)
+    dpos = pos.to(dev)
+
+    def vjp(fn, hin, sub, ct):
+        hin = hin.detach().requires_grad_()
+        req = [x.detach().requires_grad_() for x in leaves(sub)]
+        out = fn(hin, unflatten(sub, req))
+        return out.detach(), torch.autograd.grad(
+            out, [hin] + req, grad_outputs=ct.to(out.device),
+            materialize_grads=True)
+
+    for p in range(cfg.n_periods):
+        cp, dp = T._index(cpu_p["blocks"], p), T._index(dev_p["blocks"], p)
+        for j, (mixer, mlp) in enumerate(cfg.slot_kinds()):
+            steps = [("attn" if mixer == "attn" else "ssm",
+                      lambda hh, pp, ps: (
+                          T._attn_sublayer(cfg, pp, hh, ps, "train")
+                          if mixer == "attn" else
+                          T._ssm_sublayer(cfg, pp, hh, "train"))[0])]
+            if mlp != "none":
+                steps.append((mlp, lambda hh, pp, ps: T._mlp_sublayer(
+                    cfg, pp, hh, mlp)))
+            for what, fn in steps:
+                ct = torch.randn(h.shape, generator=g).to(h.dtype)
+                out, gc_ = vjp(lambda hh, pp: fn(hh, pp, pos), h,
+                               cp[f"s{j}"], ct)
+                _, gd = vjp(lambda hh, pp: fn(hh, pp, dpos), h.to(dev),
+                            dp[f"s{j}"], ct)
+                errs = [rel_err(torch, a, b) if a.abs().max() > 0
+                        else float(b.abs().max()) for a, b in zip(gc_, gd)]
+                check(max(errs) <= TRAIN_SUB_TOL,
+                      f"train {cfg.name} period {p} slot {j} ({what}): VJP "
+                      f"card against CPU {max(errs):.3e} > {TRAIN_SUB_TOL}")
+                worst = max(worst, *errs)
+                h = out
+    return worst
+
+
+def train_reduced(torch, dev, seed, smi):
+    """The ten architectures reduced: one train step's loss, gradients
+    (remat on and off) and grad_norm on the card against the CPU, from
+    one set of params and one batch; the update from identical gradients;
+    every sublayer's VJP teacher-forced; the step entry point."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import TrainConfig, make_train_step
+    cpu = torch.device("cpu")
+    for arch in sorted(ARCHS):
+        t0 = time.perf_counter()
+        cfg = ARCHS[arch].reduced()
+        cpu_p = T.init_params(cfg, torch.Generator().manual_seed(seed), cpu)
+        dev_p = on(torch, cpu_p, dev)
+        batch = lm_batch(torch, cfg, seed)
+        dbatch = on(torch, batch, dev)
+        lc, gc_ = train_grads(torch, cfg, cpu_p, batch)
+        ld, gd = train_grads(torch, cfg, dev_p, dbatch)
+        _, gd_off = train_grads(torch, cfg, dev_p, dbatch, remat=False)
+        lerr = abs(float(lc) - float(ld)) / abs(float(lc))
+        errs = leaf_errs(torch, gc_, gd)
+        worst = max(errs, key=errs.get)
+        remat_same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            named_leaves(gd), named_leaves(gd_off)))
+        # the update from identical (the CPU's) gradients
+        opt_c = adamw_init(cpu_p)
+        pc, oc, mc = adamw_update(gc_, opt_c, cpu_p, TrainConfig().optim)
+        pd, od, md = adamw_update(to_dev(gc_, dev), to_dev(opt_c, dev),
+                                  dev_p, TrainConfig().optim)
+        _, _, md_own = adamw_update(gd, to_dev(opt_c, dev), dev_p,
+                                    TrainConfig().optim)
+        uerr = max(max(leaf_errs(torch, pc, pd).values()),
+                   max(leaf_errs(torch, oc.mu, od.mu).values()),
+                   max(leaf_errs(torch, oc.nu, od.nu).values()),
+                   rel_err(torch, mc["grad_norm"], md["grad_norm"]),
+                   rel_err(torch, mc["lr"], md["lr"]))
+        gnerr = rel_err(torch, mc["grad_norm"], md_own["grad_norm"])
+        line = (f"train {arch}: card against CPU loss {float(ld):.6f} "
+                f"(rel {lerr:.2e} <= {TRAIN_LOSS_RTOL}), gradients <= "
+                f"{errs[worst]:.3e} of max|CPU| ({worst}; <= "
+                f"{TRAIN_GRAD_TOL}), grad_norm {float(md_own['grad_norm']):.4f}"
+                f" (rel {gnerr:.2e} <= {TRAIN_GNORM_RTOL}), remat on/off "
+                f"{'bitwise equal' if remat_same else 'DIFFER'}, update from "
+                f"the CPU's gradients {uerr:.2e} (<= {TRAIN_UPDATE_TOL})")
+        log(line + f" [{smi}]")
+        check(torch.isfinite(ld).item() and lerr <= TRAIN_LOSS_RTOL, line)
+        check(errs[worst] <= TRAIN_GRAD_TOL, line)
+        check(gnerr <= TRAIN_GNORM_RTOL, line)
+        check(remat_same, line)
+        check(uerr <= TRAIN_UPDATE_TOL, line)
+        if cfg.frontend == "frame":     # the frame front end never reads it
+            check(not gd["embed"].any() and not gc_["embed"].any(),
+                  f"train {arch}: embed gradient not zero")
+        sub = train_sublayers(torch, cfg, cpu_p, dev_p, batch, dev, seed)
+        # the entry point: one step equals the accumulation + the update
+        opt_d = to_dev(opt_c, dev)
+        step = make_train_step(cfg, TrainConfig(accum=2))
+        ps, os_, ms = step(dev_p, opt_d, dbatch)
+        pu, ou, mu = adamw_update(gd, opt_d, dev_p, TrainConfig().optim)
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            named_leaves((ps, os_)), named_leaves((pu, ou))))
+        check(same and torch.equal(ms["loss"], ld),
+              f"train {arch}: make_train_step differs from its parts")
+        log(f"train {arch}: sublayer VJPs from the CPU's input <= {sub:.3e} "
+            f"(<= {TRAIN_SUB_TOL}); make_train_step equal to its parts "
+            f"({time.perf_counter() - t0:.2f} s) [{smi}]")
+
+
+def train_mm(torch, dev, seed, smi):
+    """`_dot` / `_bmm` backward on the card (the cotangent rounded to bf16)
+    against the CPU's autograd (f32 cotangent), at Qwen3-1.7B's layer
+    shapes: an MLP product and the two attention products of a chunk."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(seed + 5)
+    for fn, ashape, bshape in ((L._dot, (TRAIN_S, 2048), (2048, 6144)),
+                               (L._bmm, (16, TRAIN_S, 128), (16, 128, 1024)),
+                               (L._bmm, (16, TRAIN_S, 1024), (16, 1024, 128))):
+        a = torch.randn(ashape, generator=g)
+        b = torch.randn(bshape, generator=g)
+        ct = torch.randn(ashape[:-1] + bshape[-1:], generator=g)
+        res = []
+        for d in (torch.device("cpu"), dev):
+            ar, br = (a.to(d).requires_grad_(), b.to(d).requires_grad_())
+            y = fn(ar, br)
+            res.append((y.detach(),) + torch.autograd.grad(y, [ar, br],
+                                                           ct.to(d)))
+        yerr, aerr, berr = (rel_err(torch, c, d) for c, d in zip(*res))
+        line = (f"train mm: {fn.__name__} {ashape} @ {bshape}: card against "
+                f"CPU autograd: product {yerr:.2e}, gradients {aerr:.3e} / "
+                f"{berr:.3e} of max|CPU| (<= {TRAIN_MM_TOL})")
+        log(line + f" [{smi}]")
+        check(max(aerr, berr) <= TRAIN_MM_TOL and yerr <= 1e-5, line)
+
+
+def train_flops(cfg, tokens: int, s: int) -> float:
+    """Model FLOPs of one step: 6 N T for the products (the tied unembed
+    counted in N), and the attention's two products over every chunk
+    (the causally masked half included, as the loop computes it), three
+    times (forward and backward); remat's recompute not counted."""
+    n = sum(int(np.prod(sp.shape)) for sp in _spec_leaves(cfg))
+    attn = 4 * s * cfg.n_heads * cfg.hd * cfg.n_layers * tokens
+    return 6.0 * n * tokens + 3.0 * attn
+
+
+def _spec_leaves(cfg):
+    from repro_torch.models.transformer import ParamSpec, param_specs
+
+    def walk(t):
+        if isinstance(t, ParamSpec):
+            yield t
+        else:
+            for k in sorted(t):
+                yield from walk(t[k])
+    return list(walk(param_specs(cfg)))
+
+
+def train_full(torch, dev, seed, smi, cfg=None, s=TRAIN_S,
+               batch=TRAIN_BATCH):
+    """Qwen3-1.7B at full width and depth: f32 masters and AdamW state on
+    the card, TrainConfig() (accum 8, remat), TRAIN_STEPS steps on one
+    synthetic batch; step seconds, tokens/s, FLOP share, card against host
+    time of the last step (profiler), the update alone, memory."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import TrainConfig, init_all, make_train_step
+    cfg = cfg or ARCHS[TRAIN_ARCH]
+    tcfg = TrainConfig()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t_init, (params, opt) = timed_s(torch, lambda: init_all(cfg, g, dev))
+    n_par = sum(t.numel() for t in leaves(params))
+    data = synthetic_lm_batch(torch.Generator(device=dev).manual_seed(seed),
+                              cfg, batch, s)
+    step = make_train_step(cfg, tcfg)
+    tokens = batch * s
+    flops = train_flops(cfg, tokens, s)
+    log(f"train full: {cfg.name} d {cfg.d_model} x {cfg.n_layers} layers, "
+        f"{n_par / 1e9:.4f} B params; params {tree_bytes(params) / 1e9:.3f} "
+        f"GB + AdamW state {tree_bytes(opt) / 1e9:.3f} GB (f32; init "
+        f"{t_init:.1f} s); S {s}, global batch {batch}, accum {tcfg.accum}, "
+        f"remat {tcfg.remat}; {flops / 1e12:.1f} model TFLOP a step [{smi}]")
+    losses, secs = [], []
+    busy = None
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:
+            busy, (dt, (params, opt, m)) = profiled(
+                torch, lambda: timed_s(torch, lambda: step(params, opt,
+                                                           data)))
+        else:
+            dt, (params, opt, m) = timed_s(torch, lambda: step(params, opt,
+                                                               data))
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        check(np.isfinite(loss) and np.isfinite(gn),
+              f"train full: step {i + 1} loss {loss} grad_norm {gn}")
+        losses.append(loss)
+        secs.append(dt)
+        log(f"train full: step {i + 1}: loss {loss:.6f}, grad_norm "
+            f"{gn:.4f}, lr {float(m['lr']):.3e}, {dt:.3f} s, "
+            f"{tokens / dt:.1f} tokens/s, {flops / dt / 1e12:.1f} model "
+            f"TFLOP/s ({flops / dt / BF16_PEAK_FLOPS:.4f} of the bf16 dense "
+            f"peak) [{smi}]")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"train full: the loss did not fall every step: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sec = float(np.median(secs[1:]))
+    log(f"train full: {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (ln V {np.log(cfg.vocab):.4f}); step {sec:.3f} s "
+        f"median of steps 2-{TRAIN_STEPS} (first {secs[0]:.3f}), "
+        f"{tokens / sec:.1f} tokens/s, {flops / sec / 1e12:.1f} model "
+        f"TFLOP/s = {flops / sec / BF16_PEAK_FLOPS:.4f} of 989; peak "
+        f"{peak:.2f} GiB [{smi}]")
+    if busy is None:
+        log("train full: the profiler saw no device time: card busy share "
+            "not measured")
+    else:
+        card_ms, rows = busy
+        host_ms = 1e3 * secs[-1]
+        kinds = {}
+        for name, ms, _ in rows:
+            kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + ms
+        log(f"train full: step {TRAIN_STEPS} under the profiler: card "
+            f"{card_ms:.1f} ms of host {host_ms:.1f} ms "
+            f"({card_ms / host_ms:.4f} busy; idle {host_ms - card_ms:.1f} ms"
+            f"): " + ", ".join(f"{k} {ms:.1f} ms" for k, ms in sorted(
+                kinds.items(), key=lambda kv: -kv[1])) + f" [{smi}]")
+        for name, ms, calls in rows[:TRAIN_TOP_KERNELS]:
+            log(f"train full:   {ms:9.1f} ms {calls:7d} x {name}")
+    ms_upd = cuda_ms(torch, lambda: adamw_update(opt.mu, opt, params,
+                                                 tcfg.optim), reps=3, warm=1)
+    log(f"train full: adamw_update alone {ms_upd:.2f} ms (the moments as "
+        f"stand-in gradients) [{smi}]")
+    del params, opt, data, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+_GENERIC_KERNEL = {"vectorized_elementwise_kernel", "elementwise_kernel",
+                   "unrolled_elementwise_kernel", "gpu_kernel_impl_nocast",
+                   "gpu_kernel_impl", "reduce_kernel", "func_wrapper_t",
+                   "ReduceOp", "BinaryFunctor"}
+
+
+def short_kernel(name: str) -> str:
+    """The op a CUDA kernel's name carries (its functor or kernel
+    function, past PyTorch's generic elementwise and reduce templates)."""
+    import re
+    if name.startswith(("Memcpy", "Memset")) or "<" not in name:
+        return name
+    for tok in re.findall(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        if tok in _GENERIC_KERNEL:
+            continue
+        if tok.endswith(("_kernel", "_kernel_cuda", "Ops")) \
+                or "Functor" in tok or "gemm" in tok \
+                or tok.startswith(("nvjet", "sm90", "cutlass")):
+            return tok
+    return name[:60]
+
+
+def kernel_kind(short: str) -> str:
+    if short.startswith(("nvjet", "sm90", "cutlass")) or "gemm" in short:
+        return "GEMMs"
+    if "copy" in short or short.startswith("Memcpy"):
+        return "casts and copies"
+    return "other elementwise and reductions"
+
+
+def profiled(torch, fn):
+    """fn() under torch.profiler (CUDA activity): ((card ms, [(kernel,
+    ms, launches)] by kernel, most time first), fn's result); None for
+    the first if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    by = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            k = short_kernel(e.key)
+            ms, n = by.get(k, (0.0, 0))
+            by[k] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if not by:
+        return None, out
+    rows = sorted(((k, ms, n) for k, (ms, n) in by.items()),
+                  key=lambda r: -r[1])
+    return (sum(r[1] for r in rows), rows), out
+
+
+def train_resume(torch, dev, seed, smi):
+    """Reduced Qwen3-1.7B on the card: one step, a checkpoint, the next
+    step from memory and from the restored checkpoint: bitwise equal."""
+    import tempfile
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist.checkpoint import (latest_step, restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.train import TrainConfig, init_all, make_train_step
+    cfg = ARCHS[TRAIN_ARCH].reduced()
+    k = TRAIN_SMALL
+    step = make_train_step(cfg, TrainConfig(accum=k["accum"]))
+    params, opt = init_all(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    b1, b2 = (synthetic_lm_batch(torch.Generator(device=dev).manual_seed(i),
+                                 cfg, k["batch"], k["seq"]) for i in (1, 2))
+    p1, o1, _ = step(params, opt, b1)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        save_checkpoint(tmp, 1, {"params": p1, "opt": o1})
+        check(latest_step(tmp) == 1, "train resume: latest_step")
+        r = restore_checkpoint(tmp, {"params": p1, "opt": o1})
+    same_r = all(torch.equal(a, b) and a.device == b.device
+                 for (_, a), (_, b) in zip(
+                     named_leaves((r["params"], r["opt"])),
+                     named_leaves((p1, o1))))
+    check(same_r, "train resume: the restored state differs from the saved")
+    p2, o2, m2 = step(p1, o1, b2)
+    p2r, o2r, m2r = step(r["params"], r["opt"], b2)
+    errs = leaf_errs(torch, (p2, o2), (p2r, o2r))
+    bitwise = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        named_leaves((p2, o2, m2)), named_leaves((p2r, o2r, m2r))))
+    line = (f"train resume: {cfg.name}, step 2 from the restored step-1 "
+            f"checkpoint against step 2 in memory: "
+            f"{'bitwise equal' if bitwise else 'DIFFERS'} (params and AdamW "
+            f"state, loss {float(m2r['loss']):.6f}, grad_norm "
+            f"{float(m2r['grad_norm']):.6f}; largest leaf error "
+            f"{max(errs.values()):.2e})")
+    log(line + f" [{smi}]")
+    check(bitwise, line)
+
+
+def train_cli_start(ckpt_dir, dev):
+    """Start ``python -m repro_torch.launch.train`` (CLI_TRAIN, reduced,
+    checkpoints in ``ckpt_dir``) on its default device (the card; ``dev``
+    in a rehearsal on the CPU).  -> (process, start time)"""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    where = () if dev.type == "cuda" else ("--device", str(dev))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *CLI_TRAIN,
+           "--ckpt-dir", str(ckpt_dir), *where]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT), time.perf_counter()
+
+
+def train_cli_wait(started, smi):
+    """Wait for a train CLI run: it exits 0; its lines."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"train CLI exited {proc.returncode}: "
+          f"{err[-2000:]}")
+    lines = out.splitlines()
+    for ln in lines:
+        log(f"train CLI: {ln}")
+    log(f"train CLI: {' '.join(CLI_TRAIN)}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    return lines
+
+
+def train_cli_resumed(first, second, ckpts, smi):
+    """The first run (3 steps, a checkpoint at step 2) prints steps 0 and
+    2; the rerun resumes from step 2 and its step 2 reads the first run's
+    loss."""
+    loss = {ln.split()[1]: ln.split()[3] for ln in first
+            if ln.startswith("step")}
+    again = [ln for ln in second if ln.startswith("step")]
+    check(first[-1:] == ["done"] and set(loss) == {"0", "2"}
+          and not any(ln.startswith("resumed") for ln in first),
+          f"train CLI, first run: {first}")
+    check(second[:1] == ["resumed from step 2"] and len(again) == 1
+          and again[0].split()[1] == "2"
+          and again[0].split()[3] == loss["2"] and second[-1:] == ["done"],
+          f"train CLI, rerun: {second} (first run's step 2 loss "
+          f"{loss.get('2')})")
+    check(ckpts == ["step_00000002"], f"train CLI: checkpoints {ckpts}")
+    log(f"train CLI: the rerun resumed from step 2 and read the first run's "
+        f"step 2 loss {loss['2']} [{smi}]")
+
+
+def train_path(torch, dev, seed, smi=None):
+    """Phase train, callable alone (builds no kernel: the training path
+    has none).  The train CLI's first run overlaps the checks that time
+    nothing."""
+    import os
+    import tempfile
+    smi = smi or smi_line()
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        first = train_cli_start(tmp, dev)
+        train_reduced(torch, dev, seed, smi)
+        train_mm(torch, dev, seed, smi)
+        train_resume(torch, dev, seed, smi)
+        first = train_cli_wait(first, smi)
+        second = train_cli_wait(train_cli_start(tmp, dev), smi)
+        train_cli_resumed(first, second, sorted(os.listdir(tmp)), smi)
+    train_full(torch, dev, seed, smi)
+    log(f"train: phase {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4494,6 +4984,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_path(torch, dev, args.seed, smi)
+    train_path(torch, dev, args.seed, smi)
     kernels = kernel_json(rows, launches, gist_rows, gist_launches, *nbits8,
                           *refine, *stream, *gateway, *shard)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,7 @@ the arrays, so nothing beyond the bundle's arrays is needed.
 params or caches as nested dicts of numpy arrays (bf16 arrays as numpy
 ``bfloat16``, a ``MambaState`` as an ``(h, conv)`` pair), keyed and
 period-stacked as the port's functional core takes them.
+``opt_state_from_numpy`` carries the reference's AdamW state across.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from .core.seil import SEIL_FIELDS, SeilStats, arrays_to_device
 from .device import DeviceLike, resolve_device
 from .models.mamba2 import MambaState
 from .models.transformer import SERVE_CAST
+from .optim.adamw import OptState
 
 
 def _stats_from(arrays: Dict[str, np.ndarray], cfg: IndexConfig
@@ -93,6 +95,17 @@ def lm_params_from_numpy(tree, device: DeviceLike = None, serve_dtype=None):
         return x.to(serve_dtype) if serve_dtype is not None \
             and key in SERVE_CAST else x
     return conv(tree, None)
+
+
+def opt_state_from_numpy(state, device: DeviceLike = None) -> OptState:
+    """The reference's ``OptState`` (its ``mu`` / ``nu`` trees and
+    ``step``, as numpy arrays, in field order) as the port's on
+    ``device``."""
+    dev = resolve_device(device)
+    mu, nu, step = state
+    return OptState(mu=lm_params_from_numpy(mu, dev),
+                    nu=lm_params_from_numpy(nu, dev),
+                    step=_tensor(step, dev))
 
 
 def lm_cache_from_numpy(cfg, cache, device: DeviceLike = None):

@@ -14,6 +14,21 @@ reference's ``preferred_element_type=float32`` products do:
 Products of three operands (the SSD einsums) are taken in f32 from the
 bf16-rounded operands on every device: a product of three bf16 values
 is exact in f32, as in the reference's pairwise contraction.
+
+Gradients.  JAX transposes a product of bf16 operands into f32 products
+of the f32 cotangent with the other bf16 operand, each rounded to bf16
+(the operand's dtype).  The CPU branch gets exactly that from autograd.
+``torch.mm`` / ``torch.bmm`` with ``out_dtype`` register no derivative,
+so on the card `_dot` / `_bmm` go through `_MmF32` / `_BmmF32` when a
+gradient is needed: the forward is the same call, and the backward
+rounds the cotangent to bf16 before its two bf16 GEMMs (f32 results,
+then rounded to bf16), as a TPU does at default precision.  Rounding the
+cotangent is the one difference from the CPU: each gradient moves by at
+most ~2^-9 of the cotangent's scale before its own bf16 rounding.
+
+`flash_attention` updates its score tensor in place only when no
+gradient is taken (serving); under a gradient it uses the out-of-place
+forms of the same ops, which give the same values bit for bit.
 """
 from __future__ import annotations
 
@@ -32,28 +47,83 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE).to(torch.float32)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 a (M, K) @ bf16 b (K, N) -> f32 (M, N), f32 accumulation
+    (on the CPU the f32 product of the bf16 values)."""
+    if a.device.type == "cpu":
+        return a.to(torch.float32) @ b.to(torch.float32)
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched bf16 a (L, M, K) @ bf16 b (L, K, N) -> f32 (L, M, N)."""
+    if a.device.type == "cpu":
+        return a.to(torch.float32) @ b.to(torch.float32)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _MmF32(torch.autograd.Function):
+    """`_mm_f32` with the card's backward: the cotangent rounded to bf16,
+    each operand's gradient a bf16 GEMM into f32 rounded to bf16.  It
+    saves the bf16 operands it was given."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(COMPUTE_DTYPE)
+        ga = _mm_f32(g, b.t()).to(a.dtype) if ctx.needs_input_grad[0] \
+            else None
+        gb = _mm_f32(a.t(), g).to(b.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return ga, gb
+
+
+class _BmmF32(torch.autograd.Function):
+    """`_bmm_f32` with the card's backward (as `_MmF32`)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(COMPUTE_DTYPE)
+        ga = _bmm_f32(g, b.transpose(1, 2)).to(a.dtype) \
+            if ctx.needs_input_grad[0] else None
+        gb = _bmm_f32(a.transpose(1, 2), g).to(b.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _card_grad(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """A gradient through a product on the card, where only the autograd
+    Functions give one (the CPU's autograd takes the product itself)."""
+    return a.device.type == "cuda" and torch.is_grad_enabled() \
+        and (a.requires_grad or b.requires_grad)
+
+
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N) with bf16 operands -> f32 (..., N)."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda":
-        y = torch.mm(x2.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE),
-                     out_dtype=torch.float32)
-    else:
-        y = _bf(x2) @ _bf(w)
-    return y.reshape(*lead, w.shape[-1])
+    a = x.reshape(-1, x.shape[-1]).to(COMPUTE_DTYPE)
+    b = w.to(COMPUTE_DTYPE)
+    y = _MmF32.apply(a, b) if _card_grad(a, b) else _mm_f32(a, b)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched a (..., M, K) @ b (..., K, N), same leading dims, bf16
     operands -> f32 (..., M, N)."""
-    lead = a.shape[:-2]
-    if a.device.type == "cuda":
-        y = torch.bmm(a.to(COMPUTE_DTYPE).reshape(-1, *a.shape[-2:]),
-                      b.to(COMPUTE_DTYPE).reshape(-1, *b.shape[-2:]),
-                      out_dtype=torch.float32)
-        return y.reshape(*lead, a.shape[-2], b.shape[-1])
-    return _bf(a) @ _bf(b)
+    a3 = a.to(COMPUTE_DTYPE).reshape(-1, *a.shape[-2:])
+    b3 = b.to(COMPUTE_DTYPE).reshape(-1, *b.shape[-2:])
+    y = _BmmF32.apply(a3, b3) if _card_grad(a3, b3) else _bmm_f32(a3, b3)
+    return y.reshape(*a.shape[:-2], a.shape[-2], b.shape[-1])
 
 
 def _dot_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -123,8 +193,11 @@ def flash_attention(q, k, v, *, causal: bool, chunk: int = 1024,
                     window: Optional[int] = None):
     """Online-softmax attention over KV chunks (O(S) memory per chunk).
     q: (B, Sq, H, hd); k, v: (B, Sk, KvH, hd) — KvH repeated to H here.
-    Every chunk is computed, the causally masked ones included."""
+    Every chunk is computed, the causally masked ones included.  The
+    score tensor is updated in place unless a gradient is taken."""
     b, sq, h, hd = q.shape
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     sk = k.shape[1]
     n_rep = h // k.shape[2]
     k = _repeat_kv(k, n_rep)
@@ -151,9 +224,14 @@ def flash_attention(q, k, v, *, causal: bool, chunk: int = 1024,
             mask &= q_pos[:, None] >= kv_pos[None, :]
         if window is not None:
             mask &= q_pos[:, None] - kv_pos[None, :] < window
-        s.masked_fill_(~mask, -math.inf)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = s.sub_(m_new[..., None]).exp_()
+        if grad:
+            s = s.masked_fill(~mask, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = (s - m_new[..., None]).exp()
+        else:
+            s.masked_fill_(~mask, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = s.sub_(m_new[..., None]).exp_()
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + _bmm(p.to(COMPUTE_DTYPE), vj)

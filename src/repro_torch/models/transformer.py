@@ -31,6 +31,7 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
@@ -194,6 +195,17 @@ def _index(tree, p: int):
     return tree[p]
 
 
+def _unbind(tree, n: int):
+    """The n periods of a period-stacked tree of tensors, each leaf
+    unbound once: under a gradient, one backward node stacks the n
+    periods' gradients, where n indexings would each add a zero-filled
+    full-size gradient."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[p] for k, v in per.items()} for p in range(n)]
+    return list(torch.unbind(tree))
+
+
 # ----------------------------------------------------------------------------
 # Embedding / frontend
 # ----------------------------------------------------------------------------
@@ -342,10 +354,24 @@ def _period_fn(cfg: ModelConfig, mode: str):
     return run
 
 
-def _forward(params, cfg: ModelConfig, batch, mode: str, slack: int = 0):
+def _forward(params, cfg: ModelConfig, batch, mode: str, slack: int = 0,
+             remat: bool = False):
+    """The stack.  In train mode no cache is stacked (the reference's is
+    dead code that XLA drops), and with ``remat`` under a gradient each
+    period is checkpointed: its activations are recomputed in the
+    backward pass, as ``jax.checkpoint`` over the scanned body does."""
     h = embed_inputs(params, cfg, batch)
     pos = _positions(cfg, batch, h)
     run = _period_fn(cfg, mode)
+    if mode == "train":
+        def body(hh, pparams):
+            return run(hh, pos, pparams, None, None)[0]
+        for pp in _unbind(params["blocks"], cfg.n_periods):
+            if remat and torch.is_grad_enabled():
+                h = checkpoint(body, h, pp, use_reentrant=False)
+            else:
+                h = body(h, pp)
+        return rms_norm(h, params["final_norm"]), {}
     stack = _Stacker(cfg.n_periods, slack)
     for p in range(cfg.n_periods):
         h, cache = run(h, pos, _index(params["blocks"], p), None, None)
@@ -357,9 +383,10 @@ def _forward(params, cfg: ModelConfig, batch, mode: str, slack: int = 0):
 
 def forward(params, cfg: ModelConfig, batch, mode: str = "train",
             remat: bool = True):
-    """Runs the stack. Returns (hidden (B,S,d), per-period cache stack).
-    ``remat`` acts only under a gradient, which this path never takes."""
-    return _forward(params, cfg, batch, mode)
+    """Runs the stack. Returns (hidden (B,S,d), per-period cache stack);
+    train mode returns an empty cache.  ``remat`` checkpoints each period
+    in train mode when a gradient is taken."""
+    return _forward(params, cfg, batch, mode, remat=remat)
 
 
 # ----------------------------------------------------------------------------
@@ -389,8 +416,10 @@ def _unembed_w(params, cfg):
 
 
 def train_loss(params, cfg: ModelConfig, batch, remat: bool = True):
-    """The training loss, forward only (the gradient is not ported)."""
-    h, _ = _forward(params, cfg, batch, mode="train")
+    """Mean next-token cross entropy over the labels >= 0; differentiable
+    (``train/step.py`` takes its gradient), each period checkpointed
+    when ``remat``."""
+    h, _ = _forward(params, cfg, batch, mode="train", remat=remat)
     acc = _chunked_ce(h, _unembed_w(params, cfg), batch["labels"],
                       cfg.ce_chunk)
     return acc[0] / torch.clamp_min(acc[1], 1.0)

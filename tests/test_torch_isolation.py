@@ -28,6 +28,12 @@ print(",".join(sorted(n for n in sys.modules
                       or n in ("repro_torch.core.dense",
                                "repro_torch.obs.export",
                                "repro_torch.obs.stats"))))
+print(",".join(sorted(n for n in sys.modules
+                      if n.startswith(("repro_torch.train",
+                                       "repro_torch.optim",
+                                       "repro_torch.dist"))
+                      or n in ("repro_torch.tree",
+                               "repro_torch.launch.train"))))
 """
 
 
@@ -36,13 +42,19 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.splitlines()
-    assert int(out[0]) >= 45, out          # every submodule was imported
+    assert int(out[0]) >= 85, out          # every submodule was imported
     assert out[1] == "", f"loaded: {out[1]}"
     assert out[2].split(",") == [
         "repro_torch.core.dense", "repro_torch.gateway",
         "repro_torch.gateway.gateway", "repro_torch.gateway.loadgen",
         "repro_torch.gateway.queue", "repro_torch.gateway.telemetry",
         "repro_torch.obs.export", "repro_torch.obs.stats"], out
+    assert out[3].split(",") == [
+        "repro_torch.dist", "repro_torch.dist.checkpoint",
+        "repro_torch.dist.elastic", "repro_torch.launch.train",
+        "repro_torch.optim", "repro_torch.optim.adamw",
+        "repro_torch.optim.compress", "repro_torch.train",
+        "repro_torch.train.step", "repro_torch.tree"], out
 
 
 def _imported_roots(path: Path):
