@@ -217,6 +217,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 alone, parameter and state bytes, peak memory.
                 Callable alone: ``chip_smoke.train_path(torch,
                 torch.device("cuda"), 0)``.
+     launch   — the launch tooling, after phase train (no kernel: it
+                traces on meta tensors): all 76 (cell, mesh) pairs
+                planned at full width on the 16x16 and 2x16x16 meta
+                meshes (mode, argument bytes a device) and the rairs
+                cell's arguments; Qwen3-8B prefill_32k (batch 1) and
+                Qwen3-1.7B train_4k (batch 8, accum 8) traced once each
+                on meta tensors: the peak-live estimate beside
+                max_memory_allocated of one call of that step in phases
+                lm and train (reset just before it; the bytes resident
+                then beyond the call's inputs taken off; the ratio must
+                lie in [0.67, 1.5]), GEMM FLOPs beside
+                model_flops (and train_flops).  Callable alone after
+                lm_full and train_full have run.
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -4252,8 +4265,10 @@ def lm_full(torch, dev, seed, smi, cfg=None, s=LM_FULL_S):
     dec, _ = T.decode_step(params, cfg, short, tokens[:, s - 1:s])
     del short
     torch.cuda.empty_cache()
+    peak_before, other = launch_mark(torch, (params, tokens))
     t_pre, (last, cache) = timed_s(torch, lambda: T.prefill(
         params, cfg, {"tokens": tokens}, cache_slack=LM_DECODE_STEPS))
+    LAUNCH_PEAKS["prefill"] = (torch.cuda.max_memory_allocated(), other)
     tf_err = rel_err(torch, last[:, 0], dec[:, 0])
     same = bool((last[:, 0].argmax(-1) == dec[:, 0].argmax(-1)).all())
     check(torch.isfinite(last).all().item() and tf_err < 0.05,
@@ -4273,7 +4288,7 @@ def lm_full(torch, dev, seed, smi, cfg=None, s=LM_FULL_S):
         "embed"].element_size() + embed_row + kv_bytes
     ms = 1e3 * float(np.median(steps[1:]))
     bound = 1e3 * step_bytes / HBM_BYTES_PER_S
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(peak_before, torch.cuda.max_memory_allocated()) / 2**30
     log(f"lm full: {cfg.name} d {cfg.d_model} x {cfg.n_layers} layers, "
         f"{n_par / 1e9:.3f} B params ({w_bytes / 2**30:.2f} GiB in serving "
         f"dtypes, init {t_init:.1f} s), B 1 [{smi}]")
@@ -4715,6 +4730,11 @@ def train_full(torch, dev, seed, smi, cfg=None, s=TRAIN_S,
             busy, (dt, (params, opt, m)) = profiled(
                 torch, lambda: timed_s(torch, lambda: step(params, opt,
                                                            data)))
+        elif i == 1:      # one call measured for phase launch
+            peak_before, other = launch_mark(torch, (params, opt, data))
+            dt, (params, opt, m) = timed_s(torch, lambda: step(params, opt,
+                                                               data))
+            LAUNCH_PEAKS["train"] = (torch.cuda.max_memory_allocated(), other)
         else:
             dt, (params, opt, m) = timed_s(torch, lambda: step(params, opt,
                                                                data))
@@ -4730,7 +4750,7 @@ def train_full(torch, dev, seed, smi, cfg=None, s=TRAIN_S,
             f"peak) [{smi}]")
     check(all(b < a for a, b in zip(losses, losses[1:])),
           f"train full: the loss did not fall every step: {losses}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(peak_before, torch.cuda.max_memory_allocated()) / 2**30
     sec = float(np.median(secs[1:]))
     log(f"train full: {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} (ln V {np.log(cfg.vocab):.4f}); step {sec:.3f} s "
@@ -4924,6 +4944,124 @@ def train_path(torch, dev, seed, smi=None):
     log(f"train: phase {time.perf_counter() - t0:.1f} s [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# phase launch: the launch tooling (plans of every cell on the production
+# meshes; the two full-width cells the card ran, traced on meta tensors and
+# held against the card)
+# ---------------------------------------------------------------------------
+LAUNCH_PEAKS = {}             # kind -> (max_memory_allocated of one call,
+                              #  bytes resident then that it does not take)
+LAUNCH_RATIO = (0.67, 1.5)    # the call's peak over the meta estimate
+LAUNCH_CELLS = (("prefill", LM_ARCH, "prefill_32k", 1),
+                ("train", TRAIN_ARCH, "train_4k", TRAIN_BATCH))
+
+
+def launch_mark(torch, inputs):
+    """Before the one call that phase launch holds its estimate against
+    (the caller synchronizes after it, then reads max_memory_allocated):
+    collects garbage and resets the peak statistics.  -> (the peak so
+    far, the bytes resident beyond the call's inputs)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.max_memory_allocated()
+    other = torch.cuda.memory_allocated() - tree_bytes(inputs)
+    torch.cuda.reset_peak_memory_stats()
+    return before, other
+
+
+def launch_plans():
+    """Every (cell, mesh) pair planned at full width on the production
+    meshes (plans only): mode and argument bytes a device."""
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import make_production_mesh
+    t0 = time.perf_counter()
+    meshes = (("pod1", make_production_mesh()),
+              ("pod2", make_production_mesh(multi_pod=True)))
+    n = 0
+    for arch, shape in shapes.all_cells():
+        reason = shapes.skip_reason(arch, shape)
+        if reason:
+            log(f"launch plan: {arch} {shape}: skipped ({reason})")
+            continue
+        per = []
+        for which, mesh in meshes:
+            plan = shapes.plan_cell(arch, shape, mesh)
+            nb = dryrun.sharded_bytes(plan.args, plan.in_shardings)
+            per.append(f"{which} {nb} ({nb / 2**30:.3f} GiB)")
+            n += 1
+        log(f"launch plan: {arch} {shape}: mode {plan.mode}, argument "
+            f"bytes a device " + ", ".join(per))
+    for mp in (False, True):
+        nb = dryrun.rairs_arg_bytes(mp)
+        log(f"launch plan: rairs-sift1b serve: mode rairs_serve, argument "
+            f"bytes a device {'pod2' if mp else 'pod1'} {nb} "
+            f"({nb / 2**30:.3f} GiB)")
+    check(n == 76, f"launch: {n} (cell, mesh) pairs planned, not 76")
+    log(f"launch: {n} (cell, mesh) pairs and the rairs cell planned in "
+        f"{time.perf_counter() - t0:.1f} s (plans only, no trace)")
+
+
+def launch_estimates(smi):
+    """The two cells the card ran at full width (phases lm and train),
+    planned at the batch they ran and traced once on meta tensors: the
+    peak-live estimate beside the card's max_memory_allocated of one call
+    of the step, the GEMM FLOPs beside model_flops (and train_flops)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import costpass, hillclimb, shapes
+    from repro_torch.launch.mesh import make_host_mesh
+    saved = shapes.SHAPES
+    lo, hi = LAUNCH_RATIO
+    try:
+        for kind, arch, shape, batch in LAUNCH_CELLS:
+            shapes.SHAPES = dict(saved, **{shape: dict(
+                saved[shape], global_batch=batch)})
+            info = shapes.SHAPES[shape]
+            plan = shapes.plan_cell(arch, shape,
+                                    make_host_mesh(device="meta"))
+            cost, out = costpass.trace(plan.step_fn, plan.args)
+            del out
+            est = cost["peak_bytes"]
+            check(kind in LAUNCH_PEAKS,
+                  f"launch: no measured peak for {kind} (run lm_full and "
+                  f"train_full first)")
+            card, other = LAUNCH_PEAKS[kind]
+            ratio = (card - other) / est
+            mf = hillclimb.model_flops(arch, shape)
+            line = (f"launch {kind}: {arch} {shape} at batch {batch} "
+                    f"(S {info['seq_len']}): traced on meta in "
+                    f"{cost['trace_s']} s, {cost['ops']} ops; peak estimate "
+                    f"{est} B ({est / 2**30:.2f} GiB; arguments "
+                    f"{cost['arg_bytes'] / 2**30:.2f} GiB); the card's "
+                    f"max_memory_allocated of one call {card} B "
+                    f"({card / 2**30:.2f} GiB, {card / est:.4f} of the "
+                    f"estimate), of which {other} B ({other / 2**30:.2f} "
+                    f"GiB) were resident and not the call's inputs: the "
+                    f"call with its inputs {card - other} B, ratio "
+                    f"{ratio:.4f} (in [{lo}, {hi}]); GEMM FLOPs "
+                    f"{cost['flops']:.6e} against model_flops {mf:.6e}: "
+                    f"{cost['flops'] / mf:.4f}")
+            if kind == "train":
+                tf = train_flops(ARCHS[arch], batch * info["seq_len"],
+                                 info["seq_len"])
+                line += (f", against train_flops {tf:.6e}: "
+                         f"{cost['flops'] / tf:.4f}")
+            log(line + f"; unfused bytes {cost['bytes_accessed']:.6e} "
+                f"[{smi}]")
+            check(lo <= ratio <= hi, line)
+    finally:
+        shapes.SHAPES = saved
+
+
+def launch_path(torch, smi=None):
+    """Phase launch (no kernel: the launch tooling plans and traces on
+    meta tensors).  Needs LAUNCH_PEAKS from lm_full and train_full."""
+    smi = smi or smi_line()
+    t0 = time.perf_counter()
+    launch_plans()
+    launch_estimates(smi)
+    log(f"launch: phase {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4985,6 +5123,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_path(torch, dev, args.seed, smi)
     train_path(torch, dev, args.seed, smi)
+    launch_path(torch, smi)
     kernels = kernel_json(rows, launches, gist_rows, gist_launches, *nbits8,
                           *refine, *stream, *gateway, *shard)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

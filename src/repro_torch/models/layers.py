@@ -19,12 +19,14 @@ Gradients.  JAX transposes a product of bf16 operands into f32 products
 of the f32 cotangent with the other bf16 operand, each rounded to bf16
 (the operand's dtype).  The CPU branch gets exactly that from autograd.
 ``torch.mm`` / ``torch.bmm`` with ``out_dtype`` register no derivative,
-so on the card `_dot` / `_bmm` go through `_MmF32` / `_BmmF32` when a
-gradient is needed: the forward is the same call, and the backward
-rounds the cotangent to bf16 before its two bf16 GEMMs (f32 results,
-then rounded to bf16), as a TPU does at default precision.  Rounding the
-cotangent is the one difference from the CPU: each gradient moves by at
-most ~2^-9 of the cotangent's scale before its own bf16 rounding.
+so on the card (and on meta tensors, which stand in for it when the
+launch tooling traces a step) `_dot` / `_bmm` go through `_MmF32` /
+`_BmmF32` when a gradient is needed: the forward is the same call, and
+the backward rounds the cotangent to bf16 before its two bf16 GEMMs
+(f32 results, then rounded to bf16), as a TPU does at default
+precision.  Rounding the cotangent is the one difference from the CPU:
+each gradient moves by at most ~2^-9 of the cotangent's scale before its
+own bf16 rounding.
 
 `flash_attention` updates its score tensor in place only when no
 gradient is taken (serving); under a gradient it uses the out-of-place
@@ -104,8 +106,10 @@ class _BmmF32(torch.autograd.Function):
 
 def _card_grad(a: torch.Tensor, b: torch.Tensor) -> bool:
     """A gradient through a product on the card, where only the autograd
-    Functions give one (the CPU's autograd takes the product itself)."""
-    return a.device.type == "cuda" and torch.is_grad_enabled() \
+    Functions give one (the CPU's autograd takes the product itself).
+    Meta tensors stand in for the card (the launch tooling traces the
+    steps on them), so they take the same Functions."""
+    return a.device.type in ("cuda", "meta") and torch.is_grad_enabled() \
         and (a.requires_grad or b.requires_grad)
 
 
@@ -129,7 +133,7 @@ def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _dot_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (T, K) @ w (K, N) in bf16 with a bf16 result: the reference's
     plain ``@`` of two bf16 arrays (f32 accumulation, one rounding)."""
-    if x.device.type == "cuda":
+    if x.device.type != "cpu":
         return torch.mm(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
     return (_bf(x) @ _bf(w)).to(COMPUTE_DTYPE)
 

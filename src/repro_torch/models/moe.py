@@ -11,6 +11,11 @@ lower expert id first among equal probabilities (a stable descending
 sort) and each expert's queue keeps token order (a stable sort by
 expert).  The combine sums each token's expert rows in a fixed order
 (``core.kmeans.segment_sum``), never with atomics.
+
+Routing has no data-dependent shape: the queue counts come from a
+``searchsorted`` over the sorted experts, and the slots are written by
+one scatter each, the dropped pairs into a dump slot that is sliced
+off.  So the launch tooling traces the MoE stacks on meta tensors.
 """
 from __future__ import annotations
 
@@ -39,21 +44,26 @@ def route_topk(router_logits: torch.Tensor, k: int, capacity: int
     flat_gate = gate.reshape(-1)
     flat_token = torch.repeat_interleave(
         torch.arange(t, dtype=torch.int32, device=dev), k)
-    # position of each routed pair within its expert queue
+    # position of each routed pair within its expert queue; the counts
+    # are read off the sorted experts (no bincount: the shapes stay
+    # static, so meta tensors trace this too)
     sorted_e, order = torch.sort(flat_expert, stable=True)
-    counts = torch.bincount(flat_expert, minlength=e)
-    starts = torch.cumsum(counts, 0) - counts
+    bounds = torch.searchsorted(
+        sorted_e, torch.arange(e + 1, dtype=sorted_e.dtype, device=dev))
+    counts = bounds[1:] - bounds[:-1]
+    starts = bounds[:-1]
     pos_sorted = torch.arange(t * k, device=dev) - starts[sorted_e]
     pos = torch.zeros(t * k, dtype=torch.long, device=dev)
     pos[order] = pos_sorted
     keep = pos < capacity
+    # every dropped pair goes to the dump slot e * capacity, which is
+    # sliced off: the kept slots are distinct, so each scatter writes
+    # every kept slot once and no mask (a data-dependent shape) is needed
     slot = torch.where(keep, flat_expert * capacity + pos, e * capacity)
     slot_token = torch.full((e * capacity + 1,), -1, dtype=torch.int32,
-                            device=dev)
-    slot_token[slot[keep]] = flat_token[keep]
+                            device=dev).scatter_(0, slot, flat_token)
     slot_gate = torch.zeros((e * capacity + 1,), dtype=torch.float32,
-                            device=dev)
-    slot_gate[slot[keep]] = flat_gate[keep]
+                            device=dev).scatter_(0, slot, flat_gate)
     load = counts.to(torch.float32) / (t * k)
     return (slot_token[:-1].reshape(e, capacity),
             slot_gate[:-1].reshape(e, capacity), load)

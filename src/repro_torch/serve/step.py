@@ -2,8 +2,15 @@
 
 The specs are meta tensors (shapes and dtypes, no storage) matching the
 caches that `models.transformer.prefill` and `models.retrieval` build.
-On one card the reference's cache shardings are no-ops; they are not
-ported here.
+
+Cache sharding (`cache_shardings`, the reference's production defaults;
+the launch tooling plans with them, a step on one card ignores them):
+  * KV caches (NP, B, S, kvH, hd): batch over ("pod","data"), head_dim
+    over "model" (kvH is often < |model|, hd=128 always divides);
+    long-context B=1 caches shard S over "data" instead of batch.
+  * Mamba states (NP, B, H, P, N): batch over data, heads over model.
+  * RAIRS-kNN caches: block pool over ("pod","data") (like IVF lists),
+    head_dim over "model".
 """
 from __future__ import annotations
 
@@ -12,10 +19,13 @@ from typing import Dict
 import torch
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import (DEFAULT_RULES, NamedSharding, axis_rules,
+                             logical_spec)
 from ..models.mamba2 import MambaState
 from ..models.retrieval import (KnnAttnConfig, decode_step_long,
                                 knn_cache_specs)
 from ..models.transformer import decode_step, prefill
+from ..tree import tree_map
 
 
 def _meta(shape, dtype):
@@ -44,6 +54,37 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
         else:
             blocks[f"s{j}"] = _ssm_spec(cfg, batch)
     return {"blocks": blocks, "len": _meta((batch,), torch.int32)}
+
+
+def cache_shardings(cfg: ModelConfig, mesh, cache_tree,
+                    long_context: bool = False):
+    """NamedShardings for a (possibly knn) cache tree, by leaf shape."""
+    hd = cfg.hd
+
+    def shard_leaf(leaf):
+        shp = tuple(leaf.shape)
+        names = [None] * len(shp)
+        if len(shp) >= 2:
+            if long_context and len(shp) >= 3 and shp[1] == 1:
+                # B=1 long context: shard the big pool/seq dim over data
+                big = max(range(1, len(shp)), key=lambda i: shp[i])
+                names[big] = "lists"
+            else:
+                names[1] = "batch"
+            if shp[-1] == hd:
+                names[-1] = "kv_head_dim"
+            elif len(shp) == 5 and shp[2] == cfg.ssm_heads:
+                names[2] = "ssm_head"
+        with axis_rules(mesh, rules=_cache_rules()):
+            return NamedSharding(mesh, logical_spec(*names, shape=shp))
+
+    return tree_map(shard_leaf, cache_tree)
+
+
+def _cache_rules():
+    r = dict(DEFAULT_RULES)
+    r["kv_head_dim"] = "model"
+    return r
 
 
 def make_prefill_step(cfg: ModelConfig, cache_slack: int = 0):

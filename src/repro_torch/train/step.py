@@ -10,10 +10,10 @@ compressed and decompressed (``optim/compress.py``), then applied by
 reference's ``value_and_grad`` gives zeros; weight decay still moves
 it).
 
-``zero1`` and ``fsdp`` only steer the reference's shardings, which the
-port's one-card step has no use for; they are kept so a ``TrainConfig``
-means the same in both packages.  The shardings themselves
-(``train_step_shardings``) come with the launch tooling.
+``zero1`` and ``fsdp`` only steer the shardings
+(``train_step_shardings``, resolved as the reference resolves them),
+which the launch tooling plans with and the port's one-card step has
+no use for; a ``TrainConfig`` means the same in both packages.
 """
 from __future__ import annotations
 
@@ -23,8 +23,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from ..models.transformer import init_params, train_loss
-from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+from ..dist.sharding import (NamedSharding, axis_rules, logical_spec,
+                             param_shardings, zero1_rules)
+from ..models.transformer import (ParamSpec, init_params, param_specs,
+                                  train_loss)
+from ..optim.adamw import AdamWConfig, OptState, adamw_init, adamw_update
 from ..optim.compress import compress_tree, decompress_tree
 from ..tree import leaves, tree_map, unflatten
 
@@ -91,6 +94,53 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         return new_params, new_opt, {"loss": loss, **om}
 
     return train_step
+
+
+def train_step_shardings(cfg: ModelConfig, mesh, tcfg: TrainConfig,
+                         batch_specs):
+    """(in_shardings, out_shardings) of the train step on ``mesh``:
+    ((params, opt state, batch), (params, opt state, metrics)), each a
+    tree of `NamedSharding` as the reference's ``jit`` takes them."""
+    specs = param_specs(cfg)
+
+    def is_leaf(x):
+        return isinstance(x, ParamSpec)
+
+    # a dim is ZeRO-eligible if its logical name resolves to replicated
+    replicated = (None, "d_model", "seq", "state", "blk")
+
+    def zero_logical(s: ParamSpec):
+        names = list(s.logical)
+        # expert/list dims already consume the data axis (2D EP sharding)
+        if any(n in ("expert", "lists") for n in names):
+            return tuple(names)
+        for i, n in enumerate(names):
+            if n in replicated and s.shape[i] % mesh.shape["data"] == 0 \
+                    and s.shape[i] >= mesh.shape["data"]:
+                names[i] = "zero"
+                break
+        return tuple(names)
+
+    def opt_logical(s: ParamSpec):
+        return zero_logical(s) if tcfg.zero1 else s.logical
+
+    o_leaf_sh = param_shardings(specs, mesh, rules=zero1_rules(),
+                                is_leaf=is_leaf, logical_of=opt_logical)
+    if tcfg.fsdp:
+        # ZeRO-3/FSDP: params themselves shard a replicated dim over data
+        p_sh = param_shardings(specs, mesh, rules=zero1_rules(),
+                               is_leaf=is_leaf, logical_of=zero_logical)
+    else:
+        p_sh = param_shardings(specs, mesh, is_leaf=is_leaf)
+    with axis_rules(mesh):
+        scalar = NamedSharding(mesh, ())
+        opt_sh = OptState(mu=o_leaf_sh, nu=o_leaf_sh, step=scalar)
+        batch_sh = tree_map(
+            lambda s: NamedSharding(
+                mesh, logical_spec("batch", *([None] * (s.dim() - 1)),
+                                   shape=tuple(s.shape))), batch_specs)
+        metrics_sh = {"loss": scalar, "grad_norm": scalar, "lr": scalar}
+    return (p_sh, opt_sh, batch_sh), (p_sh, opt_sh, metrics_sh)
 
 
 def init_all(cfg: ModelConfig, generator: torch.Generator,

@@ -51,7 +51,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.obs.export", "repro_torch.obs.stats"], out
     assert out[3].split(",") == [
         "repro_torch.dist", "repro_torch.dist.checkpoint",
-        "repro_torch.dist.elastic", "repro_torch.launch.train",
+        "repro_torch.dist.elastic", "repro_torch.dist.sharding",
+        "repro_torch.launch.train",
         "repro_torch.optim", "repro_torch.optim.adamw",
         "repro_torch.optim.compress", "repro_torch.train",
         "repro_torch.train.step", "repro_torch.tree"], out
