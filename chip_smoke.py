@@ -45,7 +45,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 must agree on ids and DCO; each beside a loop of eager
                 seil_search calls on the same batches (same results);
                 one traced batch per mode (stage spans, bitwise equal to
-                the untraced batch); plan reuse in grouped B=64 and
+                the untraced batch); the paged fused graph replayed
+                with replay timing off and then on (CUDA events: the
+                session's timed counters move only while on, their
+                device ms a call 0.85-1.0 of a synchronised host clock;
+                then printed under a host-only and a card profiler);
+                plan reuse in grouped B=64 and
                 clustered B=1024 (warmup_widths first; plan stats), which
                 must agree with the six runs, with K1 and K3 held at a
                 batch whose unions the plan cache widened; clustered at
@@ -1708,6 +1713,7 @@ def main_path(torch, dev, args):
     for mode, bsz in RUNS:
         for fused in (False, True):
             traced_batch(torch, index, q, mode, bsz, fused)
+    replay_timing(torch, index, q)
     # plan reuse: the same ids and counters as the plain runs, then K1
     # and K3 held at a batch whose unions the plan cache widened
     reuse = {}
@@ -1913,6 +1919,75 @@ def traced_batch(torch, index, q, mode, bsz, fused):
         "after a device fence): " + ", ".join(
             f"{k} {v['mean_ms']:.4f}" for k, v in spans.items())
         + f"; counters {json.dumps({k: v['counters'] for k, v in spans.items()})}")
+
+
+REPLAY_CALLS = 200      # session calls of the replay-timing phase
+
+
+def replay_timing(torch, index, q, n=REPLAY_CALLS):
+    """The main path's graph (paged, fused, B=1024) replayed ``n`` times
+    through its session with replay timing off, then ``n`` times with it
+    on (``torch.profiler`` collecting the host only, so the dispatch is
+    the untraced one): the session's timed counters and the event pool
+    move only while timing is on, every call is timed, and the timed
+    device ms a call lies within 0.85-1.0 of a synchronised host clock
+    around the same calls (a pair around part of the graph reads less).
+    Then ``n`` calls as the benchmark makes them (the ids read back after
+    each), under the host-only profiler and under one that also traces
+    the card (CUPTI, as the benchmark's profiled stretch): printed side
+    by side, the second holds the card profiler's launch delay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    sess = session(index, "paged", 1024, True)
+    qb = q[:1024].contiguous()
+    tm = sess.timing
+
+    def loop(read_back=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            r = sess(qb)
+            if read_back:
+                r.ids.cpu()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def timed(activities, read_back):
+        obs.settle()
+        calls0, sec0 = tm.calls, tm.seconds
+        with profile(activities=activities):
+            check(obs.timing(), "replay timing: the profiler does not "
+                  "turn timing on")
+            host_ms = loop(read_back)
+        obs.settle()
+        calls = tm.calls - calls0
+        check(calls == n, f"replay timing: {calls} of {n} calls timed")
+        return host_ms, (tm.seconds - sec0) * 1e3 / calls
+
+    sess(qb)
+    obs.settle()
+    calls0, sec0, taken0 = tm.calls, tm.seconds, obs.events_taken()
+    off_ms = loop()
+    obs.settle()
+    check((tm.calls, tm.seconds, obs.events_taken())
+          == (calls0, sec0, taken0),
+          "replay timing: the timed counters moved with timing off")
+    on_ms, dev_ms = timed([ProfilerActivity.CPU], False)
+    ratio = dev_ms / on_ms
+    log(f"replay timing: paged B=1024 fused=1, {n} calls: host clock "
+        f"{off_ms:.4f} ms a call with timing off, {on_ms:.4f} ms on; "
+        f"timed device {dev_ms:.4f} ms a call ({ratio:.3f} of the host "
+        f"clock); {obs.events_taken() - taken0} events taken")
+    check(0.85 <= ratio <= 1.0, f"replay timing: timed device ms {dev_ms} "
+          f"is {ratio} of the host clock's {on_ms}, outside 0.85-1.0")
+    _, host_prof = timed([ProfilerActivity.CPU], True)
+    _, card_prof = timed([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         True)
+    log(f"replay timing: ids read back after each call: timed device "
+        f"{host_prof:.4f} ms a call under a host-only profiler, "
+        f"{card_prof:.4f} ms under one tracing the card "
+        f"({card_prof / host_prof:.3f} of it)")
 
 
 def check_agree(torch, results, what):

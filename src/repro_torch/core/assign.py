@@ -14,6 +14,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .kmeans import pairwise_sq_l2
 
 METRICS = ("naive", "soar", "air")
@@ -154,7 +155,7 @@ def available_strategies() -> Tuple[str, ...]:
 
 
 def _host(a: torch.Tensor) -> np.ndarray:
-    return a.cpu().numpy()
+    return obs.to_host(a).numpy()
 
 
 @register_strategy("single")

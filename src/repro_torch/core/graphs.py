@@ -20,6 +20,7 @@ from typing import Callable
 
 import torch
 
+from .. import obs
 from ..kernels.pq_scan import add_launch_counts, launch_counts
 
 
@@ -56,6 +57,12 @@ class GraphExe:
     that leave it before the next replay, and replays a scan graph only
     right after its bucket's probe graph, whose outputs it reads.
 
+    A call runs in three spans, ``graph.copy_in``, ``graph.replay`` and
+    ``graph.clone_out`` (``obs``); while timing is on the replay is
+    bracketed by CUDA timing events, its device time going to
+    ``timing``, the replaying session's ``obs.DeviceTime`` (or to the
+    span while a tracer is active).
+
     Launch counts (``kernels/pq_scan.py``): the eager run's launches are
     real and stay counted.  The capture launches nothing on the card, so
     the increments the wrappers made while it recorded are taken back
@@ -64,9 +71,10 @@ class GraphExe:
     """
 
     def __init__(self, fn: Callable, inputs: tuple, *, pool=None,
-                 clone: bool = True):
+                 clone: bool = True, timing=None):
         self.inputs = inputs
         self.clone = clone
+        self.timing = timing
         self._static = flat_tensors(inputs)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -88,9 +96,14 @@ class GraphExe:
         if len(given) != len(self._static):
             raise ValueError(f"graph takes {len(self._static)} tensors, got "
                              f"{len(given)}")
-        for src, dst in zip(given, self._static):
-            if src is not dst:
-                dst.copy_(src)
-        self.graph.replay()
+        with obs.span("graph.copy_in", cat="device"):
+            for src, dst in zip(given, self._static):
+                if src is not dst:
+                    dst.copy_(src)
+        with obs.replay_span("graph.replay", self.timing):
+            self.graph.replay()
         add_launch_counts(self.launches)
-        return clone_tensors(self.outputs) if self.clone else self.outputs
+        if not self.clone:
+            return self.outputs
+        with obs.span("graph.clone_out", cat="device"):
+            return clone_tensors(self.outputs)

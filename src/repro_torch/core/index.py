@@ -15,12 +15,12 @@ Strategy presets (extensible via ``assign.register_strategy``):
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import DeviceLike, resolve_device
 from .assign import (AGGRS, STRATEGY_REGISTRY, available_strategies,
                      get_strategy, rair_assign_multi)
@@ -184,12 +184,17 @@ class RairsIndex:
                            max_scan_local=max_scan_local)
 
     def searcher_stats(self) -> dict:
-        """Aggregate compile-cache stats over every cached session."""
+        """Aggregate compile-cache stats over every cached session, and
+        the device time of their graph replays while timing was on
+        (``timed_calls``, ``timed_device_s``; ``obs.timing``)."""
         sessions = list(self.__dict__.get("_searcher_cache", {}).values())
+        obs.settle()
         return {
             "sessions": len(sessions),
             "compiles": sum(s.stats.compiles for s in sessions),
             "cache_hits": sum(s.stats.cache_hits for s in sessions),
+            "timed_calls": sum(s.timing.calls for s in sessions),
+            "timed_device_s": sum(s.timing.seconds for s in sessions),
         }
 
     def search(self, queries, k: int, nprobe: int, k_factor: int = 10,
@@ -211,9 +216,9 @@ def compute_assignments(x: torch.Tensor, centroids: torch.Tensor,
     """Dispatch to the registered assignment strategy (m-assignment,
     paper §4.3, overrides the pairwise strategies when multi_m > 2)."""
     if cfg.multi_m > 2:
-        return rair_assign_multi(x, centroids, m=cfg.multi_m, aggr=cfg.aggr,
-                                 lam=cfg.lam, n_cands=cfg.n_cands
-                                 ).cpu().numpy()
+        return obs.to_host(rair_assign_multi(
+            x, centroids, m=cfg.multi_m, aggr=cfg.aggr, lam=cfg.lam,
+            n_cands=cfg.n_cands)).numpy()
     return np.asarray(get_strategy(cfg.strategy)(x, centroids, cfg))
 
 
@@ -232,7 +237,8 @@ def build_index(x, cfg: IndexConfig, *,
     ``generator`` is a CPU ``torch.Generator`` for the training samples
     and initial centroids (seed 0 when None); given ``centroids`` /
     ``codebook`` skip their training.  ``build_seconds`` records the
-    phases train / assign / encode / layout.
+    phases train / assign / encode / layout, each the ``seconds`` of its
+    span (``build.train`` ... ``build.layout``, ``obs.clocked``).
     """
     dev = resolve_device(device)
     if isinstance(x, np.ndarray):
@@ -243,35 +249,36 @@ def build_index(x, cfg: IndexConfig, *,
     n, d = x.shape
     m_pq = cfg.m_pq or d // 2
     times = {}
-    t0 = time.perf_counter()
-    if centroids is None:
-        centroids = kmeans_fit(x, cfg.nlist, iters=cfg.kmeans_iters,
-                               sample=cfg.train_sample, generator=generator)
-    centroids = centroids.to(device=dev, dtype=torch.float32)
-    if codebook is None:
-        codebook = pq_train(x, m_pq, nbits=cfg.nbits, iters=cfg.pq_iters,
-                            sample=cfg.train_sample, generator=generator)
-    codebook = PQCodebook(codebook.codebooks.to(device=dev,
-                                                dtype=torch.float32))
-    _sync(dev)
-    times["train"] = time.perf_counter() - t0
+    with obs.clocked("build.train", cat="build") as sp:
+        if centroids is None:
+            centroids = kmeans_fit(x, cfg.nlist, iters=cfg.kmeans_iters,
+                                   sample=cfg.train_sample,
+                                   generator=generator)
+        centroids = centroids.to(device=dev, dtype=torch.float32)
+        if codebook is None:
+            codebook = pq_train(x, m_pq, nbits=cfg.nbits, iters=cfg.pq_iters,
+                                sample=cfg.train_sample, generator=generator)
+        codebook = PQCodebook(codebook.codebooks.to(device=dev,
+                                                    dtype=torch.float32))
+        _sync(dev)
+    times["train"] = sp.seconds
 
-    t0 = time.perf_counter()
-    assigns = compute_assignments(x, centroids, cfg)
-    times["assign"] = time.perf_counter() - t0
+    with obs.clocked("build.assign", cat="build", rows=n) as sp:
+        assigns = compute_assignments(x, centroids, cfg)
+    times["assign"] = sp.seconds
 
-    t0 = time.perf_counter()
-    codes = pq_encode(codebook, x).cpu().numpy()
-    times["encode"] = time.perf_counter() - t0
+    with obs.clocked("build.encode", cat="build", rows=n) as sp:
+        codes = obs.to_host(pq_encode(codebook, x)).numpy()
+    times["encode"] = sp.seconds
 
-    t0 = time.perf_counter()
-    # SEIL shares cells of two lists; m-assignment stores every copy
-    arrays, stats = build_seil(
-        assigns, codes, np.arange(n, dtype=np.int32), cfg.nlist,
-        block=cfg.block, shared=cfg.seil and cfg.multi_m == 2,
-        code_bits=cfg.nbits, device=dev)
-    _sync(dev)
-    times["layout"] = time.perf_counter() - t0
+    with obs.clocked("build.layout", cat="build", rows=n) as sp:
+        # SEIL shares cells of two lists; m-assignment stores every copy
+        arrays, stats = build_seil(
+            assigns, codes, np.arange(n, dtype=np.int32), cfg.nlist,
+            block=cfg.block, shared=cfg.seil and cfg.multi_m == 2,
+            code_bits=cfg.nbits, device=dev)
+        _sync(dev)
+    times["layout"] = sp.seconds
 
     return RairsIndex(config=cfg, centroids=centroids, codebook=codebook,
                       arrays=arrays, vectors=x, stats=stats,

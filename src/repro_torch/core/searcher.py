@@ -23,7 +23,11 @@ signature (``engine/cluster.py``), and the scan runs at the smallest
 width bucket covering the live entries.  While a tracer is active
 (``obs/``) the whole-pipeline dispatch goes through the stage-fenced
 ``seil_search_traced`` instead, and the plan-reuse dispatch fences its
-probe / merge / scan boundaries; results stay bitwise equal.
+probe / merge / scan boundaries; results stay bitwise equal.  The
+host merge runs in four spans (``merge.d2h``, ``merge.signatures``,
+``merge.union``, ``merge.h2d``), and while timing is on (``obs.timing``)
+with no tracer active each call's graph replays are timed into
+``timing``, a ``DeviceTime``.
 
 With ``refine`` (the two-tier search) the session resolves the compact
 plane once (``index.plane``) and its executables scan the plane's packed
@@ -122,6 +126,8 @@ class Searcher:
         self._arrays, self._codebook, self._packed = self._scan_state()
         self.stats = SearcherStats()
         self.plan_stats = PlanStats()
+        # device time of this session's graph replays while timing is on
+        self.timing = obs.DeviceTime()
         self._compiled: Dict[Any, Any] = {}
         # per dispatch bucket, a signature-keyed map of cached tile unions
         # ((list, run) -> (W,) row), LRU-bounded
@@ -191,7 +197,8 @@ class Searcher:
         ``inputs`` on the card, the eager function on the CPU."""
         if self._pool is None:
             return fn
-        return GraphExe(fn, inputs, pool=self._pool, clone=clone)
+        return GraphExe(fn, inputs, pool=self._pool, clone=clone,
+                        timing=self.timing)
 
     def _get_exe(self, key, make, cache=None):
         cache = self._compiled if cache is None else cache
@@ -202,7 +209,10 @@ class Searcher:
             self.stats.compiles += 1
         else:
             self.stats.cache_hits += 1
-        return cache[key]
+        exe = cache[key]
+        if isinstance(exe, GraphExe):  # a stream's probe graphs outlive
+            exe.timing = self.timing   # the session that captured them
+        return exe
 
     def _probe_exe_store(self) -> dict:
         """Where plan_reuse probe executables live.  The probe half reads
@@ -307,51 +317,57 @@ class Searcher:
         with obs.span("stage.probe_plan", cat="device", bucket=bucket):
             qp, pr = obs.fence(probe(qc))
         with obs.span("stage.merge_unions_host", cat="host") as msp:
-            own = pr.unions.cpu().numpy()
-            t, w = own.shape
+            with obs.span("merge.d2h", cat="host"):
+                own = obs.to_host(pr.unions).numpy()
+                t, w = own.shape
+                if t > 1:
+                    sel = obs.to_host(pr.sel).numpy()
+                    perm = obs.to_host(pr.perm).numpy()
             deep_split = 0
-            if t == 1:                 # grouped: one batch-wide union
-                sigs = [(0, 0)]
-            else:                      # clustered: name tiles by working set
-                rows = (pr.sel.cpu().numpy()[pr.perm.cpu().numpy()]
-                        [::bucket // t])
-                sigs = tile_signatures(rows[:, 0], deep=rows)
-                deep_split = (len({(s[0], s[1]) for s in sigs})
-                              - len({s[0] for s in sigs}))
-            cache = self._plan_cache.setdefault(bucket,
-                                                collections.OrderedDict())
-            cached = [cache.get(s) for s in sigs]
-            present = np.array([r is not None for r in cached])
-            if present.any():
-                pad = np.full(w, int(BIG), own.dtype)
-                used, hit, ext = merge_unions_host(
-                    np.stack([pad if r is None else r for r in cached]), own,
-                    present)
-            else:
-                used, hit, ext = merge_unions_host(None, own)
-            for s, row in zip(sigs, used):
-                cache[s] = row
-                cache.move_to_end(s)
-            while len(cache) > max(64, 4 * t):  # bound drifting signatures
-                cache.popitem(last=False)
-            live = union_live(used)
-            wp = plan_width(int(live.max(initial=1)), w)
-            n_hit, n_ext = int(hit.sum()), int(ext.sum())
-            ps = self.plan_stats
-            ps.batches += 1
-            ps.tiles += t
-            ps.hits += n_hit
-            ps.extends += n_ext
-            ps.misses += t - n_hit - n_ext
-            ps.union_live_sum += int(live.sum())
-            ps.own_live_sum += int(union_live(own).sum())
-            ps.width_sum += wp * t
-            ps.sig_deep_split += deep_split
+            with obs.span("merge.signatures", cat="host"):
+                if t == 1:             # grouped: one batch-wide union
+                    sigs = [(0, 0)]
+                else:                  # clustered: name tiles by working set
+                    rows = sel[perm][::bucket // t]
+                    sigs = tile_signatures(rows[:, 0], deep=rows)
+                    deep_split = (len({(s[0], s[1]) for s in sigs})
+                                  - len({s[0] for s in sigs}))
+            with obs.span("merge.union", cat="host"):
+                cache = self._plan_cache.setdefault(
+                    bucket, collections.OrderedDict())
+                cached = [cache.get(s) for s in sigs]
+                present = np.array([r is not None for r in cached])
+                if present.any():
+                    pad = np.full(w, int(BIG), own.dtype)
+                    used, hit, ext = merge_unions_host(
+                        np.stack([pad if r is None else r for r in cached]),
+                        own, present)
+                else:
+                    used, hit, ext = merge_unions_host(None, own)
+                for s, row in zip(sigs, used):
+                    cache[s] = row
+                    cache.move_to_end(s)
+                while len(cache) > max(64, 4 * t):  # bound drifting sigs
+                    cache.popitem(last=False)
+                live = union_live(used)
+                wp = plan_width(int(live.max(initial=1)), w)
+                n_hit, n_ext = int(hit.sum()), int(ext.sum())
+                ps = self.plan_stats
+                ps.batches += 1
+                ps.tiles += t
+                ps.hits += n_hit
+                ps.extends += n_ext
+                ps.misses += t - n_hit - n_ext
+                ps.union_live_sum += int(live.sum())
+                ps.own_live_sum += int(union_live(own).sum())
+                ps.width_sum += wp * t
+                ps.sig_deep_split += deep_split
             msp.add(tiles=t, hits=n_hit, extends=n_ext,
                     misses=t - n_hit - n_ext, union_live=int(live.sum()),
                     width=wp, sig_deep_split=deep_split)
-            unions_w = torch.from_numpy(
-                np.ascontiguousarray(used[:, :wp])).to(self.device)
+            with obs.span("merge.h2d", cat="host"):
+                unions_w = torch.from_numpy(
+                    np.ascontiguousarray(used[:, :wp])).to(self.device)
         return qp, pr, unions_w
 
     # -- warmup -----------------------------------------------------------
@@ -395,9 +411,10 @@ class Searcher:
     def __call__(self, queries) -> SearchResult:
         self._check_current()
         dev = self.device
-        if isinstance(queries, np.ndarray):
-            queries = torch.from_numpy(queries)
-        q = queries.to(device=dev, dtype=torch.float32)
+        with obs.span("searcher.h2d", cat="host"):
+            if isinstance(queries, np.ndarray):
+                queries = torch.from_numpy(queries)
+            q = queries.to(device=dev, dtype=torch.float32)
         if q.dim() != 2:
             raise ValueError(f"queries must be (B, D), got shape "
                              f"{tuple(q.shape)}")
@@ -406,6 +423,7 @@ class Searcher:
         n = q.shape[0]
         outs = []
         s = 0
+        replays = self.timing.replays
         while s < n:
             b = min(n - s, self.params.max_chunk)
             bucket = self.params.bucket_for(b)
@@ -421,6 +439,8 @@ class Searcher:
                     r = SearchResult(*(a[:b] for a in r))
             outs.append(r)
             s += b
+        if self.timing.replays != replays:  # a call whose replays were timed
+            self.timing.calls += 1
         self.stats.calls += 1
         if len(outs) == 1:
             return outs[0]

@@ -66,6 +66,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ... import obs
 # module (not symbol) imports: the insert path sees a patched
 # index_mod.pq_encode / compute_assignments exactly as build_index does
 from .. import index as index_mod
@@ -624,50 +625,60 @@ class StreamingIndex:
                 f"got {x.shape}")
         if x.shape[0] == 0:
             return np.zeros(0, np.int64)
-        base, dev = self.base, self.device
-        xt = torch.from_numpy(x).to(dev)
-        assigns = np.asarray(index_mod.compute_assignments(
-            xt, base.centroids, base.config), np.int32)
-        codes = index_mod.pq_encode(base.codebook, xt).cpu().numpy()
-        nb = self.n_base
-        d = self._delta
-        cap0, width0 = d.capacity, d.post_width
-        slots, _ = d.append(x, codes, assigns)
-        ids = nb + slots
-        # issue permanent external handles (identical to the internal id
-        # at insert time; compaction remaps chain through _apply_remap)
-        ext = np.arange(self._ext_to_int.size,
-                        self._ext_to_int.size + ids.size, dtype=np.int64)
-        self._ext_to_int = np.concatenate([self._ext_to_int, ids])
-        self._int_to_ext = np.concatenate([self._int_to_ext, ext])
-        if self._dev is not None and d.capacity == cap0:
-            dv = self._dev
-            s0, s1 = int(slots[0]), int(slots[-1]) + 1
-            dv.vectors_full[nb + s0:nb + s1].copy_(xt)
-            dv.delta_codes[s0:s1].copy_(torch.from_numpy(codes))
-            dv.delta_ids[s0:s1].copy_(torch.from_numpy(ids.astype(np.int32)))
-            dv.delta_assigns[s0:s1].copy_(torch.from_numpy(assigns))
-            if d.post_width != width0:
-                # a posting-width jump: a wider mirror, and a new key for
-                # the routed sessions
-                dv.delta_post = _host_tensor(d.post, dev)
-                self._prune_executables()
-            else:
-                pl, pc, ps = d.last_post_update
-                if len(pl):
-                    dv.delta_post[torch.from_numpy(pl).to(dev),
-                                  torch.from_numpy(pc).to(dev)] = (
-                        torch.from_numpy(ps.astype(np.int32)).to(dev))
-            dv.live_full[nb + s0:nb + s1] = True
-        else:
-            self._dev = None   # capacity bucket jump: rebuild lazily
-        if d.capacity != cap0:
-            self._plane_delta.clear()
-        elif self._plane_delta:
-            from ...quant import encode_plane
-            s0, s1 = int(slots[0]), int(slots[-1]) + 1
-            for _, codec, buf in self._plane_delta.values():
-                buf[s0:s1].copy_(torch.from_numpy(encode_plane(codec, xt)))
+        with obs.span("stream.insert", cat="stream", rows=x.shape[0]):
+            base, dev = self.base, self.device
+            with obs.span("stream.insert.assign", cat="device"):
+                xt = torch.from_numpy(x).to(dev)
+                assigns = np.asarray(index_mod.compute_assignments(
+                    xt, base.centroids, base.config), np.int32)
+            with obs.span("stream.insert.encode", cat="device"):
+                codes = obs.to_host(index_mod.pq_encode(base.codebook,
+                                                        xt)).numpy()
+            nb = self.n_base
+            d = self._delta
+            cap0, width0 = d.capacity, d.post_width
+            with obs.span("stream.insert.host", cat="host"):
+                slots, _ = d.append(x, codes, assigns)
+                ids = nb + slots
+                # hand out permanent external handles (identical to the
+                # internal id at insert time; compaction remaps chain
+                # through _apply_remap)
+                n_ext = self._ext_to_int.size
+                ext = np.arange(n_ext, n_ext + ids.size, dtype=np.int64)
+                self._ext_to_int = np.concatenate([self._ext_to_int, ids])
+                self._int_to_ext = np.concatenate([self._int_to_ext, ext])
+            with obs.span("stream.insert.mirror", cat="device"):
+                if self._dev is not None and d.capacity == cap0:
+                    dv = self._dev
+                    s0, s1 = int(slots[0]), int(slots[-1]) + 1
+                    dv.vectors_full[nb + s0:nb + s1].copy_(xt)
+                    dv.delta_codes[s0:s1].copy_(torch.from_numpy(codes))
+                    dv.delta_ids[s0:s1].copy_(
+                        torch.from_numpy(ids.astype(np.int32)))
+                    dv.delta_assigns[s0:s1].copy_(torch.from_numpy(assigns))
+                    if d.post_width != width0:
+                        # a posting-width jump: a wider mirror, and a new
+                        # key for the routed sessions
+                        dv.delta_post = _host_tensor(d.post, dev)
+                        self._prune_executables()
+                    else:
+                        pl, pc, ps = d.last_post_update
+                        if len(pl):
+                            dv.delta_post[torch.from_numpy(pl).to(dev),
+                                          torch.from_numpy(pc).to(dev)] = (
+                                torch.from_numpy(ps.astype(np.int32)).to(dev))
+                    dv.live_full[nb + s0:nb + s1] = True
+                else:
+                    self._dev = None   # capacity bucket jump: rebuild lazily
+                if d.capacity != cap0:
+                    self._plane_delta.clear()
+                elif self._plane_delta:
+                    from ...quant import encode_plane
+                    s0, s1 = int(slots[0]), int(slots[-1]) + 1
+                    for _, codec, buf in self._plane_delta.values():
+                        buf[s0:s1].copy_(
+                            torch.from_numpy(encode_plane(codec, xt)))
+                obs.fence(xt)
         self.version += 1
         self.stats.inserts += x.shape[0]
         epoch_before = self.epoch
@@ -687,6 +698,7 @@ class StreamingIndex:
         dv.live_full[torch.from_numpy(ids).to(dev)] = False
         if dslots.size:
             dv.delta_ids[torch.from_numpy(dslots).to(dev)] = -1
+        obs.fence(dv.live_full)
 
     def delete(self, ids) -> int:
         """Tombstone `ids` (base and/or delta); returns how many were
@@ -694,23 +706,27 @@ class StreamingIndex:
         ids raise.  O(batch): bitmap scatter, no layout rewrite."""
         if torch.is_tensor(ids):
             ids = ids.detach().cpu().numpy()
-        ids = np.unique(np.asarray(ids, np.int64).ravel())
+        ids = np.asarray(ids, np.int64).ravel()
         if ids.size == 0:
             return 0
-        if ids[0] < 0 or ids[-1] >= self.n_total:
-            raise ValueError(
-                f"delete ids out of range [0, {self.n_total})")
-        nb = self.n_base
-        bids = ids[ids < nb]
-        dslots = ids[ids >= nb] - nb
-        newly_base = int(self._base_live[bids].sum())
-        newly = newly_base + int(self._delta.live[dslots].sum())
-        if newly == 0:
-            return 0        # idempotent retry: nothing changed, nothing stales
-        self._base_live[bids] = False
-        self._dead_base += newly_base
-        self._delta.mark_dead(dslots)
-        self._mask_device(ids, dslots)
+        with obs.span("stream.delete", cat="stream", rows=ids.size):
+            with obs.span("stream.delete.host", cat="host"):
+                ids = np.unique(ids)
+                if ids[0] < 0 or ids[-1] >= self.n_total:
+                    raise ValueError(
+                        f"delete ids out of range [0, {self.n_total})")
+                nb = self.n_base
+                bids = ids[ids < nb]
+                dslots = ids[ids >= nb] - nb
+                newly_base = int(self._base_live[bids].sum())
+                newly = newly_base + int(self._delta.live[dslots].sum())
+                if newly == 0:
+                    return 0    # idempotent retry: nothing changed
+                self._base_live[bids] = False
+                self._dead_base += newly_base
+                self._delta.mark_dead(dslots)
+            with obs.span("stream.delete.mirror", cat="device"):
+                self._mask_device(ids, dslots)
         self.version += 1
         self.stats.deletes += newly
         self._maybe_auto_compact()
@@ -927,7 +943,10 @@ class StreamingIndex:
             query_tile=query_tile), device=device)(queries)
 
     def _fold_session(self, sess: "Searcher"):
-        for key, v in sess.stats.as_dict().items():
+        obs.settle()
+        folded = dict(sess.stats.as_dict(), timed_calls=sess.timing.calls,
+                      timed_device_s=sess.timing.seconds)
+        for key, v in folded.items():
             self._retired[key] = self._retired.get(key, 0) + v
 
     def _retire_sessions(self):
@@ -936,8 +955,9 @@ class StreamingIndex:
         self._sessions.clear()
 
     def searcher_stats(self) -> dict:
-        """Aggregate compile-cache stats over live + retired sessions,
-        extending ``RairsIndex.searcher_stats`` with epoch fields."""
+        """Aggregate compile-cache stats and replay device time over
+        live + retired sessions, extending ``RairsIndex.searcher_stats``
+        with epoch fields."""
         live = list(self._sessions.values())
         out = {
             "sessions": self.stats.sessions,
@@ -948,6 +968,11 @@ class StreamingIndex:
         for key in ("compiles", "cache_hits"):
             out[key] = (self._retired.get(key, 0)
                         + sum(getattr(s.stats, key) for s in live))
+        obs.settle()
+        out["timed_calls"] = (self._retired.get("timed_calls", 0)
+                              + sum(s.timing.calls for s in live))
+        out["timed_device_s"] = (self._retired.get("timed_device_s", 0.0)
+                                 + sum(s.timing.seconds for s in live))
         out["base"] = self.base.searcher_stats()
         return out
 

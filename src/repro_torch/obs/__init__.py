@@ -9,7 +9,12 @@ span, no device synchronize, no recorded work) until ``start()``
 installs an active tracer.  With one active, sessions dispatch through
 the stage-fenced ``seil_search_traced`` and each fence is a
 ``torch.cuda.synchronize``, so a stage's span covers its device time;
-results stay bitwise equal.
+results stay bitwise equal.  While ``torch.profiler`` collects, spans
+are also the profiler's annotations, tracer or not; and while either is
+on, CUDA graph replays are timed by CUDA events without changing the
+dispatch: with the tracer off into the sessions' ``DeviceTime``
+(``timed_calls`` / ``timed_device_s`` of an index's ``searcher_stats``),
+with it on onto the replay's span.
 
 Export paths:
   * ``write_trace`` — Chrome/Perfetto trace-event JSON;
@@ -24,12 +29,14 @@ from .export import (to_prometheus, to_trace_events,  # noqa: F401
                      validate_trace, write_trace)
 from .stats import (scan_traffic_model, session_traffic_model,  # noqa: F401
                     snapshot_all)
-from .tracer import (Tracer, enabled, fence, span, start, stop,  # noqa: F401
-                     trace, tracer, work_count)
+from .tracer import (DeviceTime, Tracer, clocked, enabled,  # noqa: F401
+                     events_taken, fence, replay_span, settle, span, start,
+                     stop, timing, to_host, trace, tracer, work_count)
 
 __all__ = [
     "Tracer", "enabled", "fence", "span", "start", "stop", "trace",
-    "tracer", "work_count",
+    "tracer", "work_count", "clocked", "to_host", "timing", "DeviceTime",
+    "replay_span", "settle", "events_taken",
     "to_trace_events", "write_trace", "validate_trace", "to_prometheus",
     "snapshot_all", "scan_traffic_model", "session_traffic_model",
 ]

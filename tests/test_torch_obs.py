@@ -106,13 +106,29 @@ def test_disabled_tracing_does_no_work(tindex, unit_data):
     qs = torch.from_numpy(np.array(q[:32]))
     s(qs)
     assert not obs.enabled() and obs.tracer() is None
-    w0 = obs.work_count()
+    w0, taken = obs.work_count(), obs.events_taken()
     s(qs)
     assert obs.work_count() == w0           # no span, event or fence
+    assert obs.events_taken() == taken      # no replay timed
+    assert not obs.timing()
     assert obs.span("a", cat="device") is obs.span("b")
+    assert obs.replay_span("r", s.timing) is obs.span("b")
     x = torch.arange(3)
     assert obs.fence(x) is x
+    assert torch.equal(obs.to_host(x), x)
     assert obs.work_count() == w0
+    # the profiler alone: its annotations, nothing recorded here
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = s(qs)
+    assert obs.work_count() == w0 and obs.tracer() is None
+    assert obs.events_taken() == taken and s.timing.calls == 0
+    names = {e.name for e in prof.events()}
+    assert {"searcher.h2d", "searcher.dispatch", "stage.merge_unions_host",
+            "merge.union"} <= names
+    want = s(qs)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 # ---------------------------------------------------------------------------
