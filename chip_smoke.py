@@ -137,7 +137,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 sessions and at 262,144 against one shard, a pinned
                 session stale after the deletes, the shards placed anew
                 after the compaction;
-     stream   — streaming on the main index's configuration: a draw of
+     stream   — first the routed delta scan's kernel bitwise against
+                its plain version on synthetic deltas at the churn
+                cell's shapes (capacity 262,144, nprobe 32, fetch 200,
+                posting width 256 / 512, B 1024 / 64, K 16 / 256, L2
+                and inner-product tables; its GT and GS forms), each
+                timed beside the plain version (graph replays); then
+                streaming on the main index's configuration: a draw of
                 n + n/4 vectors of the sift1m spec, the index built on the
                 first n, the last n/4 inserted in 8 batches (append
                 vectors/s); the six modes at capacity 131,072
@@ -289,6 +295,15 @@ MULTI_N, MULTI_INDEX = 80_000, dict(INDEX, nlist=1024, seil=False,
 # (half of them reach capacity 131,072 = nlist * block at n = 1M, the last
 # exhaustive bucket; all of them 262,144, routed)
 STREAM_BATCHES = 8
+# the routed delta scan's kernel held and timed at the churn cell's routed
+# delta (capacity 262,144, nprobe 32 of 4096 lists, M 64, fetch 200) at
+# each posting width, batch and K, L2 and inner-product tables; then its
+# GT form (M 256, K 256: 256 KB of table) and its GS form (fetch 9000)
+DELTA_CHECK = dict(cap=262_144, nlist=4096, p=32, m=64)
+DELTA_FETCH = 200
+DELTA_WIDTHS, DELTA_BATCHES, DELTA_KS = (256, 512), (1024, 64), (16, 256)
+DELTA_FORM_CASES = (("GT", dict(m=256, k=256), 64, DELTA_FETCH),
+                    ("GS", dict(width=512), 64, 9000))
 # the largest gap between two assignment decisions, relative to
 # |x|^2 + |c|^2, that an f32 distance matmul may round either way
 TIE_REL = 1e-5
@@ -2687,6 +2702,92 @@ def stream_hold(torch, stream, q, lookups_per_s):
     return rows
 
 
+def delta_inputs(torch, dev, seed, b, *, cap, nlist=4096, p=32, m=64, k=16,
+                 width=256, signed=False):
+    """Routed-delta inputs made on the card from ``seed``: (lut, codes,
+    ids, post, assigns, sel, rank_of) as ``ops.delta_scan_topk`` takes
+    them.  Uniform codes, 5% dead slots, two assigned lists a slot,
+    uniform over the lists (above width 256 a quarter of the slots' first
+    list among 256 hot lists, so that their rows pass 256); postings in
+    slot order, each row a prefix of slots (past the width left out);
+    ``p`` distinct random lists a query and their ranks (2**30
+    elsewhere); tables uniform in [0, 4), or in [-2, 2) where ``signed``
+    (inner product)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lut = torch.rand((b, m, k), generator=g, device=dev) * 4
+    if signed:
+        lut -= 2
+    codes = torch.randint(0, k, (cap, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    ids = torch.arange(cap, dtype=torch.int32, device=dev) + 1_000_000
+    ids[torch.rand(cap, generator=g, device=dev) < 0.05] = -1
+    assigns = torch.randint(0, nlist, (cap, 2), generator=g, device=dev,
+                            dtype=torch.int32)
+    if width > 256:
+        hot = torch.rand(cap, generator=g, device=dev) < 0.25
+        assigns[:, 0] = torch.where(hot, assigns[:, 0] % 256, assigns[:, 0])
+    # postings: each slot under its distinct lists, in slot order
+    lists = torch.cat([assigns[:, 0], assigns[:, 1]])
+    slots = torch.arange(cap, device=dev).repeat(2)
+    keep = torch.cat([torch.ones(cap, dtype=torch.bool, device=dev),
+                      assigns[:, 1] != assigns[:, 0]])
+    lists, slots = lists[keep].long(), slots[keep]
+    order = torch.sort(lists * cap + slots).indices
+    lists, slots = lists[order], slots[order]
+    start = torch.searchsorted(lists, torch.arange(nlist, device=dev))
+    col = torch.arange(lists.numel(), device=dev) - start[lists]
+    post = torch.full((nlist, width), -1, dtype=torch.int32, device=dev)
+    fit = col < width
+    post[lists[fit], col[fit]] = slots[fit].to(torch.int32)
+    sel = torch.stack([torch.randperm(nlist, generator=g, device=dev)[:p]
+                       for _ in range(b)]).to(torch.int32)
+    rank_of = torch.full((b, nlist), 2 ** 30, dtype=torch.int32, device=dev)
+    rank_of.scatter_(1, sel.long(), torch.arange(
+        p, dtype=torch.int32, device=dev).expand(b, p).contiguous())
+    return lut, codes, ids, post, assigns, sel, rank_of
+
+
+def delta_hold(torch, dev, seed):
+    """The routed delta scan's kernel (``ops.delta_scan_topk``) bitwise
+    against its plain version (``routed_delta_topk``: ids, distances, the
+    kept count and the walk) at ``DELTA_CHECK``'s shapes, one launch a
+    call in the form its shape names, each timed by graph replays beside
+    the plain version (module docstring, phase stream)."""
+    from repro_torch.core.stream.search import routed_delta_topk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pq_scan import delta_scan_topk_kernel as kern
+    cases = [(f"L {w} K {k} {'ip' if signed else 'l2'}", dict(width=w, k=k,
+              signed=signed), b, DELTA_FETCH, "shared")
+             for w in DELTA_WIDTHS for k in DELTA_KS
+             for signed in (False, True) for b in DELTA_BATCHES]
+    cases += [(f"form {form}", kw, b, fetch, form)
+              for form, kw, b, fetch in DELTA_FORM_CASES]
+    for i, (what, kw, b, fetch, form) in enumerate(cases):
+        shape = dict(DELTA_CHECK, **kw)
+        args = delta_inputs(torch, dev, seed + i, b, **shape)
+        forms = dict(kern.forms)
+        got = ops.delta_scan_topk(*args, fetch=fetch)
+        want = routed_delta_topk(*args, fetch)
+        torch.cuda.synchronize()
+        check(kern.forms[form] == forms[form] + 1
+              and sum(kern.forms.values()) == sum(forms.values()) + 1,
+              f"delta scan {what} B={b}: not one launch of form {form}")
+        for name, g_, w_ in zip(("distances", "ids", "dco", "walked"), got,
+                                want):
+            check(torch.equal(g_, w_), f"delta scan {what} B={b}: {name} "
+                  "differ from the plain version")
+        ms = graph_ms(torch, lambda: ops.delta_scan_topk(*args, fetch=fetch))
+        plain_ms = graph_ms(torch, lambda: routed_delta_topk(*args, fetch),
+                            calls=2, reps=2)
+        kept, walked = got[2].double().mean(), got[3].double().mean()
+        log(f"delta scan {what} B={b} fetch {fetch}: kernel bitwise the "
+            f"plain version ({form} form); {ms:.4f} ms (graph replays), "
+            f"plain {plain_ms:.4f} ms; kept {kept:.1f} of {walked:.1f} "
+            f"walked a query, cap {shape['cap']}, P*L "
+            f"{shape['p'] * shape.get('width', 256)}")
+        del args, got, want
+
+
 def stream_path(torch, dev, args, lookups_per_s):
     """Streaming on the main index's configuration (module docstring,
     phase stream).  Returns (kernel rows, launches of the six-mode runs by
@@ -2695,6 +2796,7 @@ def stream_path(torch, dev, args, lookups_per_s):
                                   build_seil_call_count)
     from repro_torch.data import make_dataset
     from repro_torch.kernels.pq_scan import launch_counts, reset_launch_counts
+    delta_hold(torch, dev, args.seed)
     n, n_ins = args.n, args.n // 4
     per = n_ins // STREAM_BATCHES
     x, q, _ = make_dataset("sift1m", args.seed, n=n + n_ins,
@@ -2743,6 +2845,8 @@ def stream_path(torch, dev, args, lookups_per_s):
               == launches[kern], f"stream: {kern} launches "
               f"{launches[kern]}, {launches[f'{kern}[{form}]']} {form}")
     check(launches["merge_topk_kernel"] > 0, "stream: no merge launch")
+    check(args.n != 1_000_000 or launches["delta_scan_topk_kernel"] > 0,
+          "stream: the routed delta scan launched no kernel")
     log(f"stream: launches over the twelve runs {json.dumps(launches)}")
     # deletes: half base, half delta
     rng = np.random.default_rng(args.seed)

@@ -23,27 +23,32 @@ DCO: the exhaustive path counts one ADC distance per live slot per
 query, the routed path one per live slot reachable through the probed
 lists; dead slots cost nothing.
 
-The delta scan is a torch gather-and-sum (the reference's is plain JAX,
-no Pallas), summed over ascending m as K1 sums.  The exhaustive scan,
-whose codes every query shares, is one ``F.embedding_bag(mode="sum")``
-a chunk: a bag a slot over its M rows of the chunk's (M * K, B) table,
-added in order from zero (``chip_smoke.py`` holds it bitwise against a
-loop of one gather and one add per m on the card, and
-``tools/delta_scan_chunks.py`` times both: 4.2x faster at capacity
-131,072).  The routed scan, whose rows differ by query, runs that loop
-(a bag a query and slot was 1.9x slower there).  The reference
-materialises (B, C, M) lookups; here the batch is cut into query chunks
-of at most ``DELTA_CHUNK_BYTES`` (256 MiB) of working set, counted from
-the temporaries each chunk holds at once (exhaustive: 40 bytes a query
-and slot, the f32 sums, their masked copy and the int64 selection keys;
+The routed scan with its top-``fetch`` cut is one hand-written kernel on
+the card (``kernels/ops.py::delta_scan_topk``, ``csrc/delta_scan_topk.cu``):
+a CTA a query walks each probed list's postings up to its first pad and
+scores only the kept slots against the query's table in shared memory,
+over ascending m as K1 sums, keeping the stable top-``fetch``.  Its plain
+version (``routed_delta_topk``, the CPU's path) and the exhaustive scan
+(on every device; the reference's is plain JAX, no Pallas) are torch
+gather-and-sums.  The exhaustive scan, whose codes every query shares,
+is one ``F.embedding_bag(mode="sum")`` a chunk: a bag a slot over its M
+rows of the chunk's (M * K, B) table, added in order from zero
+(``chip_smoke.py`` holds it bitwise against a loop of one gather and one
+add per m on the card, and ``tools/delta_scan_chunks.py`` times both:
+4.2x faster at capacity 131,072).  The plain routed scan, whose rows
+differ by query, runs that loop.  The reference materialises (B, C, M)
+lookups; the plain versions cut the batch into query chunks of at most
+``DELTA_CHUNK_BYTES`` (256 MiB) of working set, counted from the
+temporaries each chunk holds at once (exhaustive: 40 bytes a query and
+slot, the f32 sums, their masked copy and the int64 selection keys;
 routed: ``P * L * (2 M + 16 m + 48)`` bytes a query, the gathered code
-rows, the assigned lists' ranks, the sums and the keys), so the peak of
-the delta scan stays near 256 MiB at any batch and capacity.  Each
-chunk keeps only its stable top-``fetch`` delta candidates (``fetch``
-the finalize budget, ``finalize_fetch``): finalize's stable selection
-over the base stream followed by the delta stream gives the same
-candidates from those alone, in the same order, so the results are the
-reference's.
+rows, the assigned lists' ranks, the sums and the keys), so their peak
+stays near 256 MiB at any batch and capacity; the kernel holds no such
+temporaries.  Each query keeps only its stable top-``fetch`` delta
+candidates (``fetch`` the finalize budget, ``finalize_fetch``):
+finalize's stable selection over the base stream followed by the delta
+stream gives the same candidates from those alone, in the same order, so
+the results are the reference's.
 
 ``scan_finalize_stream`` is the streaming scan half of a ``plan_reuse``
 session (the counterpart of ``core/search.py::scan_finalize``).
@@ -54,6 +59,8 @@ import torch
 import torch.nn.functional as F
 
 from ... import obs
+from ...kernels import ops
+from ...kernels.pq_scan import delta_scan_topk_kernel
 from ..engine import (PlanProbe, finalize_candidates, plan_blocks,
                       scan_blocks, scan_blocks_topk, select_lists,
                       store_from_arrays, tables_from_arrays)
@@ -177,15 +184,31 @@ def routed_delta_candidates(lut, delta_codes, delta_ids, delta_post,
                           delta_assigns, sel, rank_of)
 
 
+def routed_delta_topk(lut, delta_codes, delta_ids, delta_post,
+                      delta_assigns, sel, rank_of, fetch: int):
+    """The plain version of ``kernels/pq_scan.py::delta_scan_topk_kernel``
+    (the CPU's routed delta scan): ``routed_delta_candidates`` with each
+    query's stream cut to its stable top-``fetch`` in query chunks, and
+    the posted slots each query reads.  Returns ``(dd, di, dco,
+    walked)``."""
+    dd, di, dco = _routed_chunks(lut, delta_codes, delta_ids, delta_post,
+                                 delta_assigns, sel, rank_of, fetch)
+    walked = (delta_post[sel.long()] >= 0).sum(dim=(1, 2), dtype=torch.int32)
+    return dd, di, dco, walked
+
+
 def _delta_candidates(lut, delta_codes, delta_ids, delta_post,
                       delta_assigns, sel, rank_of, route_delta: bool,
                       fetch: int):
-    """``(dd, di, per-query delta DCO)`` through the routed or exhaustive
-    path, each query's stream cut to its stable top-``fetch``."""
+    """``(dd, di, per-query delta DCO, walked)`` through the routed scan
+    (``ops.delta_scan_topk``: the kernel on the card; ``walked`` the
+    posted slots each query read) or the exhaustive one (``walked``
+    None), each query's stream cut to its stable top-``fetch``."""
     if route_delta:
-        return _routed_chunks(lut, delta_codes, delta_ids, delta_post,
-                              delta_assigns, sel, rank_of, fetch)
-    return exhaustive_delta_candidates(lut, delta_codes, delta_ids, fetch)
+        return ops.delta_scan_topk(lut, delta_codes, delta_ids, delta_post,
+                                   delta_assigns, sel, rank_of, fetch=fetch)
+    return (*exhaustive_delta_candidates(lut, delta_codes, delta_ids, fetch),
+            None)
 
 
 def exhaustive_delta_candidates(lut, delta_codes, delta_ids, fetch: int):
@@ -254,7 +277,7 @@ def streaming_search(
                            selection.rank_of, exec_mode=exec_mode,
                            query_tile=query_tile, sel=selection.sel,
                            packed=packed_codes)
-    dd, di, delta_dco = _delta_candidates(
+    dd, di, delta_dco, _ = _delta_candidates(
         lut, delta_codes, delta_ids, delta_post, delta_assigns,
         selection.sel, selection.rank_of, route_delta, fetch)
     out_ids, out_d, refine_dco = finalize_candidates(
@@ -275,7 +298,9 @@ def streaming_search_traced(
 ) -> SearchResult:
     """Stage-fenced ``streaming_search`` for tracing: the same
     composition, a span and a fence per stage, and the delta scan in a
-    span of its own (``stage.delta_scan``, counter ``delta_dco``)."""
+    span of its own (``stage.delta_scan``; counters ``delta_dco``,
+    ``kernel``: 1 where the delta scan's kernel ran, and on the routed
+    path ``delta_walked``: posted slots read, summed over queries)."""
     fetch = finalize_fetch(bigk, oversample, dedup_results)
     with obs.span("stage.select_lists", cat="device", nprobe=nprobe):
         selection = obs.fence(_stage_select(centroids, queries,
@@ -295,10 +320,14 @@ def streaming_search_traced(
                scanned_blocks=int(scan.scanned_blocks.sum()))
     with obs.span("stage.delta_scan", cat="device",
                   routed=bool(route_delta)) as sp:
-        dd, di, delta_dco = obs.fence(_delta_candidates(
+        launches = delta_scan_topk_kernel.launches
+        dd, di, delta_dco, walked = obs.fence(_delta_candidates(
             lut, delta_codes, delta_ids, delta_post, delta_assigns,
             selection.sel, selection.rank_of, route_delta, fetch))
-        sp.add(delta_dco=int(delta_dco.sum()))
+        sp.add(delta_dco=int(delta_dco.sum()),
+               kernel=int(delta_scan_topk_kernel.launches > launches))
+        if walked is not None:
+            sp.add(delta_walked=int(walked.sum()))
     with obs.span("stage.finalize", cat="device") as sp:
         out_ids, out_d, refine_dco = obs.fence(finalize_candidates(
             scan.flat_d, scan.flat_i, bigk=bigk, k=k, vectors=vectors,
@@ -343,7 +372,7 @@ def scan_finalize_stream(
         exec_mode=exec_mode, query_tile=query_tile, fused_topk=fused_topk,
         perm=probe.perm, unions=unions, packed_codes=packed_codes,
         live=live if fused_topk else None)
-    dd, di, delta_dco = _delta_candidates(
+    dd, di, delta_dco, _ = _delta_candidates(
         probe.lut, delta_codes, delta_ids, delta_post, delta_assigns,
         probe.sel, probe.rank_of, route_delta, fetch)
     out_ids, out_d, refine_dco = finalize_candidates(

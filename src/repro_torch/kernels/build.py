@@ -18,8 +18,9 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pq_scan.cu", "pq_scan_topk.cu", "topk_select.cu")
-HEADERS = ("adc.cuh",)
+SOURCES = ("pq_scan.cu", "pq_scan_topk.cu", "topk_select.cu",
+           "delta_scan_topk.cu")
+HEADERS = ("adc.cuh", "queue_select.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,6 +48,12 @@ _SIGNATURES = {
         "topk_select_launch": ([_VOID] * 8 + [_INT] * 4 + [_VOID], _INT),
         "topk_select_smem_bytes": ([_INT] * 2, ctypes.c_size_t),
         "topk_select_scratch_words": ([_INT] * 2, ctypes.c_size_t),
+    },
+    "delta_scan_topk": {
+        "delta_scan_topk_launch": ([_VOID] * 13 + [_INT] * 13 + [_VOID],
+                                   _INT),
+        "delta_scan_topk_smem_bytes": ([_INT] * 6, ctypes.c_size_t),
+        "delta_scan_topk_ctas_per_sm": ([_INT, ctypes.c_size_t], _INT),
     },
 }
 

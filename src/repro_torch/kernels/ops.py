@@ -12,8 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .pq_scan import (pq_scan_paged_kernel, pq_scan_tiled_kernel,
-                      pq_scan_topk_kernel)
+from .pq_scan import (delta_scan_topk_kernel, pq_scan_paged_kernel,
+                      pq_scan_tiled_kernel, pq_scan_topk_kernel)
 
 
 def align(lut: torch.Tensor, block_codes: torch.Tensor, packed: bool):
@@ -83,3 +83,16 @@ def pq_scan_topk(lut, block_codes, block_ids, block_other, tile_idx,
         None if dead is None else dead.to(torch.uint8).contiguous(),
         query_tile=query_tile, fetch=fetch, packed=packed,
         plan_width=plan_width)
+
+
+def delta_scan_topk(lut, delta_codes, delta_ids, delta_post, delta_assigns,
+                    sel, rank_of, *, fetch: int):
+    """The stream's routed delta scan, each query's stream cut to its
+    stable top-``fetch``: ``(dd, di, dco, walked)`` (see
+    ``pq_scan.delta_scan_topk_kernel``)."""
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+    return delta_scan_topk_kernel(
+        lut.to(torch.float32).contiguous(), delta_codes.contiguous(),
+        i32(delta_ids), i32(delta_post), i32(delta_assigns), i32(sel),
+        i32(rank_of), fetch=fetch)

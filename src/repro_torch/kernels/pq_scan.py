@@ -1,10 +1,11 @@
 """Wrappers of the CUDA scan kernels (K1, K3 and its merge, the row
-select) and the paged entry (K2).
+select, the stream's routed delta scan) and the paged entry (K2).
 
-Each wrapper takes its plain version (``ref.py``) only for tensors on
-the CPU.  For CUDA tensors it checks dtype, shape and contiguity,
-launches its kernel on PyTorch's current stream, raises on any launch
-error, and adds one to its ``launches`` counter.  There is no fallback
+Each wrapper takes its plain version (``ref.py``; the delta scan's in
+``core/stream/search.py``) only for tensors on the CPU.  For CUDA
+tensors it checks dtype, shape and contiguity, launches its kernel on
+PyTorch's current stream, raises on any launch error, and adds one to
+its ``launches`` counter.  There is no fallback
 from kernel to plain version on the card.
 """
 from __future__ import annotations
@@ -41,6 +42,15 @@ K3_FORMS = ("shared", "GT", "GS", "k256", "GT-ldg")
 K1_STAGED_QUERIES = 8
 K1_STAGED_PASS = 8 * K1_THREADS
 _K1_STAGED_TARGET = 2 * 132  # staged CTAs: about two an SM on the H100
+# The delta scan's form bits (csrc/delta_scan_topk.cu's F_*): the table read
+# from global memory, the rank_of row staged in shared memory, kept triples
+# appended to candidate rows (no selection state in shared memory); tried
+# in this order, the table kept in shared memory before the rank row
+DELTA_GT, DELTA_RANK, DELTA_GS = 1, 2, 4
+_DELTA_ORDER = tuple(gs | gt | rank for gs in (0, DELTA_GS)
+                     for gt in (0, DELTA_GT) for rank in (DELTA_RANK, 0))
+# its forms by name, indexed by the GT and GS bits
+DELTA_FORMS = ("shared", "GT", "GS", "GT-GS")
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -766,8 +776,144 @@ def pq_scan_topk_kernel(lut, block_codes, block_ids, block_other, tile_idx,
 pq_scan_topk_kernel.launches = 0
 pq_scan_topk_kernel.forms = dict.fromkeys(K3_FORMS, 0)
 
+def delta_form(m: int, k: int, nlist: int, p: int, fw: int, smem_of) -> int:
+    """The delta scan's form from the shape alone: the first of
+    ``_DELTA_ORDER`` whose CTA, ``smem_of(m, k, nlist, p, fw, form)``
+    bytes, fits a block's shared memory.  The query's table leaves shared
+    memory only where the rank_of row has left it first and the CTA still
+    does not fit; the selection state (six FW-wide arrays) only where
+    neither move makes it fit.  Raises ``ValueError`` where even the
+    probed lists and their offsets pass a block's shared memory."""
+    for form in _DELTA_ORDER:
+        if smem_of(m, k, nlist, p, fw, form) <= SMEM_LIMIT:
+            return form
+    raise ValueError(f"delta scan: {p} probed lists need more than the "
+                     f"{SMEM_LIMIT} B of shared memory a Hopper block may use")
+
+
+def delta_form_name(form: int) -> str:
+    """The name in ``DELTA_FORMS`` of a form's GT and GS bits."""
+    return DELTA_FORMS[(form & DELTA_GT) | (form & DELTA_GS) >> 1]
+
+
+def delta_splits(b: int, p: int, wave: int) -> int:
+    """CTAs the delta scan splits a query's walk over, from the batch
+    alone: as many as keep the ``b`` queries' CTAs within one wave of
+    ``wave`` (those the card holds at once), at most one a probed list of
+    the ``p``; 1 where the batch alone fills a wave."""
+    return max(1, min(wave // max(b, 1), p))
+
+
+@functools.lru_cache(maxsize=None)
+def _delta_ctas(form: int, smem: int, device_index: int) -> int:
+    """Delta-scan CTAs of this form and shared memory that the card holds
+    at once (``delta_scan_topk_ctas_per_sm`` times the SMs)."""
+    lib = build.load("delta_scan_topk")
+    with torch.cuda.device(device_index):
+        per_sm = lib.delta_scan_topk_ctas_per_sm(form, smem)
+    if per_sm < 1:
+        raise RuntimeError(f"delta scan: occupancy query failed ({per_sm}) "
+                           f"for {smem} B of shared memory")
+    props = torch.cuda.get_device_properties(device_index)
+    return per_sm * props.multi_processor_count
+
+
+def delta_scan_topk_kernel(lut, delta_codes, delta_ids, delta_post,
+                           delta_assigns, sel, rank_of, *, fetch: int):
+    """The stream's routed delta scan with each query's stable
+    top-``fetch`` (``csrc/delta_scan_topk.cu``).  lut (B, M, K) f32,
+    delta_codes (cap, M) uint8, delta_ids (cap,) (-1: dead or unused),
+    delta_post (nlist, L) slot postings, each row a prefix of slots then
+    -1 pads, delta_assigns (cap, m), sel (B, P) the ranked probed lists,
+    rank_of (B, nlist); int32 but lut and codes.  Position p * L + l
+    holds the slot posted at column l of list sel[b, p]; a live slot is
+    kept at its lowest-ranked probed assigned list and scored over
+    ascending m.  Returns ``(dd, di, dco, walked)``: (B, n) f32 / int32,
+    n = min(fetch, P * L), the kept (distance, id) pairs ascending by
+    (distance, position), unfilled places (+inf, -1); the (B,) int32
+    kept count (the routed DCO) and posted slots read (each probed row's
+    prefix).  On the card: one CTA a query, or ``delta_splits`` CTAs a
+    query at small batches, merged by ``merge_topk_kernel``; where the
+    selection state does not fit in shared memory (``delta_form``: fetch
+    above 8192) the kept triples go to (B, P * L) rows and
+    ``select_topk_kernel`` selects.  On the CPU, the plain version:
+    ``core/stream/search.py::routed_delta_topk``."""
+    if lut.device.type == "cpu":
+        # the plain version lives with the stream's other delta scans,
+        # whose module imports this one
+        from ..core.stream.search import routed_delta_topk
+        return routed_delta_topk(lut, delta_codes, delta_ids, delta_post,
+                                 delta_assigns, sel, rank_of, fetch)
+    b, m, k = lut.shape
+    cap = delta_ids.shape[0]
+    nlist, width = delta_post.shape
+    p = sel.shape[1]
+    dev = lut.device
+    _require(lut, "lut", torch.float32, 3, dev)
+    _require(delta_codes, "delta_codes", torch.uint8, 2, dev)
+    for name, x, nd in (("delta_ids", delta_ids, 1),
+                        ("delta_post", delta_post, 2),
+                        ("delta_assigns", delta_assigns, 2), ("sel", sel, 2),
+                        ("rank_of", rank_of, 2)):
+        _require(x, name, torch.int32, nd, dev)
+    if delta_codes.shape != (cap, m):
+        raise ValueError(f"delta_codes {tuple(delta_codes.shape)} != "
+                         f"{(cap, m)}")
+    if delta_assigns.shape[0] != cap or delta_assigns.shape[1] < 1:
+        raise ValueError(f"delta_assigns {tuple(delta_assigns.shape)} must "
+                         f"be ({cap}, m >= 1)")
+    if sel.shape[0] != b or rank_of.shape != (b, nlist):
+        raise ValueError(f"sel {tuple(sel.shape)} / rank_of "
+                         f"{tuple(rank_of.shape)} must have {b} rows, "
+                         f"rank_of {nlist} columns")
+    if fetch < 1:
+        raise ValueError(f"fetch must be >= 1, got {fetch}")
+    n = min(fetch, p * width)
+    dco = torch.zeros((b,), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return (torch.empty((b, 0), dtype=torch.float32, device=dev),
+                torch.empty((b, 0), dtype=torch.int32, device=dev), dco,
+                torch.zeros((b,), dtype=torch.int32, device=dev))
+    walked = torch.empty((b,), dtype=torch.int32, device=dev)  # all written
+    fw = topk_width(n)
+    lib = build.load("delta_scan_topk")
+    form = delta_form(m, k, nlist, p, fw, lib.delta_scan_topk_smem_bytes)
+    smem = lib.delta_scan_topk_smem_bytes(m, k, nlist, p, fw, form)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    splits = delta_splits(b, p, _delta_ctas(form, smem, index))
+    gs = bool(form & DELTA_GS)
+    shape = (b, p * width) if gs else (b, splits, n)
+    part = tuple(torch.empty(shape, dtype=dt, device=dev)
+                 for dt in (torch.float32, torch.int32, torch.int32))
+    row_n = torch.zeros((b,), dtype=torch.int32, device=dev) if gs else None
+    ptr = delta_codes.data_ptr()
+    name = delta_form_name(form)
+    err = lib.delta_scan_topk_launch(
+        lut.data_ptr(), ptr, delta_ids.data_ptr(), delta_post.data_ptr(),
+        delta_assigns.data_ptr(), sel.data_ptr(), rank_of.data_ptr(),
+        part[0].data_ptr(),
+        part[1].data_ptr() if gs or splits > 1 else None, part[2].data_ptr(),
+        None if row_n is None else row_n.data_ptr(), dco.data_ptr(),
+        walked.data_ptr(), b, m, k, width, p, nlist, delta_assigns.shape[1],
+        fw, n, p * width, splits, form, int(m % 16 == 0 and ptr % 16 == 0),
+        _stream(dev))
+    build.check(lib, err, f"delta_scan_topk_kernel ({name} form)")
+    delta_scan_topk_kernel.launches += 1
+    delta_scan_topk_kernel.forms[name] += 1
+    if gs:
+        dd, _, di = select_topk_kernel(*part, row_n, fetch=n)
+    elif splits > 1:
+        dd, _, di = merge_topk_kernel(*part)
+    else:
+        dd, di = part[0].view(b, n), part[2].view(b, n)
+    return dd, di, dco, walked
+
+
+delta_scan_topk_kernel.launches = 0
+delta_scan_topk_kernel.forms = dict.fromkeys(DELTA_FORMS, 0)
+
 KERNELS = (pq_scan_tiled_kernel, pq_scan_topk_kernel, merge_topk_kernel,
-           select_topk_kernel)
+           select_topk_kernel, delta_scan_topk_kernel)
 
 
 def reset_launch_counts() -> None:
@@ -775,14 +921,15 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     pq_scan_tiled_kernel.forms = dict.fromkeys(K1_FORMS, 0)
     pq_scan_topk_kernel.forms = dict.fromkeys(K3_FORMS, 0)
+    delta_scan_topk_kernel.forms = dict.fromkeys(DELTA_FORMS, 0)
 
 
-_BY_FORM = (pq_scan_tiled_kernel, pq_scan_topk_kernel)
+_BY_FORM = (pq_scan_tiled_kernel, pq_scan_topk_kernel, delta_scan_topk_kernel)
 
 
 def launch_counts(forms: bool = False) -> dict:
-    """Launches by kernel name; with ``forms`` also K1's and K3's by form,
-    as ``pq_scan_tiled_kernel[form]`` and ``pq_scan_topk_kernel[form]``."""
+    """Launches by kernel name; with ``forms`` also K1's, K3's and the
+    delta scan's by form, as ``pq_scan_tiled_kernel[form]`` and so on."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     if forms:
         for fn in _BY_FORM:
@@ -792,7 +939,7 @@ def launch_counts(forms: bool = False) -> dict:
 
 
 def add_launch_counts(counts: dict) -> None:
-    """Add ``counts`` (by kernel name, and K1's and K3's by form) to the
+    """Add ``counts`` (by kernel name, and by form) to the
     counters: what a CUDA graph replay launches (``core/graphs.py``)."""
     for fn in KERNELS:
         fn.launches += counts.get(fn.__name__, 0)

@@ -112,9 +112,62 @@ def test_k2_tile_row_invariant():
 
 def test_cpu_wrappers_launch_no_kernel():
     lut, codes, idx = _scan_inputs(2, 2, 8, 16, 5, 32, 2)
-    before = tpq.launch_counts()
+    before = tpq.launch_counts(forms=True)
     tops.pq_scan_paged(t(lut), t(codes), t(idx))
-    assert tpq.launch_counts() == before
+    # the routed delta scan: 3 queries probing 2 of 4 lists over 6 slots
+    # (slot 4 dead), each slot posted under its distinct assigned lists
+    assigns = np.array([[0, 2], [1, 1], [0, 3], [2, 2], [2, 1], [2, 0]],
+                       np.int32)
+    post = np.array([[0, 2, 5, -1], [1, 4, -1, -1], [0, 3, 4, 5],
+                     [2, -1, -1, -1]], np.int32)
+    sel = np.array([[0, 2], [1, 2], [3, 0]], np.int32)
+    rank_of = np.full((3, 4), 2 ** 30, np.int32)
+    rank_of[np.arange(3)[:, None], sel] = np.arange(2)
+    dd, di, dco, walked = tops.delta_scan_topk(
+        t(lut[:1].repeat(3, 0)), t(codes[0, :6]),
+        t(np.array([0, 1, 2, 3, -1, 5], np.int32)), t(post), t(assigns),
+        t(sel), t(rank_of), fetch=4)
+    assert tpq.launch_counts(forms=True) == before
+    np.testing.assert_array_equal(walked.numpy(), [7, 6, 4])
+    np.testing.assert_array_equal(dco.numpy(), [4, 4, 3])
+    assert dd.shape == di.shape == (3, 4) and int(di[2, 3]) == -1
+
+
+def _delta_smem(m, k, nlist, p, fw, form):
+    """csrc/delta_scan_topk.cu's smem_words, in bytes: the table (not
+    GT), the rank_of row (RANK), the probed lists and their offsets, one
+    query's selection state (not GS: six FW-wide arrays, its fill and
+    flush widths), the kept count."""
+    return 4 * ((0 if form & tpq.DELTA_GT else m * k)
+                + (nlist if form & tpq.DELTA_RANK else 0) + 2 * p + 1
+                + (0 if form & tpq.DELTA_GS else 6 * fw + 5) + 1)
+
+
+@pytest.mark.parametrize("shape,form,name", [
+    ((64, 16, 4096, 32, 256), tpq.DELTA_RANK, "shared"),       # churn
+    ((64, 256, 4096, 32, 256), tpq.DELTA_RANK, "shared"),      # PQ64x8
+    ((64, 256, 65536, 32, 256), 0, "shared"),  # rank row left in global
+    ((256, 256, 4096, 32, 256), tpq.DELTA_GT | tpq.DELTA_RANK, "GT"),
+    ((64, 16, 4096, 32, 16384), tpq.DELTA_GS | tpq.DELTA_RANK, "GS"),
+    ((256, 256, 65536, 32, 16384), tpq.DELTA_GS | tpq.DELTA_GT, "GT-GS"),
+])
+def test_delta_form_from_shape(shape, form, name):
+    """The delta scan's form is the first that fits a block's shared
+    memory: the rank_of row leaves it before the table, the selection
+    state last."""
+    assert tpq.delta_form(*shape, _delta_smem) == form
+    assert tpq.delta_form_name(form) == name
+    with pytest.raises(ValueError):
+        tpq.delta_form(64, 16, 4096, 40_000, 256, _delta_smem)
+
+
+@pytest.mark.parametrize("b,p,wave,splits", [
+    (1024, 32, 660, 1), (64, 32, 660, 10), (64, 4, 660, 4), (1, 32, 660, 32),
+    (660, 32, 660, 1), (0, 32, 660, 32)])
+def test_delta_splits_from_batch(b, p, wave, splits):
+    """A query's walk splits over as many CTAs as keep the batch within
+    one wave, at most one a probed list."""
+    assert tpq.delta_splits(b, p, wave) == splits
 
 
 # ---------------------------------------------------------------------------

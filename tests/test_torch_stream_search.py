@@ -151,14 +151,14 @@ def test_routed_delta_candidates_match_reference(seed, signed):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     # the streaming path keeps the stable top-fetch of the same stream
     for fetch in (3, 20, 64):
-        dd, di, dco = tsearch._delta_candidates(
+        dd, di, dco, _ = tsearch._delta_candidates(
             *(t(a) for a in args[:5]), t(sel), t(rank_of), True, fetch)
         order = np.argsort(got[0].numpy(), axis=1, kind="stable")[:, :fetch]
         np.testing.assert_array_equal(
             di.numpy(), np.take_along_axis(got[1].numpy(), order, 1))
         np.testing.assert_array_equal(dco.numpy(), got[2].numpy())
         # and the exhaustive path cuts the reference's delta_adc stream
-        dd, di, dco = tsearch._delta_candidates(
+        dd, di, dco, _ = tsearch._delta_candidates(
             *(t(a) for a in args[:5]), t(sel), t(rank_of), False, fetch)
         full = np.asarray(jsearch.delta_adc(jnp.asarray(lut),
                                             jnp.asarray(codes)))
@@ -170,6 +170,92 @@ def test_routed_delta_candidates_match_reference(seed, signed):
         np.testing.assert_allclose(
             dd.numpy(), np.take_along_axis(full, order, 1), **TOL)
         assert (dco.numpy() == (ids >= 0).sum()).all()
+
+
+def _routed_inputs(case, seed=0):
+    """Seeded routed-delta inputs (numpy) for one case of
+    ``test_delta_scan_topk_plain``: (lut, codes, ids, post, assigns, sel,
+    rank_of), every posting row a prefix of slots, and the fetch."""
+    rng = np.random.default_rng(seed)
+    nlist, p, width, cap, b = 10, 4, 8, 40, 6
+    fetch, dead, lists = 20, 0.2, nlist
+    if case == "fetch_above_kept":
+        width, fetch = 16, 200              # n = P * L = 64 > kept
+    if case == "dead":
+        dead = 0.6
+    if case == "two_lists":
+        lists = p + 1                       # most slots under two probed lists
+    if case == "ties":
+        lut = rng.integers(0, 3, (b, 8, 16)).astype(np.float32)
+    else:
+        lut = rng.random((b, 8, 16), np.float32)
+    if case == "signed":
+        lut = lut - np.float32(0.75)
+    codes = rng.integers(0, 16, (cap, 8)).astype(np.uint8)
+    ids = np.where(rng.random(cap) < 1 - dead, 1000 + np.arange(cap), -1
+                   ).astype(np.int32)
+    assigns = rng.integers(0, lists, (cap, 2)).astype(np.int32)
+    if case == "pad_row":
+        assigns[assigns == 0] = 1           # list 0 has no postings
+    post = np.full((nlist, width), -1, np.int32)
+    for s in range(cap):
+        for lst in dict.fromkeys(assigns[s].tolist()):
+            col = int((post[lst] >= 0).sum())
+            if col < width:
+                post[lst, col] = s
+    if case == "two_lists":
+        sel = np.stack([rng.permutation(p) for _ in range(b)])
+    elif case == "pad_row":                 # list 0 probed second by all
+        sel = np.stack([np.insert(rng.permutation(np.arange(1, nlist))[
+            :p - 1], 1, 0) for _ in range(b)])
+    else:
+        sel = np.stack([rng.permutation(nlist)[:p] for _ in range(b)])
+    sel = sel.astype(np.int32)
+    rank_of = np.full((b, nlist), 2 ** 30, np.int32)
+    for r in range(b):
+        rank_of[r, sel[r]] = np.arange(p)
+    return (lut, codes, ids, post, assigns, sel, rank_of), fetch
+
+
+@pytest.mark.parametrize("case", ["ties", "signed", "pad_row", "two_lists",
+                                  "dead", "fetch_above_kept"])
+def test_delta_scan_topk_plain(case):
+    """On the CPU the routed delta scan's wrapper (``ops.delta_scan_topk``,
+    the kernel's entry on the card) is its plain version: bitwise
+    ``_routed_chunks(..., fetch)``, the walk each probed row's prefix of
+    slots, and the reference's ``routed_delta_candidates`` stream cut
+    stably (ids and DCO exact, distances at TOL).  Integer tables make
+    ties common, so the (distance, position) order is held."""
+    from repro_torch.kernels import ops
+    args, fetch = _routed_inputs(case)
+    post, sel = args[3], args[5]
+    targs = [t(a) for a in args]
+    dd, di, dco, walked = ops.delta_scan_topk(*targs, fetch=fetch)
+    plain = tsearch._routed_chunks(*targs, fetch)
+    for got, want in zip((dd, di, dco), plain):
+        assert torch.equal(got, want)
+    rows = post[sel]                                     # (B, P, L)
+    np.testing.assert_array_equal(walked.numpy(), (rows >= 0).sum((1, 2)))
+    if case == "pad_row":
+        assert (rows[:, 1] < 0).all() and (walked.numpy() > 0).all()
+    if case == "two_lists":
+        probed = np.isin(args[4], sel[0]).all(1) & (args[4][:, 0]
+                                                    != args[4][:, 1])
+        assert probed.sum() > 10            # scored once each, not twice
+    n = min(fetch, rows.shape[1] * rows.shape[2])
+    assert dd.shape == (sel.shape[0], n)
+    if case == "fetch_above_kept":
+        assert (dco.numpy() < n).all()
+        assert bool((di[:, -1] == -1).all()) and bool(torch.isinf(
+            dd[:, -1]).all())
+    jd, ji, jdco = jsearch.routed_delta_candidates(
+        *(jnp.asarray(a) for a in args))
+    jd, ji = np.asarray(jd), np.asarray(ji)
+    order = np.argsort(jd, axis=1, kind="stable")[:, :n]
+    np.testing.assert_array_equal(di.numpy(), np.take_along_axis(ji, order, 1))
+    np.testing.assert_array_equal(dco.numpy(), np.asarray(jdco))
+    np.testing.assert_allclose(dd.numpy(), np.take_along_axis(jd, order, 1),
+                               **TOL)
 
 
 def test_stable_top_orders_either_sign():
@@ -368,6 +454,28 @@ def test_routed_delta_items_retrievable(routed_pairs, unit_data):
     assert_same(r, jr.search(x[5100][None, :], k=1, nprobe=16))
 
 
+def test_traced_routed_delta_counters(routed_pairs, unit_data):
+    """A traced routed batch's ``stage.delta_scan`` span counts the walk
+    (``delta_walked``: the posted slots of each probed row) beside the
+    kept slots (``delta_dco``), and ``kernel`` 0 for the plain version."""
+    _, q, _ = unit_data
+    _, (tr, jr) = routed_pairs
+    qs = np.asarray(q[:16])
+    searcher = tr.searcher(SearchParams(k=10, nprobe=8), **CPU)
+    ref = searcher(qs)
+    with obs.trace() as trace:
+        res = searcher(qs)
+    assert_identical(ref, res)
+    counters = trace.stage_summary()["stage.delta_scan"]["counters"]
+    dv = tr._device_state()
+    sel = tsearch.select_lists(t(qs), tr.centroids, nprobe=8).sel
+    rows = dv.delta_post[sel.long()]
+    assert counters["kernel"] == 0
+    assert counters["delta_walked"] == int((rows >= 0).sum())
+    assert 0 < counters["delta_dco"] < counters["delta_walked"]
+    assert_same(res, jr.searcher(JParams(k=10, nprobe=8))(q[:16]))
+
+
 def test_routing_threshold_activates_on_capacity(unit_data, shared_trained):
     x, _, _ = unit_data
     cfg = JConfig(nlist=64, strategy="rair", seil=True, kmeans_iters=8,
@@ -468,8 +576,9 @@ def test_traced_streaming_delta_scan(unit_data, shared_trained):
     assert_identical(ref, res)
     summary = tr.stage_summary()
     assert "stage.delta_scan" in summary
-    delta_dco = summary["stage.delta_scan"]["counters"]["delta_dco"]
-    assert delta_dco > 0
+    counters = summary["stage.delta_scan"]["counters"]
+    assert counters["delta_dco"] > 0
+    assert counters["kernel"] == 0 and "delta_walked" not in counters
     want = js.searcher(JParams(k=10, nprobe=8))(q)
     assert_same(res, want)
 

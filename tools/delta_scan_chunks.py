@@ -1,25 +1,26 @@
 #!/usr/bin/env python3
-"""The streaming delta scan's time against its query-chunk budget, on one
-NVIDIA H100.
+"""The streaming delta scan's time against its query-chunk budget, and
+the routed scan's kernel beside it, on one NVIDIA H100.
 
     python3 tools/delta_scan_chunks.py [--seed 0] [--budgets 28,27,26]
-                                       [--loop]
+                                       [--fetch 200] [--loop]
 
-Times ``core/stream/search.py::_delta_candidates`` (the delta scan of a
-streaming batch: ADC over ascending m, then each query's stable
-top-fetch) at the stream phase's shapes of ``chip_smoke.py``, and
-first the exhaustive scan's ADC sums (``delta_adc``:
-``F.embedding_bag``) bitwise against a loop of one gather and one add
-per m (``--loop`` times the scan with that loop in their place, as the
-routed scan's ``_adc_rows`` runs it): the
-exhaustive scan at capacity 131,072 and the routed scan at capacity
-262,144 (nprobe 32, posting width 256), at B = 1024 and 64, M 64, K 16,
-fetch 100, with ``DELTA_CHUNK_BYTES`` set to each ``2**budget`` in
-turn.  Inputs are made on the card from ``--seed`` (uniform codes,
-uniform assignments over 4096 lists, 5% dead slots).  Each time is the
-card's work alone (calls captured in one CUDA graph and replayed, as a
-session replays them); every budget's output must be bitwise the
-first's.  The card's name and power limit head the output.
+Times ``core/stream/search.py``'s delta scans (ADC over ascending m,
+then each query's stable top-fetch) at the churn cell's shapes, with
+``chip_smoke.py::delta_inputs`` (uniform codes, uniform assignments
+over 4096 lists, 5% dead slots): the exhaustive scan
+(``exhaustive_delta_candidates``) at capacity 131,072, first holding its
+ADC sums (``delta_adc``: ``F.embedding_bag``) bitwise against a loop of
+one gather and one add per m (``--loop`` times the scan with that loop
+in their place), and the routed scan at capacity 262,144 (nprobe 32,
+posting width 256): its kernel (``ops.delta_scan_topk``) beside the
+chunked plain version (``routed_delta_topk``, the CPU's path).  At B =
+1024 and 64, M 64, K 16, ``--fetch`` (the cell's finalize fetch, 200),
+with ``DELTA_CHUNK_BYTES`` (the plain versions' budget) set to each
+``2**budget`` in turn.  Each time is the card's work alone (calls
+captured in one CUDA graph and replayed, as a session replays them);
+every budget's output, and the kernel's, must be bitwise the first
+budget's.  The card's name and power limit head the output.
 """
 from __future__ import annotations
 
@@ -29,59 +30,6 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-
-
-def graph_ms(torch, fn, calls: int = 5, reps: int = 3) -> float:
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(calls):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        g.replay()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / (reps * calls)
-
-
-def inputs(torch, dev, seed, b, cap, nlist=4096, p=32, m=64, k=16,
-           width=256):
-    g = torch.Generator(device=dev).manual_seed(seed)
-    lut = torch.rand((b, m, k), generator=g, device=dev) * 4
-    codes = torch.randint(0, k, (cap, m), generator=g, device=dev,
-                          dtype=torch.uint8)
-    ids = torch.arange(cap, dtype=torch.int32, device=dev) + 1_000_000
-    ids[torch.rand(cap, generator=g, device=dev) < 0.05] = -1
-    assigns = torch.randint(0, nlist, (cap, 2), generator=g, device=dev,
-                            dtype=torch.int32)
-    # postings: each slot under its distinct lists, in slot order
-    lists = torch.cat([assigns[:, 0], assigns[:, 1]])
-    slots = torch.arange(cap, device=dev).repeat(2)
-    keep = torch.cat([torch.ones(cap, dtype=torch.bool, device=dev),
-                      assigns[:, 1] != assigns[:, 0]])
-    lists, slots = lists[keep].long(), slots[keep]
-    order = torch.sort(lists * cap + slots).indices
-    lists, slots = lists[order], slots[order]
-    start = torch.searchsorted(lists, torch.arange(nlist, device=dev))
-    col = torch.arange(lists.numel(), device=dev) - start[lists]
-    post = torch.full((nlist, width), -1, dtype=torch.int32, device=dev)
-    fit = col < width
-    post[lists[fit], col[fit]] = slots[fit].to(torch.int32)
-    sel = torch.stack([torch.randperm(nlist, generator=g, device=dev)[:p]
-                       for _ in range(b)]).to(torch.int32)
-    rank_of = torch.full((b, nlist), 2 ** 30, dtype=torch.int32, device=dev)
-    rank_of.scatter_(1, sel.long(), torch.arange(
-        p, dtype=torch.int32, device=dev).expand(b, p).contiguous())
-    return lut, codes, ids, post, assigns, sel, rank_of
 
 
 def adc_loop(torch, lut, codes):
@@ -98,20 +46,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--budgets", default="28,27,26")
+    ap.add_argument("--fetch", type=int, default=200)
     ap.add_argument("--loop", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("delta_scan_chunks: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from chip_smoke import delta_inputs, graph_ms
     from repro_torch.core.stream import search
+    from repro_torch.kernels import ops
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
     budgets = [int(x) for x in args.budgets.split(",")]
-    lut, codes, *_ = inputs(torch, dev, args.seed, 256, 131072)
+    lut, codes, *_ = delta_inputs(torch, dev, args.seed, 256, cap=131072)
     if not torch.equal(search.delta_adc(lut, codes),
                        adc_loop(torch, lut, codes)):
         print("delta_scan_chunks: FAILED: delta_adc differs from the per-m "
@@ -125,7 +76,14 @@ def main() -> int:
         print("(the exhaustive ADC sums replaced by the per-m loop)")
     for routed, cap in ((False, 131072), (True, 262144)):
         for b in (1024, 64):
-            args_ = inputs(torch, dev, args.seed, b, cap)
+            args_ = delta_inputs(torch, dev, args.seed, b, cap=cap)
+            if routed:
+                def plain():
+                    return search.routed_delta_topk(*args_, args.fetch)
+            else:
+                def plain():
+                    return search.exhaustive_delta_candidates(
+                        *args_[:3], args.fetch)
             first = None
             line = []
             for bud in budgets:
@@ -134,10 +92,7 @@ def main() -> int:
                     b, search._routed_bytes(args_[3], args_[1], args_[4],
                                             32)) if routed
                     else search._rows_per_chunk(b, 40 * cap))
-
-                def fn():
-                    return search._delta_candidates(*args_, routed, 100)
-                out = fn()
+                out = plain()
                 torch.cuda.synchronize()
                 if first is None:
                     first = out
@@ -146,12 +101,24 @@ def main() -> int:
                           "differs", file=sys.stderr)
                     return 1
                 torch.cuda.reset_peak_memory_stats()
-                ms = graph_ms(torch, fn)
+                ms = graph_ms(torch, plain, calls=5, reps=3)
                 peak = torch.cuda.max_memory_allocated() / 2 ** 20
                 line.append(f"2**{bud} ({step} rows a chunk) {ms:.4f} ms, "
                             f"peak {peak:.0f} MiB")
+            if routed:
+                def kernel():
+                    return ops.delta_scan_topk(*args_, fetch=args.fetch)
+                if not all(torch.equal(x, y)
+                           for x, y in zip(kernel(), first)):
+                    print("delta_scan_chunks: FAILED: the kernel differs "
+                          "from the plain version", file=sys.stderr)
+                    return 1
+                torch.cuda.reset_peak_memory_stats()
+                ms = graph_ms(torch, kernel, calls=5, reps=3)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 20
+                line.insert(0, f"kernel {ms:.4f} ms, peak {peak:.0f} MiB")
             print(f"{'routed' if routed else 'exhaustive'} capacity {cap} "
-                  f"B={b}: " + "; ".join(line))
+                  f"B={b} fetch {args.fetch}: " + "; ".join(line))
     return 0
 
 
