@@ -34,6 +34,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 400 and the path's shapes, timed beside torch.topk at the
                 former; fetch up to 40000: where the lists pass shared
                 memory through the row select); K2's tile-row check;
+                the PQ encode kernel against its plain version at SIFT's
+                PQ64x4 / PQ64x8, the gist shape, the pq4 and binary
+                planes and a dsub of 3, n 1 to 65,537 (codes equal but
+                at f32 ties, at most 1e-5 of them; bitwise alike
+                whatever the batch), timed at 38 and 65,536 rows;
   4. main     — a SIFT1M-shaped corpus (n x 128, made on the card from
                 --seed), a RAIRS index built on the card (IVF4096,
                 PQ64x4, block 32, rair + SEIL; determinism: built twice
@@ -250,6 +255,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -307,6 +313,19 @@ DELTA_FORM_CASES = (("GT", dict(m=256, k=256), 64, DELTA_FETCH),
 # the largest gap between two assignment decisions, relative to
 # |x|^2 + |c|^2, that an f32 distance matmul may round either way
 TIE_REL = 1e-5
+# the PQ encode kernel held against its plain version at SIFT's PQ64x4 and
+# PQ64x8, the gist-shaped PQ256x8, the planes at D 128 (pq4: dsub 8;
+# binary: groups of 4 bits) and a dsub of 3 (the kernel's generic path),
+# as (M, K, dsub), at these row counts (38: a churn batch's inserts;
+# 65,537: past one chunk of the plain loop), and timed at ENCODE_TIMED
+ENCODE_SHAPES = {"sift PQ64x4": (64, 16, 2), "sift PQ64x8": (64, 256, 2),
+                 "gist PQ256x8": (256, 256, 1), "pq4 plane": (16, 16, 8),
+                 "binary plane": (32, 16, 4), "dsub 3": (32, 16, 3)}
+ENCODE_SIZES = (1, 37, 38, 8192, 65536, 65537)
+ENCODE_TIMED = (38, 65536)
+# at most this share of the kernel's codes (rounded up) may differ from
+# the plain version's, each an f32 tie (encode_ties)
+ENCODE_DIFF_SHARE = 1e-5
 # the gateway phase: the main path's params (paged, fused) behind the
 # gateway; flushes of up to GW_BATCH requests, GW_DELAY_MS deadline
 GATEWAY = dict(SEARCH, exec_mode="paged", fused_topk=True)
@@ -824,6 +843,106 @@ def check_kernels(torch, dev, seed):
         "shapes, with 30% and with most entries pads, tie-heavy with -0.0 "
         "beside +0.0 and random f32; fetch 9000, 16000 and 40000 through "
         "the row select, rows up to 336000 entries)")
+
+
+def encode_ties(torch, books, x, got, want, what, share=ENCODE_DIFF_SHARE):
+    """(row, subquantizer) pairs where the encode kernel's codes ``got``
+    differ from ``want``: at most ``share`` of the codes (rounded up;
+    None: any number), each an f32 tie.  One f32 distance (x2 - 2 xc) +
+    c2 over dsub products, summed in any order, is off by at most
+    (2 dsub + 5) u (|x|^2 + |c|^2), u = 2^-24 (the package turns TF32
+    off), so two encoders may pick either of two centroids whose f64
+    distances to the row's slice lie within twice that: (4 dsub + 10) u
+    of |x|^2 + the larger |c|^2 of the two.  Returns (pairs, largest gap
+    relative to that scale)."""
+    rows, cols = torch.nonzero(got != want, as_tuple=True)
+    if share is not None:
+        cap = math.ceil(share * got.numel())
+        check(rows.numel() <= cap, f"{what}: {rows.numel()} of "
+              f"{got.numel()} codes differ, more than {cap}")
+    if rows.numel() == 0:
+        return 0, 0.0
+    dsub = books.shape[2]
+    b64 = books.double()
+    xs = x.double().reshape(x.shape[0], -1, dsub)[rows, cols]   # (P, dsub)
+    cg = b64[cols, got[rows, cols].long()]                      # (P, dsub)
+    cw = b64[cols, want[rows, cols].long()]
+    scale = (xs * xs).sum(dim=1) + torch.maximum((cg * cg).sum(dim=1),
+                                                 (cw * cw).sum(dim=1))
+    gap = (((cg - xs) ** 2).sum(dim=1)
+           - ((cw - xs) ** 2).sum(dim=1)).abs() / scale
+    worst = float(gap.max())
+    bad = int(gap.argmax())
+    r, j = int(rows[bad]), int(cols[bad])
+    check(worst <= (4 * dsub + 10) * 2.0 ** -24, f"{what}: row {r}, "
+          f"subquantizer {j}: kernel code {int(got[r, j])}, other "
+          f"{int(want[r, j])}, relative gap {worst:.3e}: not an f32 tie")
+    return rows.numel(), worst
+
+
+def encode_hold(torch, dev, seed):
+    """The PQ encode kernel (``ops.pq_encode``) against its plain version
+    (``pq_encode_plain``, run on the card) at ``ENCODE_SHAPES``: codes
+    equal except at f32 ties (``encode_ties``), one launch a call, rows
+    encoded alone, in ``ENCODE_SIZES`` batches and inside the largest
+    bitwise alike; timed at ``ENCODE_TIMED`` rows (graph replays, and
+    eager calls back to back) beside its byte bound and the plain
+    version (eager: its launches are its cost)."""
+    from repro_torch.core.pq import PQCodebook, pq_encode_plain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pq_scan import pq_encode_kernel as kern
+    rows = {}
+    for i, (what, (m, k, dsub)) in enumerate(ENCODE_SHAPES.items()):
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        n_max = max(ENCODE_SIZES)
+        books = torch.randn((m, k, dsub), generator=g, device=dev)
+        books[:, k - 1] = books[:, k // 2]     # a tie: the lower code wins
+        x = torch.randn((n_max, m * dsub), generator=g, device=dev)
+        x[::7, :dsub] = books[0, 3]            # rows on a centroid
+        cb = PQCodebook(books)
+        whole = ops.pq_encode(books, x)
+        torch.cuda.synchronize()
+        check(not bool((whole == k - 1).any()), f"encode {what}: the "
+              f"duplicate centroid {k - 1} won over {k // 2}")
+        planted = whole[::7].clone()
+        planted[:, 0] = 3
+        encode_ties(torch, books, x[::7], whole[::7], planted,
+                    f"encode {what}: a row on centroid 3 of subquantizer 0",
+                    share=None)
+        for n in ENCODE_SIZES:
+            before = kern.launches
+            got = ops.pq_encode(books, x[:n])
+            want = pq_encode_plain(cb, x[:n])
+            torch.cuda.synchronize()
+            check(kern.launches == before + 1,
+                  f"encode {what} n={n}: not one launch")
+            check(torch.equal(got, whole[:n]), f"encode {what} n={n}: codes "
+                  f"differ from the same rows encoded inside n={n_max}")
+            diff, worst = encode_ties(torch, books, x[:n], got, want,
+                                      f"encode {what} n={n}")
+            line = (f"encode {what} n={n}: kernel codes bitwise those of the "
+                    f"same rows inside n={n_max}; {diff} of {got.numel()} "
+                    f"differ from the plain version, each an f32 tie "
+                    f"(largest relative gap {worst:.2e})")
+            if n in ENCODE_TIMED:
+                ms = graph_ms(torch, lambda: ops.pq_encode(books, x[:n]))
+                eager = cuda_ms(torch, lambda: ops.pq_encode(books, x[:n]))
+                plain = cuda_ms(torch, lambda: pq_encode_plain(cb, x[:n]),
+                                reps=5, warm=1)
+                nbytes = n * m * dsub * 4 + n * m + m * k * dsub * 4
+                bms, by = bound_ms(nbytes, 2 * n * m * k * dsub)
+                line += (f"; {ms:.4f} ms (graph replays), {eager:.4f} ms "
+                         f"eager, bound {bms:.4f} ms ({by}; {nbytes} B), "
+                         f"plain {plain:.4f} ms eager")
+                rows[(what, n)] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                                       bound_by=by, eager_ms=eager)
+            log(line)
+        alone = torch.cat([ops.pq_encode(books, x[r:r + 1])
+                           for r in (0, 37, n_max - 1)])
+        check(torch.equal(alone, whole[[0, 37, n_max - 1]]),
+              f"encode {what}: a row encoded alone differs")
+        del books, x, whole
+    return rows
 
 
 def time_merge(torch, parts, what, err=0.0):
@@ -2927,11 +3046,13 @@ def stream_path(torch, dev, args, lookups_per_s):
     check(build_seil_call_count() == builds, "stream: churn built a layout")
     check(stream._plane_delta_codes("pq4") is plane_buf, "stream: the pq4 "
           "plane's delta codes were made anew, not patched in place")
-    ties, worst = plane_ties(torch, stream, "pq4", plane_buf)
-    log(f"stream: the pq4 plane's delta codes, patched a batch at a time, "
-        f"against one encode of the whole delta buffer: {ties.size} rows "
-        f"differ (each an f32 tie, largest relative gap {worst:.2e}: "
-        f"{ties[:20]})")
+    differ = plane_differs(stream, "pq4", plane_buf)
+    check(differ.size == 0, f"stream: the pq4 plane's delta codes of rows "
+          f"{differ[:20]}, patched a batch at a time, differ from one encode "
+          "of the whole delta buffer (one encode kernel, codes independent "
+          "of the batch)")
+    log("stream: the pq4 plane's delta codes, patched a batch at a time, "
+        "are bitwise one encode of the whole delta buffer")
     log(f"stream: steady state, 10 rounds of {small} inserts and {small} "
         f"deletes inside capacity {cap}: append {10 * small / t_ins:.1f} "
         f"vectors/s, delete {10 * small / t_del:.1f} vectors/s; compiles "
@@ -2963,31 +3084,13 @@ def steady_rows(stream, count, margin=8):
     fail(f"stream: only {len(rows)} of {count} rows fit the posting width")
 
 
-def plane_ties(torch, stream, backend, codes):
+def plane_differs(stream, backend, codes):
     """Rows of a plane's delta codes ``codes`` (encoded a batch at a
-    time) that differ from one encode of the whole delta buffer: in each
-    differing subquantizer the two codewords must be an f32 tie, their
-    f64 distances to the row within ``TIE_REL`` of its scale.  Returns
-    (rows, largest relative gap)."""
+    time) that differ from one encode of the whole delta buffer: none
+    may, as the encode kernel's codes depend on the row alone."""
     from repro_torch.quant import encode_plane
-    codec = stream.plane(backend).codec
-    vecs = stream._delta.vectors
-    got, want = codes.cpu().numpy(), encode_plane(codec, vecs)
-    rows = np.nonzero((got != want).any(axis=1))[0]
-    books = codec.codebooks.double().cpu().numpy()        # (Mc, K, dsub)
-    dsub, worst = books.shape[2], 0.0
-    for r in rows.tolist():
-        for j in np.nonzero(got[r] != want[r])[0].tolist():
-            xs = vecs[r, j * dsub:(j + 1) * dsub].astype(np.float64)
-            d2 = ((books[j] - xs) ** 2).sum(axis=1)
-            scale = float(xs @ xs + (books[j] ** 2).sum(axis=1).max())
-            gap = abs(float(d2[got[r, j]] - d2[want[r, j]])) / scale
-            check(gap <= TIE_REL, f"stream: {backend} delta code of slot "
-                  f"{r}, subquantizer {j}: {got[r, j]} patched, "
-                  f"{want[r, j]} by a whole encode, relative gap "
-                  f"{gap:.3e}: not an f32 tie")
-            worst = max(worst, gap)
-    return rows, worst
+    want = encode_plane(stream.plane(backend).codec, stream._delta.vectors)
+    return np.nonzero((codes.cpu().numpy() != want).any(axis=1))[0]
 
 
 def assign_ties(torch, stream_vecs, centroids, a, b, cfg):
@@ -3027,7 +3130,8 @@ def assign_ties(torch, stream_vecs, centroids, a, b, cfg):
 def stream_compact(torch, stream, q, x, n, args):
     """compact() bitwise against build_seil over the survivors' stored
     assignments and codes; beside a full build_index with the frozen
-    training (rows assigned or encoded otherwise must be f32 ties);
+    training (rows assigned otherwise must be f32 ties, and every code
+    equal: the build and the inserts encoded with the same kernel);
     begin_compact -> fold() on a thread while batches are served and the
     stream mutates -> install(), external ids resolving across both
     epochs; the stream saved, reloaded and answering alike."""
@@ -3071,7 +3175,10 @@ def stream_compact(torch, stream, q, x, n, args):
         f"survivors with the frozen training ({time.perf_counter() - t0:.2f}"
         f" s) assigns {rows.size} rows otherwise than their inserts did "
         f"(each an f32 tie, largest relative gap {worst:.2e}: {rows[:20]}) "
-        f"and encodes {code_rows.size} rows otherwise ({code_rows[:20]})")
+        f"and encodes {code_rows.size} rows otherwise")
+    check(code_rows.size == 0, f"stream: the full build encodes rows "
+          f"{code_rows[:20]} otherwise than the build and inserts did (one "
+          "encode kernel, codes independent of the batch)")
     same = all(torch.equal(getattr(full.arrays, f),
                            getattr(stream.base.arrays, f))
                for f in SEIL_FIELDS)
@@ -5275,6 +5382,7 @@ def main() -> int:
                 log(f"build: {stem}: {line.strip()}")
 
     check_kernels(torch, dev, args.seed)
+    encode_hold(torch, dev, args.seed)
     index, q, gt, launches, held, held_reuse, results = main_path(torch, dev,
                                                                   args)
     rate = lookup_rate(torch)

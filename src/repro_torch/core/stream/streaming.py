@@ -72,6 +72,7 @@ from ... import obs
 from .. import index as index_mod
 from ...device import DeviceLike, resolve_device
 from ...errors import StaleSessionError
+from ...kernels.pq_scan import pq_encode_kernel
 from ..params import SearchParams
 from ..search import SearchResult
 from ..searcher import Searcher
@@ -614,7 +615,9 @@ class StreamingIndex:
 
         O(batch): strategy-registry assignment and PQ encoding of the new
         rows, then patches of the host buffers and the device mirrors,
-        never a layout build (``seil.build_seil_call_count``).
+        never a layout build (``seil.build_seil_call_count``).  The span
+        ``stream.insert.encode`` counts ``kernel``: 1 where the encode
+        kernel ran (a CUDA stream), 0 on the CPU.
         """
         if torch.is_tensor(x):
             x = x.detach().cpu().numpy()
@@ -631,9 +634,11 @@ class StreamingIndex:
                 xt = torch.from_numpy(x).to(dev)
                 assigns = np.asarray(index_mod.compute_assignments(
                     xt, base.centroids, base.config), np.int32)
-            with obs.span("stream.insert.encode", cat="device"):
+            with obs.span("stream.insert.encode", cat="device") as sp:
+                launches = pq_encode_kernel.launches
                 codes = obs.to_host(index_mod.pq_encode(base.codebook,
                                                         xt)).numpy()
+                sp.add(kernel=int(pq_encode_kernel.launches > launches))
             nb = self.n_base
             d = self._delta
             cap0, width0 = d.capacity, d.post_width

@@ -19,7 +19,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pq_scan.cu", "pq_scan_topk.cu", "topk_select.cu",
-           "delta_scan_topk.cu")
+           "delta_scan_topk.cu", "pq_encode.cu")
 HEADERS = ("adc.cuh", "queue_select.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,6 +54,11 @@ _SIGNATURES = {
                                    _INT),
         "delta_scan_topk_smem_bytes": ([_INT] * 6, ctypes.c_size_t),
         "delta_scan_topk_ctas_per_sm": ([_INT, ctypes.c_size_t], _INT),
+    },
+    "pq_encode": {
+        "pq_encode_launch": ([_VOID] * 3 + [_INT] * 6 + [_VOID], _INT),
+        "pq_encode_smem_bytes": ([_INT] * 3, ctypes.c_size_t),
+        "pq_encode_ctas_per_sm": ([_INT, ctypes.c_size_t], _INT),
     },
 }
 

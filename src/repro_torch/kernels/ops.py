@@ -12,8 +12,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .pq_scan import (delta_scan_topk_kernel, pq_scan_paged_kernel,
-                      pq_scan_tiled_kernel, pq_scan_topk_kernel)
+from .pq_scan import (delta_scan_topk_kernel, pq_encode_kernel,
+                      pq_scan_paged_kernel, pq_scan_tiled_kernel,
+                      pq_scan_topk_kernel)
 
 
 def align(lut: torch.Tensor, block_codes: torch.Tensor, packed: bool):
@@ -96,3 +97,12 @@ def delta_scan_topk(lut, delta_codes, delta_ids, delta_post, delta_assigns,
         lut.to(torch.float32).contiguous(), delta_codes.contiguous(),
         i32(delta_ids), i32(delta_post), i32(delta_assigns), i32(sel),
         i32(rank_of), fetch=fetch)
+
+
+def pq_encode(codebooks: torch.Tensor, x: torch.Tensor,
+              chunk: int = 65536) -> torch.Tensor:
+    """PQ codes (n, M) uint8 of rows x (n, M * dsub) against codebooks
+    (M, K, dsub), both taken as contiguous f32 (see
+    ``pq_scan.pq_encode_kernel``; ``chunk`` is the plain version's)."""
+    return pq_encode_kernel(codebooks.to(torch.float32).contiguous(),
+                            x.to(torch.float32).contiguous(), chunk)

@@ -1,8 +1,10 @@
 """Wrappers of the CUDA scan kernels (K1, K3 and its merge, the row
-select, the stream's routed delta scan) and the paged entry (K2).
+select, the stream's routed delta scan), the paged entry (K2) and the PQ
+encode.
 
 Each wrapper takes its plain version (``ref.py``; the delta scan's in
-``core/stream/search.py``) only for tensors on the CPU.  For CUDA
+``core/stream/search.py``, the encode's in ``core/pq.py``) only for
+tensors on the CPU.  For CUDA
 tensors it checks dtype, shape and contiguity, launches its kernel on
 PyTorch's current stream, raises on any launch error, and adds one to
 its ``launches`` counter.  There is no fallback
@@ -51,6 +53,10 @@ _DELTA_ORDER = tuple(gs | gt | rank for gs in (0, DELTA_GS)
                      for gt in (0, DELTA_GT) for rank in (DELTA_RANK, 0))
 # its forms by name, indexed by the GT and GS bits
 DELTA_FORMS = ("shared", "GT", "GS", "GT-GS")
+ENCODE_TILE = 32           # rows a PQ-encode CTA takes at a time (pq_encode.cu)
+# shared memory of a PQ-encode CTA where its books allow: four CTAs an SM,
+# 32 warps, to hide the latency of each centroid's dependent steps
+ENCODE_SMEM = SMEM_LIMIT // 4
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -912,8 +918,80 @@ def delta_scan_topk_kernel(lut, delta_codes, delta_ids, delta_post,
 delta_scan_topk_kernel.launches = 0
 delta_scan_topk_kernel.forms = dict.fromkeys(DELTA_FORMS, 0)
 
+
+def encode_split(m: int, k: int, dsub: int, smem_of) -> int:
+    """Subquantizers MS one encode CTA stages: all ``m`` where their books,
+    norms and a tile of rows (``smem_of(ms, k, dsub)`` bytes) fit
+    ``ENCODE_SMEM``, so that an SM holds four CTAs, else the size of the
+    fewest equal chunks that fit it (PQ64x8: 4, PQ256x8 at dsub 1: 10),
+    else of those that fit a block's shared memory.  Raises ``ValueError``
+    where one subquantizer does not fit."""
+    for limit in (ENCODE_SMEM, SMEM_LIMIT):
+        for chunks in range(1, m + 1):
+            ms = -(-m // chunks)
+            if smem_of(ms, k, dsub) <= limit:
+                return ms
+    raise ValueError(f"pq encode: one subquantizer of {k} x {dsub} floats "
+                     f"needs more than the {SMEM_LIMIT} B of shared memory "
+                     "a Hopper block may use")
+
+
+@functools.lru_cache(maxsize=None)
+def encode_plan(m: int, k: int, dsub: int, device_index: int) -> tuple:
+    """``(ms, ctas)``: the encode's subquantizers a CTA (``encode_split``)
+    and its row CTAs for one wave on this card, the CTAs an SM holds
+    times the SMs, over the ceil(m / ms) chunks (at least 1)."""
+    lib = build.load("pq_encode")
+    ms = encode_split(m, k, dsub, lib.pq_encode_smem_bytes)
+    with torch.cuda.device(device_index):
+        per_sm = lib.pq_encode_ctas_per_sm(
+            dsub, lib.pq_encode_smem_bytes(ms, k, dsub))
+    if per_sm < 1:
+        raise RuntimeError(f"pq encode: occupancy query failed ({per_sm})")
+    props = torch.cuda.get_device_properties(device_index)
+    return ms, max(1, per_sm * props.multi_processor_count // -(-m // ms))
+
+
+def pq_encode_kernel(codebooks: torch.Tensor, x: torch.Tensor,
+                     chunk: int = 65536) -> torch.Tensor:
+    """PQ codes of ``x`` (``csrc/pq_encode.cu``): codebooks (M, K, dsub)
+    f32, x (n, M * dsub) f32 -> (n, M) uint8, each the first nearest
+    centroid of its subquantizer by ``max((x2 - 2 xc) + c2, 0)``, summed
+    in one fixed order whatever n.  One launch a call for any n >= 1
+    (none for n = 0).  On the CPU, the plain version
+    ``core/pq.py::pq_encode_plain``, ``chunk`` rows a step (the kernel
+    ignores ``chunk``)."""
+    if x.device.type == "cpu":
+        # the plain version lives in core/pq.py, which imports this module
+        from ..core.pq import PQCodebook, pq_encode_plain
+        return pq_encode_plain(PQCodebook(codebooks), x, chunk)
+    dev = x.device
+    _require(codebooks, "codebooks", torch.float32, 3, dev)
+    _require(x, "x", torch.float32, 2, dev)
+    m, k, dsub = codebooks.shape
+    n = x.shape[0]
+    if x.shape[1] != m * dsub:
+        raise ValueError(f"x {tuple(x.shape)} must be (n, {m * dsub})")
+    if not 1 <= k <= 256:
+        raise ValueError(f"pq encode: K={k} does not fit a uint8 code")
+    out = torch.empty((n, m), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    ms, ctas = encode_plan(m, k, dsub, index)
+    lib = build.load("pq_encode")
+    err = lib.pq_encode_launch(x.data_ptr(), codebooks.data_ptr(),
+                               out.data_ptr(), n, m, k, dsub, ms,
+                               min(-(-n // ENCODE_TILE), ctas), _stream(dev))
+    build.check(lib, err, "pq_encode_kernel")
+    pq_encode_kernel.launches += 1
+    return out
+
+
+pq_encode_kernel.launches = 0
+
 KERNELS = (pq_scan_tiled_kernel, pq_scan_topk_kernel, merge_topk_kernel,
-           select_topk_kernel, delta_scan_topk_kernel)
+           select_topk_kernel, delta_scan_topk_kernel, pq_encode_kernel)
 
 
 def reset_launch_counts() -> None:

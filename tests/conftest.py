@@ -35,3 +35,8 @@ def shared_trained(unit_data):
     cfg = IndexConfig(nlist=64, kmeans_iters=8, pq_iters=6)
     idx = build_index(jax.random.PRNGKey(0), x, cfg)
     return idx.centroids, idx.codebook
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (skips without them)")
