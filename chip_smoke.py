@@ -888,9 +888,9 @@ def encode_hold(torch, dev, seed):
     bitwise alike; timed at ``ENCODE_TIMED`` rows (graph replays, and
     eager calls back to back) beside its byte bound and the plain
     version (eager: its launches are its cost)."""
-    from repro_torch.core.pq import PQCodebook, pq_encode_plain
     from repro_torch.kernels import ops
     from repro_torch.kernels.pq_scan import pq_encode_kernel as kern
+    from repro_torch.kernels.ref import pq_encode_plain
     rows = {}
     for i, (what, (m, k, dsub)) in enumerate(ENCODE_SHAPES.items()):
         g = torch.Generator(device=dev).manual_seed(seed + i)
@@ -899,7 +899,6 @@ def encode_hold(torch, dev, seed):
         books[:, k - 1] = books[:, k // 2]     # a tie: the lower code wins
         x = torch.randn((n_max, m * dsub), generator=g, device=dev)
         x[::7, :dsub] = books[0, 3]            # rows on a centroid
-        cb = PQCodebook(books)
         whole = ops.pq_encode(books, x)
         torch.cuda.synchronize()
         check(not bool((whole == k - 1).any()), f"encode {what}: the "
@@ -912,7 +911,7 @@ def encode_hold(torch, dev, seed):
         for n in ENCODE_SIZES:
             before = kern.launches
             got = ops.pq_encode(books, x[:n])
-            want = pq_encode_plain(cb, x[:n])
+            want = pq_encode_plain(books, x[:n])
             torch.cuda.synchronize()
             check(kern.launches == before + 1,
                   f"encode {what} n={n}: not one launch")
@@ -927,7 +926,7 @@ def encode_hold(torch, dev, seed):
             if n in ENCODE_TIMED:
                 ms = graph_ms(torch, lambda: ops.pq_encode(books, x[:n]))
                 eager = cuda_ms(torch, lambda: ops.pq_encode(books, x[:n]))
-                plain = cuda_ms(torch, lambda: pq_encode_plain(cb, x[:n]),
+                plain = cuda_ms(torch, lambda: pq_encode_plain(books, x[:n]),
                                 reps=5, warm=1)
                 nbytes = n * m * dsub * 4 + n * m + m * k * dsub * 4
                 bms, by = bound_ms(nbytes, 2 * n * m * k * dsub)
@@ -1847,6 +1846,7 @@ def main_path(torch, dev, args):
     for mode, bsz in RUNS:
         for fused in (False, True):
             traced_batch(torch, index, q, mode, bsz, fused)
+    traced_capture(torch, index, q)
     replay_timing(torch, index, q)
     # plan reuse: the same ids and counters as the plain runs, then K1
     # and K3 held at a batch whose unions the plan cache widened
@@ -2053,6 +2053,35 @@ def traced_batch(torch, index, q, mode, bsz, fused):
         "after a device fence): " + ", ".join(
             f"{k} {v['mean_ms']:.4f}" for k, v in spans.items())
         + f"; counters {json.dumps({k: v['counters'] for k, v in spans.items()})}")
+
+
+def traced_capture(torch, index, q):
+    """A session's graph captured while a tracer is active, as a gateway
+    warms its sessions on its own thread whatever the tracer: the
+    capture itself neither fences nor reads a counter (only the eager run
+    before it does, four fences), and the graph then answers the first
+    run's batch bitwise as the session captured untraced does."""
+    from repro_torch import obs
+    from repro_torch.core import SearchParams, Searcher
+    mode, bsz = RUNS[0]
+    qb = q[:bsz].contiguous()
+    want = session(index, mode, bsz, True)(qb)
+    sess = Searcher(index, SearchParams(**{
+        **SEARCH, "exec_mode": mode, "fused_topk": True,
+        "batch_buckets": (bsz,)}))
+    with obs.trace() as tr:
+        sess.warmup(bsz)
+    check(sess.stats.compiles == 1 and tr.fences == 4,
+          f"traced capture: {sess.stats.compiles} captures, {tr.fences} "
+          "fences (want 1 and the eager run's 4)")
+    got = sess(qb)
+    for f in want._fields:
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"traced capture: {mode} B={bsz} differs from the session "
+              f"captured untraced on {f}")
+    log(f"traced capture: {mode} B={bsz} fused=1 captured under the tracer "
+        f"({tr.fences} fences, the eager run's); its replay bitwise the "
+        "untraced session's")
 
 
 REPLAY_CALLS = 200      # session calls of the replay-timing phase
@@ -2872,9 +2901,9 @@ def delta_hold(torch, dev, seed):
     kept count and the walk) at ``DELTA_CHECK``'s shapes, one launch a
     call in the form its shape names, each timed by graph replays beside
     the plain version (module docstring, phase stream)."""
-    from repro_torch.core.stream.search import routed_delta_topk
     from repro_torch.kernels import ops
     from repro_torch.kernels.pq_scan import delta_scan_topk_kernel as kern
+    from repro_torch.kernels.ref import routed_delta_topk
     cases = [(f"L {w} K {k} {'ip' if signed else 'l2'}", dict(width=w, k=k,
               signed=signed), b, DELTA_FETCH, "shared")
              for w in DELTA_WIDTHS for k in DELTA_KS

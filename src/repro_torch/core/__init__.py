@@ -30,7 +30,8 @@ from .seil import (SeilArrays, SeilStats, build_id_map,  # noqa: F401
                    delete_ids, vectors_in_large_cells)
 from .sharded import (Mesh, ShardedIndex, ShardedSearcher,  # noqa: F401
                       make_mesh)
-from .stream import (DeltaSegment, PendingCompaction,  # noqa: F401
-                     StaleSessionError, StreamConfig, StreamingIndex,
-                     StreamingSearcher, StreamStats, delta_adc,
-                     streaming_search)
+from .stream import DeltaInputs, DeltaSegment, delta_adc  # noqa: F401
+from .stream.streaming import (PendingCompaction,  # noqa: F401
+                               StaleSessionError, StreamConfig,
+                               StreamingIndex, StreamingSearcher,
+                               StreamStats)

@@ -35,8 +35,11 @@ searcher: ``select_lists`` and the ADC tables (computed once per device
 and shared by that device's shards, since they are replicated),
 ``plan_blocks`` windowed to the shard's block range, ``scan_blocks``
 (K1) or ``scan_blocks_topk`` (K3) over the shard's own store at its
-local shapes, and the stable top-``fetch`` ``preselect_candidates``.
-The gather and ``finalize_candidates`` follow.  Every selection is
+local shapes, and the stable top-``fetch`` ``preselect_candidates``
+(span ``stage.shard_scan``).  The gather and ``finalize_candidates``
+follow (span ``stage.gather_finalize``); each half is fenced, so while a
+tracer is active (the session then runs the step eagerly) a trace
+separates the shards' scan time from the merge tail.  Every selection is
 stable by flat position and the gather is in rank order, so N shards
 give the reference's answers at N devices bitwise, ties included; one
 shard is bitwise the plain ``Searcher``.
@@ -48,6 +51,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from .. import obs
 from .engine import (BlockStore, ListTables, finalize_candidates,
                      plan_blocks, preselect_candidates, scan_blocks,
                      scan_blocks_topk, select_lists)
@@ -108,25 +112,14 @@ def build_serve_step(*, nprobe: int, bigk: int, k: int, max_scan_local: int,
                      metric: str = "l2", dedup_results: bool = False,
                      oversample: int = 2, exec_mode: str = "paged",
                      query_tile: int = 8, streaming: bool = False,
-                     fused_topk: bool = False, stage: str = "all",
-                     packed_codes: bool = False):
+                     fused_topk: bool = False, packed_codes: bool = False):
     """The mesh's serve step.
 
     Returns ``serve(shards, queries) -> SearchResult``: ``shards`` the
     mesh's ``ShardArgs`` in mesh order, ``queries`` (B, D) on the
     result device, where the result lands.  With ``streaming=False`` the
     delta and live tensors are zero-width and unused.
-
-    ``stage`` is the tracing split: ``"all"`` the whole step; ``"scan"``
-    everything through each shard's preselect, returning ``(l_d, l_ids,
-    approx_dco, scanned, dropped)`` with ``l_d`` / ``l_ids`` lists of
-    the shards' candidate streams and the counters summed; ``"tail"``
-    takes ``(shards, queries, l_d, l_ids)`` and runs the gather and the
-    shared finalize.  ``"scan"`` then ``"tail"`` is ``"all"``: the same
-    operations, so the results are bitwise equal.
     """
-    if stage not in ("all", "scan", "tail"):
-        raise ValueError(f"stage must be all|scan|tail, got {stage!r}")
     fetch = finalize_fetch(bigk, oversample, dedup_results)
 
     def shard_scan(shard, rank, ndev, selection, lut, block_lo):
@@ -161,6 +154,9 @@ def build_serve_step(*, nprobe: int, bigk: int, k: int, max_scan_local: int,
         return l_d, l_ids, approx_dco, scan.scanned_blocks, plan.dropped
 
     def scan_half(shards, queries):
+        """Every shard through its preselect: ``(l_d, l_ids, approx_dco,
+        scanned, dropped)``, the shards' candidate streams and the
+        counters summed."""
         res = queries.device
         per_device = {}
         l_d, l_ids, counters = [], [], None
@@ -194,14 +190,20 @@ def build_serve_step(*, nprobe: int, bigk: int, k: int, max_scan_local: int,
             shards=[(s.vectors, shard_geometry(shards, r)[1])
                     for r, s in enumerate(shards)])
 
-    if stage == "scan":
-        return scan_half
-    if stage == "tail":
-        return tail_half
-
     def serve(shards, queries):
-        l_d, l_ids, approx_dco, scanned, dropped = scan_half(shards, queries)
-        out_ids, out_d, refine_dco = tail_half(shards, queries, l_d, l_ids)
+        count = obs.recording()   # counters are host reads: only traced
+        where = dict(bucket=queries.shape[0], ndev=len(shards))
+        with obs.span("stage.shard_scan", cat="device", **where) as sp:
+            l_d, l_ids, approx_dco, scanned, dropped = obs.fence(
+                scan_half(shards, queries))
+            if count:
+                sp.add(approx_dco=int(approx_dco.sum()),
+                       scanned_blocks=int(scanned.sum()))
+        with obs.span("stage.gather_finalize", cat="device", **where) as sp:
+            out_ids, out_d, refine_dco = obs.fence(
+                tail_half(shards, queries, l_d, l_ids))
+            if count:
+                sp.add(refine_dco=int(refine_dco.sum()))
         return SearchResult(
             ids=out_ids, dists=out_d, approx_dco=approx_dco,
             refine_dco=refine_dco, scanned_blocks=scanned,

@@ -168,7 +168,7 @@ class RairsIndex:
         ``StreamingIndex`` (core/stream/): inserts go to a delta segment,
         deletes to a tombstone mask, ``compact()`` folds both into a
         fresh base.  ``config`` is an optional ``StreamConfig``."""
-        from .stream import StreamingIndex
+        from .stream.streaming import StreamingIndex
         return StreamingIndex(self, config)
 
     def shard(self, mesh, axes=("data",), max_scan_local=None):
@@ -291,7 +291,7 @@ def insert_batch(index, x_new):
     appends to its delta segment in O(batch).  The result reads like a
     ``RairsIndex`` (vectors / search / searcher), new ids continue the
     old numbering, and ``.compact()`` folds the delta into a fresh base."""
-    from .stream import StreamingIndex   # local: stream imports this module
+    from .stream.streaming import StreamingIndex  # local: it imports this
     stream = (index if isinstance(index, StreamingIndex)
               else index.streaming())
     stream.insert(x_new)

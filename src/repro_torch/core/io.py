@@ -60,7 +60,7 @@ from .index import IndexConfig, RairsIndex
 from .pq import PQCodebook
 from .seil import SEIL_FIELDS, SeilStats, arrays_to_device
 from .sharded import ShardedIndex
-from .stream import StreamConfig, StreamingIndex
+from .stream.streaming import StreamConfig, StreamingIndex
 
 INDEX_FORMAT = "rairs-index"
 INDEX_FORMAT_VERSION = 2          # single-file bundles without planes

@@ -5,13 +5,7 @@ from typing import Optional, Sequence
 
 import torch
 
-
-def pairwise_sq_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Squared L2 distances ||x - c||^2, shapes (n, D) x (k, D) -> (n, k)."""
-    x2 = torch.sum(x * x, dim=-1, keepdim=True)        # (n, 1)
-    c2 = torch.sum(c * c, dim=-1)                       # (k,)
-    xc = x @ c.T                                        # (n, k)
-    return torch.clamp_min(x2 - 2.0 * xc + c2[None, :], 0.0)
+from ..kernels.ref import pairwise_sq_l2
 
 
 def assign_nearest(x: torch.Tensor, c: torch.Tensor,

@@ -11,7 +11,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from .kmeans import kmeans_fit, pairwise_sq_l2
+from .kmeans import kmeans_fit
 
 
 @dataclasses.dataclass
@@ -52,25 +52,10 @@ def pq_encode(cb: PQCodebook, x: torch.Tensor,
     """Encode (n, D) -> (n, M) uint8 codes (values < ksub), through
     ``kernels/ops.py::pq_encode``: the encode kernel for a CUDA tensor
     (one launch for any n, each code in one fixed order whatever n),
-    ``pq_encode_plain`` for a CPU tensor.  ``chunk`` bounds the plain
-    version's distance buffer; the kernel needs none and ignores it."""
+    its plain version (``kernels/ref.py::pq_encode_plain``) for a CPU
+    tensor.  ``chunk`` bounds the plain version's distance buffer; the
+    kernel needs none and ignores it."""
     return ops.pq_encode(cb.codebooks, x, chunk)
-
-
-def pq_encode_plain(cb: PQCodebook, x: torch.Tensor,
-                    chunk: int = 65536) -> torch.Tensor:
-    """The plain version of the encode: per subquantizer a distance
-    matmul and argmin (first minimum), ``chunk`` rows at a time."""
-    n, d = x.shape
-    m, ksub, dsub = cb.codebooks.shape
-    out = torch.empty((n, m), dtype=torch.uint8, device=x.device)
-    for s in range(0, n, chunk):
-        xs = x[s:s + chunk].reshape(-1, m, dsub)
-        for j in range(m):
-            out[s:s + chunk, j] = torch.argmin(
-                pairwise_sq_l2(xs[:, j, :], cb.codebooks[j]), dim=-1
-            ).to(torch.uint8)
-    return out
 
 
 def pq_lut(cb: PQCodebook, q: torch.Tensor) -> torch.Tensor:

@@ -21,10 +21,11 @@ With ``plan_reuse`` a batch runs probe -> host plan-cache merge -> scan:
 each tile's union is merged with the one cached under the tile's
 signature (``engine/cluster.py``), and the scan runs at the smallest
 width bucket covering the live entries.  While a tracer is active
-(``obs/``) the whole-pipeline dispatch goes through the stage-fenced
-``seil_search_traced`` instead, and the plan-reuse dispatch fences its
-probe / merge / scan boundaries; results stay bitwise equal.  The
-host merge runs in four spans (``merge.d2h``, ``merge.signatures``,
+(``obs/``) the whole-pipeline dispatch runs the session's own function
+(``_search_fn``, the composition its graphs hold) eagerly, each stage
+in its span and fenced, and the plan-reuse dispatch fences its probe /
+merge / scan boundaries; results stay bitwise equal.  The host merge
+runs in four spans (``merge.d2h``, ``merge.signatures``,
 ``merge.union``, ``merge.h2d``), and while timing is on (``obs.timing``)
 with no tracer active each call's graph replays are timed into
 ``timing``, a ``DeviceTime``.
@@ -36,13 +37,15 @@ the exact re-rank; the plane's tensors are static inputs of the CUDA
 graphs like the index's own.  ``refine_factor=1`` and the "full" plane
 keep the plain program.
 
-The hooks ``_check_current``, ``_call_inputs`` / ``_scan_inputs`` (the
-tensors an executable takes after its queries), ``_search_fn`` /
-``_scan_fn``, ``_dispatch_traced``, ``_probe_exe_store``,
-``_graph_pool`` and ``device`` let ``core/stream/``'s
-``StreamingSearcher`` swap in the streaming pipeline and
-``core/sharded.py``'s ``ShardedSearcher`` the mesh's serve step, as the
-reference's hooks do.
+The hooks ``_check_current``, ``_call_inputs`` (the tensors every
+executable takes after its own inputs), ``_route_delta``,
+``_probe_exe_store``, ``_graph_pool`` and ``device`` let ``core/stream/``'s
+``StreamingSearcher`` run the same pipeline over its state: it supplies
+``(vectors, DeltaInputs, live)`` as ``_call_inputs`` and its route
+choice as ``_route_delta``, which ``_search_fn`` / ``_scan_fn`` hand to
+``seil_search`` / ``scan_finalize``.  ``core/sharded.py``'s
+``ShardedSearcher`` swaps ``_search_fn`` for the mesh's serve step, as
+the reference's hooks do.
 """
 from __future__ import annotations
 
@@ -58,8 +61,7 @@ from .engine import (BIG, merge_unions_host, plan_width, tile_signatures,
                      union_live, width_buckets)
 from .graphs import GraphExe
 from .params import SearchParams
-from .search import (SearchResult, probe_plan, scan_finalize, seil_search,
-                     seil_search_traced)
+from .search import SearchResult, probe_plan, scan_finalize, seil_search
 
 
 @dataclasses.dataclass
@@ -114,6 +116,8 @@ class Searcher:
     batch returns a ``SearchResult`` of tensors on the index's device;
     ``stats`` counts executables and dispatches, ``buckets`` lists the
     batch sizes with an executable."""
+
+    _route_delta = False    # a stream's session: route its delta scan
 
     def __init__(self, index, params: SearchParams):
         if not isinstance(params, SearchParams):
@@ -186,7 +190,8 @@ class Searcher:
                     dedup_results=idx.needs_result_dedup,
                     oversample=idx.result_oversample, exec_mode=p.exec_mode,
                     query_tile=p.query_tile, fused_topk=p.fused_topk,
-                    packed_codes=self._packed)
+                    packed_codes=self._packed,
+                    route_delta=self._route_delta)
 
     def _zeros(self, bucket: int) -> torch.Tensor:
         return torch.zeros((bucket, self.index.vectors.shape[1]),
@@ -221,13 +226,9 @@ class Searcher:
         return self._compiled
 
     def _call_inputs(self) -> tuple:
-        """Tensors the whole-pipeline executable takes after the queries
-        (static inputs of its CUDA graph)."""
-        return ()
-
-    def _scan_inputs(self) -> tuple:
-        """Tensors the scan executable takes after (queries, probe,
-        unions)."""
+        """Tensors the whole-pipeline and scan executables take after
+        their own inputs (static inputs of their CUDA graphs): none for
+        an immutable index; a stream's ``(vectors, DeltaInputs, live)``."""
         return ()
 
     def _search_fn(self):
@@ -237,19 +238,20 @@ class Searcher:
                   max_scan=self.params.max_scan)
         arrays, codebook = self._arrays, self._codebook
 
-        def fn(q):
-            return seil_search(arrays, idx.centroids, codebook, idx.vectors,
-                               q, **kw)
+        def fn(q, vectors=idx.vectors, delta=None, live=None):
+            return seil_search(arrays, idx.centroids, codebook, vectors, q,
+                               delta=delta, live=live, **kw)
         return fn
 
     def _scan_fn(self):
-        """``fn(q, probe, unions, *self._scan_inputs())`` -> SearchResult."""
+        """``fn(q, probe, unions, *self._call_inputs())`` -> SearchResult."""
         idx = self.index
         kw = self._search_kw()
         arrays = self._arrays
 
-        def fn(q, probe, unions):
-            return scan_finalize(arrays, idx.vectors, q, probe, unions, **kw)
+        def fn(q, probe, unions, vectors=idx.vectors, delta=None, live=None):
+            return scan_finalize(arrays, vectors, q, probe, unions,
+                                 delta=delta, live=live, **kw)
         return fn
 
     def _executable(self, bucket: int):
@@ -282,31 +284,25 @@ class Searcher:
                                 dtype=pr.unions.dtype,
                                 device=self.device)
             return self._make(self._scan_fn(),
-                              (qp, pr, unions) + self._scan_inputs())
+                              (qp, pr, unions) + self._call_inputs())
         return self._get_exe(("scan", bucket, width), make)
 
     # -- dispatch ---------------------------------------------------------
-    def _dispatch_traced(self, qc: torch.Tensor) -> SearchResult:
-        """The stage-fenced pipeline, run while a tracer is active."""
-        p, idx = self.params, self.index
-        return seil_search_traced(
-            self._arrays, idx.centroids, self._codebook, idx.vectors, qc,
-            nprobe=p.nprobe, max_scan=p.max_scan, **self._search_kw())
-
     def _dispatch(self, bucket: int, qc: torch.Tensor) -> SearchResult:
-        """One padded chunk through the whole-pipeline executable, or
+        """One padded chunk through the whole-pipeline executable (while
+        a tracer is active, its function run eagerly, stage-fenced), or
         through probe -> plan-cache merge -> scan."""
         self.stats.dispatches += 1
         if not self.params.plan_reuse:
-            if obs.enabled():
-                return self._dispatch_traced(qc)
-            return self._executable(bucket)(qc, *self._call_inputs())
+            exe = (self._search_fn() if obs.enabled()
+                   else self._executable(bucket))
+            return exe(qc, *self._call_inputs())
         qp, pr, unions_w = self._probe_merge(bucket, qc)
         wp = unions_w.shape[1]
         scan = self._scan_exe(bucket, qp, pr, wp)
         with obs.span("stage.scan_finalize", cat="device", bucket=bucket,
                       width=wp):
-            return obs.fence(scan(qp, pr, unions_w, *self._scan_inputs()))
+            return obs.fence(scan(qp, pr, unions_w, *self._call_inputs()))
 
     def _probe_merge(self, bucket: int, qc: torch.Tensor):
         """Probe a padded chunk and merge its tile unions with the plan

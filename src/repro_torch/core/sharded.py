@@ -18,8 +18,9 @@ CPU), and ``ShardedSearcher`` runs ``core/distributed.py``'s serve step
 over them.  ``ShardedSearcher`` keeps all of ``Searcher``'s machinery
 (buckets, chunking, compile and cache stats, the (epoch, version) pin)
 and swaps the hooks ``_search_fn`` / ``_call_inputs`` /
-``_dispatch_traced`` / ``_check_current`` / ``_graph_pool`` /
-``device``.  When every shard is on one card the whole step is one CUDA
+``_check_current`` / ``_graph_pool`` / ``device``; while a tracer is
+active the serve step runs eagerly, its two halves fenced in their spans
+(``core/distributed.py``).  When every shard is on one card the whole step is one CUDA
 graph per bucket, captured into a pool the placement owns (kept alive
 by a one-op anchor graph, ``core/stream/streaming.py::_pool_anchor``);
 across cards the step runs eagerly, because a CUDA graph cannot span
@@ -53,7 +54,6 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import obs
 from ..device import DeviceLike, resolve_device
 from ..errors import StaleSessionError
 from .distributed import ShardArgs, build_serve_step
@@ -61,8 +61,7 @@ from .engine import tables_from_arrays
 from .params import SearchParams
 from .search import SearchResult
 from .searcher import Searcher
-from .stream import StreamingIndex
-from .stream.streaming import _pool_anchor
+from .stream.streaming import StreamingIndex, _pool_anchor
 
 
 class Mesh:
@@ -597,8 +596,8 @@ class ShardedSearcher(Searcher):
     ``build_serve_step`` program over the placed shards: one CUDA graph
     when every shard is on one card (captured into the placement's pool),
     the eager step across cards (a graph cannot span cards) and on the
-    CPU.  While a tracer is active a batch runs the two halves of the
-    step, fenced (``stage.shard_scan``, ``stage.gather_finalize``).
+    CPU.  While a tracer is active a batch runs the step eagerly, its two
+    halves fenced (``stage.shard_scan``, ``stage.gather_finalize``).
     """
 
     def __init__(self, sharded: ShardedIndex, params: SearchParams):
@@ -644,44 +643,16 @@ class ShardedSearcher(Searcher):
                   else self.sharded._plane_shards(self._plane))
         return self._state.serve_args(planes)
 
-    def _build_step(self, stage: str):
+    def _search_fn(self):
         sh, p, idx = self.sharded, self.params, self.index
-        return build_serve_step(
+        serve = build_serve_step(
             nprobe=p.nprobe, bigk=p.bigk_eff, k=p.k,
             max_scan_local=self.max_scan_local, metric=idx.config.metric,
             dedup_results=idx.needs_result_dedup,
             oversample=idx.result_oversample, exec_mode=p.exec_mode,
             query_tile=p.query_tile, streaming=sh.streaming,
-            fused_topk=p.fused_topk, stage=stage,
-            packed_codes=self._plane is not None)
-
-    def _search_fn(self):
-        serve = self._build_step("all")
+            fused_topk=p.fused_topk, packed_codes=self._plane is not None)
 
         def fn(q, *shards):
             return serve(shards, q)
         return fn
-
-    def _dispatch_traced(self, qc: torch.Tensor) -> SearchResult:
-        """The step in its two halves, each fenced: the shards' scans
-        through their preselects, then the gather and the finalize, so a
-        trace separates per-shard scan time from the merge tail.  The
-        same operations as the whole step: bitwise equal results."""
-        sh = self.sharded
-        shards = self._call_inputs()
-        bucket = qc.shape[0]
-        with obs.span("stage.shard_scan", cat="device", bucket=bucket,
-                      ndev=sh.ndev) as sp:
-            l_d, l_ids, approx_dco, scanned, dropped = obs.fence(
-                self._build_step("scan")(shards, qc))
-            sp.add(approx_dco=int(approx_dco.sum()),
-                   scanned_blocks=int(scanned.sum()))
-        with obs.span("stage.gather_finalize", cat="device", bucket=bucket,
-                      ndev=sh.ndev) as sp:
-            out_ids, out_d, refine_dco = obs.fence(
-                self._build_step("tail")(shards, qc, l_d, l_ids))
-            sp.add(refine_dco=int(refine_dco.sum()))
-        return SearchResult(
-            ids=out_ids, dists=out_d, approx_dco=approx_dco,
-            refine_dco=refine_dco, scanned_blocks=scanned,
-            dropped_blocks=dropped)

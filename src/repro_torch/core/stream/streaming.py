@@ -31,9 +31,9 @@ On the card (what the reference's functional arrays do not need):
     id-aligned refine store, delta codes / ids / postings / assignments,
     the tombstone mask) are patched **in place** (slice ``copy_``,
     ``index_put_``), because a captured CUDA graph reads them by address.
-    Executables take them as explicit inputs (``_call_inputs`` /
-    ``_scan_inputs``), and a graph handed the very tensor it captured
-    copies nothing.  The mirrors are rebuilt only on a capacity jump, and
+    Executables take them as explicit inputs (``_call_inputs``), and a
+    graph handed the very tensor it captured copies nothing.  The
+    mirrors are rebuilt only on a capacity jump, and
     the postings alone on a posting-width jump: both change the
     executable key, and the executables of older keys are dropped;
   * a compact plane's delta codes live in one buffer per (backend,
@@ -78,8 +78,7 @@ from ..search import SearchResult
 from ..searcher import Searcher
 from ..seil import SeilStats, arrays_to_device, build_seil_host
 from .delta import DeltaSegment
-from .search import (scan_finalize_stream, streaming_search,
-                     streaming_search_traced)
+from .search import DeltaInputs
 
 __all__ = ["PendingCompaction", "StaleSessionError", "StreamConfig",
            "StreamStats", "StreamingIndex", "StreamingSearcher"]
@@ -988,8 +987,8 @@ class StreamingSearcher(Searcher):
     A pristine epoch (no mutations yet) delegates to the base index's
     own session, so an unmutated stream searches bitwise like its
     ``RairsIndex``.  Once mutated, the session dispatches
-    ``streaming_search`` (base stages + delta scan + tombstone mask) per
-    batch bucket; its executables live in the stream-level cache keyed
+    ``seil_search`` with the stream's state (delta scan + tombstone mask)
+    per batch bucket; its executables live in the stream-level cache keyed
     by (params, delta capacity, posting width) and take the device
     mirrors as inputs, and their CUDA graphs allocate from the epoch's
     pool (module docstring).
@@ -1051,41 +1050,9 @@ class StreamingSearcher(Searcher):
     def _call_inputs(self) -> tuple:
         dev = self.stream._device_state()
         post = dev.delta_post if self._route_delta else dev.no_post
-        return (dev.vectors_full, self._delta_codes(dev), dev.delta_ids,
-                post, dev.delta_assigns, dev.live_full)
-
-    _scan_inputs = _call_inputs
-
-    def _search_fn(self):
-        idx = self.index
-        kw = dict(self._search_kw(), nprobe=self.params.nprobe,
-                  max_scan=self.params.max_scan,
-                  route_delta=self._route_delta)
-        arrays, codebook = self._arrays, self._codebook
-
-        def fn(q, *state):
-            return streaming_search(arrays, idx.centroids, codebook, *state,
-                                    q, **kw)
-        return fn
-
-    def _scan_fn(self):
-        kw = dict(self._search_kw(), route_delta=self._route_delta)
-        arrays = self._arrays
-
-        def fn(q, probe, unions, *state):
-            return scan_finalize_stream(arrays, *state, q, probe, unions,
-                                        **kw)
-        return fn
-
-    def _dispatch_traced(self, qc: torch.Tensor) -> SearchResult:
-        """Stage-fenced streaming dispatch: the base stages plus a
-        separate delta-scan span.  A pristine session never reaches this:
-        ``__call__`` delegates to the base session."""
-        p, idx = self.params, self.index
-        return streaming_search_traced(
-            self._arrays, idx.centroids, self._codebook,
-            *self._call_inputs(), qc, nprobe=p.nprobe, max_scan=p.max_scan,
-            route_delta=self._route_delta, **self._search_kw())
+        return (dev.vectors_full, DeltaInputs(
+            self._delta_codes(dev), dev.delta_ids, post, dev.delta_assigns),
+            dev.live_full)
 
     def __call__(self, queries) -> SearchResult:
         if self._delegate is not None:

@@ -2,12 +2,10 @@
 select, the stream's routed delta scan), the paged entry (K2) and the PQ
 encode.
 
-Each wrapper takes its plain version (``ref.py``; the delta scan's in
-``core/stream/search.py``, the encode's in ``core/pq.py``) only for
-tensors on the CPU.  For CUDA
-tensors it checks dtype, shape and contiguity, launches its kernel on
-PyTorch's current stream, raises on any launch error, and adds one to
-its ``launches`` counter.  There is no fallback
+Each wrapper takes its plain version (``ref.py``) only for tensors on
+the CPU.  For CUDA tensors it checks dtype, shape and contiguity,
+launches its kernel on PyTorch's current stream, raises on any launch
+error, and adds one to its ``launches`` counter.  There is no fallback
 from kernel to plain version on the card.
 """
 from __future__ import annotations
@@ -17,8 +15,9 @@ import functools
 import torch
 
 from . import build
-from .ref import (merge_topk_ref, pq_scan_tiled_ref, pq_scan_topk_ref,
-                  scan_rows_ref, select_topk_ref)
+from .ref import (merge_topk_ref, pq_encode_plain, pq_scan_tiled_ref,
+                  pq_scan_topk_ref, routed_delta_topk, scan_rows_ref,
+                  select_topk_ref)
 from .topk import pow2_ceil
 
 SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
@@ -843,11 +842,8 @@ def delta_scan_topk_kernel(lut, delta_codes, delta_ids, delta_post,
     selection state does not fit in shared memory (``delta_form``: fetch
     above 8192) the kept triples go to (B, P * L) rows and
     ``select_topk_kernel`` selects.  On the CPU, the plain version:
-    ``core/stream/search.py::routed_delta_topk``."""
+    ``ref.py::routed_delta_topk``."""
     if lut.device.type == "cpu":
-        # the plain version lives with the stream's other delta scans,
-        # whose module imports this one
-        from ..core.stream.search import routed_delta_topk
         return routed_delta_topk(lut, delta_codes, delta_ids, delta_post,
                                  delta_assigns, sel, rank_of, fetch)
     b, m, k = lut.shape
@@ -959,12 +955,10 @@ def pq_encode_kernel(codebooks: torch.Tensor, x: torch.Tensor,
     centroid of its subquantizer by ``max((x2 - 2 xc) + c2, 0)``, summed
     in one fixed order whatever n.  One launch a call for any n >= 1
     (none for n = 0).  On the CPU, the plain version
-    ``core/pq.py::pq_encode_plain``, ``chunk`` rows a step (the kernel
+    ``ref.py::pq_encode_plain``, ``chunk`` rows a step (the kernel
     ignores ``chunk``)."""
     if x.device.type == "cpu":
-        # the plain version lives in core/pq.py, which imports this module
-        from ..core.pq import PQCodebook, pq_encode_plain
-        return pq_encode_plain(PQCodebook(codebooks), x, chunk)
+        return pq_encode_plain(codebooks, x, chunk)
     dev = x.device
     _require(codebooks, "codebooks", torch.float32, 3, dev)
     _require(x, "x", torch.float32, 2, dev)

@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the CUDA kernels, with their signatures.
+"""Plain PyTorch versions of the CUDA kernels, with their signatures:
+K1, K3 and its merge, the row select, the stream's routed delta scan and
+the PQ encode.
 
 They serve the CPU (a wrapper in ``pq_scan.py`` takes them only for a
 tensor on the CPU) and hold the kernels on the card in
@@ -190,3 +192,147 @@ def merge_topk_ref(part_d, part_pos, part_id):
     b, _, fetch = part_d.shape
     return _lex_topk(part_d.reshape(b, -1), part_pos.reshape(b, -1),
                      part_id.reshape(b, -1), fetch)
+
+
+# ---------------------------------------------------------------------------
+# the stream's routed delta scan (delta_scan_topk_kernel)
+# ---------------------------------------------------------------------------
+# The reference materialises (B, C, M) lookups; the plain delta scans cut
+# the batch into query chunks of at most DELTA_CHUNK_BYTES (256 MiB) of
+# working set, counted from the temporaries each chunk holds at once
+# (routed: ``P * L * (2 M + 16 m + 48)`` bytes a query, the gathered code
+# rows, the assigned lists' ranks, the sums and the keys), so their peak
+# stays near 256 MiB at any batch and capacity; the kernel holds no such
+# temporaries.
+DELTA_CHUNK_BYTES = 2 ** 28
+
+
+def _rows_per_chunk(b: int, bytes_per_query: int) -> int:
+    return max(1, min(b, DELTA_CHUNK_BYTES // max(1, bytes_per_query)))
+
+
+def _adc_rows(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """sum_m lut[b, m, codes[b, n, m]] over ascending m: (B, M, K) x
+    (B, N, M) uint8 rows of each query's own -> (B, N) f32, one gather
+    and one add per m."""
+    b, n, m = codes.shape
+    codes_t = codes.permute(2, 0, 1).contiguous()           # (M, B, N)
+    out = torch.zeros((b, n), dtype=torch.float32, device=lut.device)
+    for j in range(m):
+        out.add_(torch.gather(lut[:, j, :], 1, codes_t[j].long()))
+    return out
+
+
+def _stable_top(d: torch.Tensor, i: torch.Tensor, n: int):
+    """The stable top-``n`` of each row of ``d`` (ascending, ties by
+    position) and its ``i``: a unique int64 key (the f32 bits made
+    signed-monotone in [-2**31, 2**31), -0.0 taken as +0.0, above the
+    column) makes ``torch.topk`` exact for either sign of distance."""
+    n = min(n, d.shape[1])
+    bits = (d + 0.0).view(torch.int32).long()
+    mono = torch.where(bits >= 0, bits, -2 ** 31 - bits)
+    col = torch.arange(d.shape[1], dtype=torch.long, device=d.device)
+    key = torch.topk((mono << 32) | col, n, dim=1, largest=False,
+                     sorted=True).values
+    pos = key & 0xFFFFFFFF
+    return torch.gather(d, 1, pos), torch.gather(i, 1, pos)
+
+
+def _routed_rows(lut, delta_codes, delta_ids, delta_post, delta_assigns,
+                 sel, rank_of):
+    """``routed_delta_candidates`` for one chunk of queries."""
+    b, p = sel.shape
+    slots = delta_post[sel.long()]                          # (B, P, L)
+    s0 = slots.clamp_min(0).long()
+    sids = torch.where(slots >= 0, delta_ids[s0], torch.full_like(slots, -1))
+    al = delta_assigns[s0]                                  # (B, P, L, m)
+    r = torch.gather(rank_of, 1, al.reshape(b, -1).long()).reshape(al.shape)
+    min_rank = r.min(dim=-1).values                         # (B, P, L)
+    keep = (sids >= 0) & (min_rank == torch.arange(
+        p, dtype=torch.int32, device=sel.device)[None, :, None])
+    d = _adc_rows(lut, delta_codes[s0.reshape(b, -1)])      # (B, P*L)
+    keep = keep.reshape(b, -1)
+    sids = sids.reshape(b, -1)
+    dd = torch.where(keep, d, torch.inf)
+    di = torch.where(keep, sids, torch.full_like(sids, -1))
+    return dd, di, keep.sum(dim=1).to(torch.int32)
+
+
+def _routed_bytes(delta_post, delta_codes, delta_assigns, p) -> int:
+    return p * delta_post.shape[1] * (2 * delta_codes.shape[1]
+                                      + 16 * delta_assigns.shape[1] + 48)
+
+
+def _routed_chunks(lut, delta_codes, delta_ids, delta_post, delta_assigns,
+                   sel, rank_of, fetch=None):
+    """``_routed_rows`` over query chunks (``DELTA_CHUNK_BYTES``), each
+    chunk's stream cut to its stable top-``fetch`` when one is given."""
+    b, p = sel.shape
+    step = _rows_per_chunk(b, _routed_bytes(delta_post, delta_codes,
+                                            delta_assigns, p))
+    dds, dis, dcos = [], [], []
+    for s in range(0, b, step):
+        dd, di, dco = _routed_rows(
+            lut[s:s + step], delta_codes, delta_ids, delta_post,
+            delta_assigns, sel[s:s + step], rank_of[s:s + step])
+        if fetch is not None:
+            dd, di = _stable_top(dd, di, fetch)
+        dds.append(dd)
+        dis.append(di)
+        dcos.append(dco)
+    return torch.cat(dds), torch.cat(dis), torch.cat(dcos)
+
+
+def routed_delta_candidates(lut, delta_codes, delta_ids, delta_post,
+                            delta_assigns, sel, rank_of):
+    """Delta candidates reached through the probed lists only.
+
+    lut (B, M, K); delta_post (nlist, L) slot ids (-1 pad);
+    delta_assigns (cap, m); sel (B, P) ranked probed lists; rank_of
+    (B, nlist).  Returns ``(dd, di, dco)``: (B, P*L) distances / ids and
+    the per-query routed DCO.  A slot assigned to several probed lists is
+    scored once, at its lowest-ranked probed assigned list, so the
+    candidate stream stays duplicate-free.  Computed in query chunks
+    (``DELTA_CHUNK_BYTES``)."""
+    return _routed_chunks(lut, delta_codes, delta_ids, delta_post,
+                          delta_assigns, sel, rank_of)
+
+
+def routed_delta_topk(lut, delta_codes, delta_ids, delta_post,
+                      delta_assigns, sel, rank_of, fetch: int):
+    """Plain ``delta_scan_topk_kernel`` (the CPU's routed delta scan):
+    ``routed_delta_candidates`` with each query's stream cut to its
+    stable top-``fetch`` in query chunks, and the posted slots each query
+    reads.  Returns ``(dd, di, dco, walked)``."""
+    dd, di, dco = _routed_chunks(lut, delta_codes, delta_ids, delta_post,
+                                 delta_assigns, sel, rank_of, fetch)
+    walked = (delta_post[sel.long()] >= 0).sum(dim=(1, 2), dtype=torch.int32)
+    return dd, di, dco, walked
+
+
+# ---------------------------------------------------------------------------
+# the PQ encode (pq_encode_kernel)
+# ---------------------------------------------------------------------------
+def pairwise_sq_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances ||x - c||^2, shapes (n, D) x (k, D) -> (n, k)."""
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)        # (n, 1)
+    c2 = torch.sum(c * c, dim=-1)                       # (k,)
+    xc = x @ c.T                                        # (n, k)
+    return torch.clamp_min(x2 - 2.0 * xc + c2[None, :], 0.0)
+
+
+def pq_encode_plain(codebooks: torch.Tensor, x: torch.Tensor,
+                    chunk: int = 65536) -> torch.Tensor:
+    """Plain ``pq_encode_kernel``: codebooks (M, K, dsub), x (n, M * dsub)
+    -> (n, M) uint8, per subquantizer a distance matmul and argmin (first
+    minimum), ``chunk`` rows at a time."""
+    n, d = x.shape
+    m, ksub, dsub = codebooks.shape
+    out = torch.empty((n, m), dtype=torch.uint8, device=x.device)
+    for s in range(0, n, chunk):
+        xs = x[s:s + chunk].reshape(-1, m, dsub)
+        for j in range(m):
+            out[s:s + chunk, j] = torch.argmin(
+                pairwise_sq_l2(xs[:, j, :], codebooks[j]), dim=-1
+            ).to(torch.uint8)
+    return out

@@ -6,8 +6,9 @@ stack (``Gateway`` flush, then ``Searcher`` dispatch, then the engine
 stages).  It is off by default: every instrumentation point goes
 through ``span()`` / ``fence()``, which are no-ops (a shared singleton
 span, no device synchronize, no recorded work) until ``start()``
-installs an active tracer.  With one active, sessions dispatch through
-the stage-fenced ``seil_search_traced`` and each fence is a
+installs an active tracer.  With one active, sessions run the same
+composition their CUDA graphs hold (``core/search.py::seil_search``, a
+mesh's serve step) eagerly, and each fence after a stage is a
 ``torch.cuda.synchronize``, so a stage's span covers its device time;
 results stay bitwise equal.  While ``torch.profiler`` collects, spans
 are also the profiler's annotations, tracer or not; and while either is
@@ -30,13 +31,14 @@ from .export import (to_prometheus, to_trace_events,  # noqa: F401
 from .stats import (scan_traffic_model, session_traffic_model,  # noqa: F401
                     snapshot_all)
 from .tracer import (DeviceTime, Tracer, clocked, enabled,  # noqa: F401
-                     events_taken, fence, replay_span, settle, span, start,
-                     stop, timing, to_host, trace, tracer, work_count)
+                     events_taken, fence, recording, replay_span, settle,
+                     span, start, stop, timing, to_host, trace, tracer,
+                     work_count)
 
 __all__ = [
-    "Tracer", "enabled", "fence", "span", "start", "stop", "trace",
-    "tracer", "work_count", "clocked", "to_host", "timing", "DeviceTime",
-    "replay_span", "settle", "events_taken",
+    "Tracer", "enabled", "recording", "fence", "span", "start", "stop",
+    "trace", "tracer", "work_count", "clocked", "to_host", "timing",
+    "DeviceTime", "replay_span", "settle", "events_taken",
     "to_trace_events", "write_trace", "validate_trace", "to_prometheus",
     "snapshot_all", "scan_traffic_model", "session_traffic_model",
 ]

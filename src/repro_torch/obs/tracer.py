@@ -17,7 +17,10 @@ tracing is off.
 active it runs ``torch.cuda.synchronize`` on the device of ``x``'s
 tensors (a nested tuple of tensors), so the enclosing span covers the
 device time of its stage instead of the cost of queueing it.  Fencing
-changes when the host observes values, never the values.
+changes when the host observes values, never the values.  Inside a CUDA
+graph's capture, where a synchronize would break the capture, it does
+nothing, and ``recording()`` (which guards the span counters that read
+device values) is false.
 
 ``Tracer.event`` records cross-thread exemplar events on virtual request
 tracks; these carry no nesting contract.
@@ -243,6 +246,18 @@ def enabled() -> bool:
     return _ACTIVE is not None
 
 
+def _capturing() -> bool:
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def recording() -> bool:
+    """True while a tracer is active and this thread captures no CUDA
+    graph: where instrumentation may read device values (``int()`` of a
+    tensor for a span counter) and ``fence`` synchronizes."""
+    return _ACTIVE is not None and not _capturing()
+
+
 def tracer() -> Optional[Tracer]:
     """The active tracer, or None."""
     return _ACTIVE
@@ -416,10 +431,10 @@ def _cuda_devices(x, out: set) -> set:
 
 def fence(x):
     """Wait until the device work that produces ``x`` is done — only
-    while tracing (the production path never synchronizes).  Returns
-    ``x``."""
+    while tracing, and not inside a CUDA graph's capture (the production
+    path never synchronizes).  Returns ``x``."""
     t = _ACTIVE
-    if t is not None:
+    if t is not None and not _capturing():
         global _WORK
         for dev in _cuda_devices(x, set()):
             torch.cuda.synchronize(dev)

@@ -77,6 +77,37 @@ def test_no_file_imports_jax_or_reference(path):
     assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
 
 
+def _imported_modules(path: Path, package: str):
+    """Every module ``path`` imports, at module level or inside a
+    function, as an absolute name (``package`` is the file's own)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")
+            if node.level:
+                base = base[:len(base) - node.level + 1]
+                mod = ".".join(base + ([node.module] if node.module else []))
+            else:
+                mod = node.module
+            yield mod
+            yield from (f"{mod}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("path", sorted(
+    p.relative_to(ROOT).as_posix()
+    for p in (PORT / "kernels").rglob("*.py")))
+def test_kernels_never_import_core(path):
+    """The kernel layer sits below the engine: its wrappers fall back to
+    their plain versions in ``kernels/ref.py``, never to ``core``."""
+    package = "repro_torch." + ".".join(
+        Path(path).relative_to("src/repro_torch").parent.parts)
+    mods = set(_imported_modules(ROOT / path, package))
+    assert not {m for m in mods if m == "repro_torch.core"
+                or m.startswith("repro_torch.core.")}, (path, sorted(mods))
+
+
 def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
     from repro_torch.convert import index_from_numpy
     from repro_torch.core import IndexConfig, build_index, ground_truth

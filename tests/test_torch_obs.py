@@ -3,9 +3,9 @@
 Tracing off is the production path: the work counter does not move over
 a session's dispatch, ``span()`` is a shared no-op and ``fence()``
 returns its argument.  Tracing on changes when the host observes values,
-never the values: ``seil_search_traced`` and the traced session
+never the values: ``seil_search`` under a tracer and the traced session
 dispatches equal their untraced runs bitwise, and record the reference's
-span names with the same DCO counters.
+span names (its ``seil_search_traced``'s) with the same DCO counters.
 """
 import dataclasses
 
@@ -136,7 +136,7 @@ def test_disabled_tracing_does_no_work(tindex, unit_data):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("mode", ["paged", "grouped", "clustered"])
 @pytest.mark.parametrize("fused", [False, True])
-def test_seil_search_traced_matches_untraced_and_reference(
+def test_seil_search_under_tracer_matches_untraced_and_reference(
         rairs_index, tindex, unit_data, mode, fused):
     _, q, _ = unit_data
     qa = np.array(q[:32])
@@ -149,7 +149,7 @@ def test_seil_search_traced_matches_untraced_and_reference(
             torch.from_numpy(qa))
     plain = tsearch.seil_search(*args, **kw)
     with obs.trace() as tr:
-        traced = tsearch.seil_search_traced(*args, **kw)
+        traced = tsearch.seil_search(*args, **kw)
     _equal(traced, plain)
     with jobs.trace() as jtr:
         jsearch.seil_search_traced(
@@ -165,6 +165,31 @@ def test_seil_search_traced_matches_untraced_and_reference(
     assert got["stage.finalize"]["counters"]["refine_dco"] == int(
         plain.refine_dco.sum())
     assert tr.fences == 4
+
+
+def test_capture_under_tracer_fences_and_counts_nothing(tindex, unit_data,
+                                                        monkeypatch):
+    """While a CUDA graph captures (a session warmed up under an active
+    tracer), ``seil_search``'s fences synchronize nothing and its spans
+    read no counter (``int()`` of a device tensor would break the
+    capture); the results are the plain ones.  The capture is faked on
+    the CPU."""
+    _, q, _ = unit_data
+    kw = dict(nprobe=8, bigk=100, k=10, max_scan=64, fused_topk=True)
+    args = (tindex.arrays, tindex.centroids, tindex.codebook, tindex.vectors,
+            torch.from_numpy(np.array(q[:16])))
+    plain = tsearch.seil_search(*args, **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with obs.trace() as tr:
+        assert not obs.recording()
+        got = tsearch.seil_search(*args, **kw)
+    _equal(got, plain)
+    assert tr.fences == 0
+    summary = tr.stage_summary()
+    assert summary["stage.scan_blocks_topk"]["counters"] == {}
+    assert summary["stage.finalize"]["counters"] == {}
 
 
 @pytest.mark.parametrize("params,expect_spans", [

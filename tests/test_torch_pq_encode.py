@@ -213,9 +213,24 @@ def test_insert_encodes_through_the_kernel(card):
 # ---------------------------------------------------------------------------
 # on the CPU
 # ---------------------------------------------------------------------------
+@pytest.fixture
+def one_thread():
+    """One intra-op thread while the plain loop runs.  At 300 rows a
+    subquantizer's (300, K 256) distances pass the size at which torch
+    splits an op over its thread pool, so the gist shape's loops fork and
+    join some 6,000 times a call; where other processes hold the cores
+    (the suite's parallel workers) each join waits for descheduled
+    threads, and the call took minutes instead of a fraction of a second.
+    The codes do not depend on the thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("n", (1, 37, 300))
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_cpu_takes_the_plain_loop(shape, n):
+def test_cpu_takes_the_plain_loop(one_thread, shape, n):
     books, x = _inputs(SHAPES[shape], n, seed=3)
     before = pq_encode_kernel.launches
     got = pq_encode(PQCodebook(books), x)
@@ -227,7 +242,7 @@ def test_cpu_takes_the_plain_loop(shape, n):
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_cpu_codes_against_reference(shape):
+def test_cpu_codes_against_reference(one_thread, shape):
     books, x = _inputs(SHAPES[shape], 300, seed=5)
     _assert_ties(books, x, pq_encode(PQCodebook(books), x),
                  _reference_codes(books, x), REF_DIFF_SHARE)

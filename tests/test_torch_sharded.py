@@ -41,9 +41,9 @@ from repro_torch import obs
 from repro_torch.convert import index_from_numpy
 from repro_torch.core import (Mesh, RefineParams, SearchParams, Searcher,
                               ShardedIndex, ShardedSearcher,
-                              StaleSessionError, build_serve_step,
-                              distributed_search, kmeans_step_sharded,
-                              load_index, make_mesh, save_index)
+                              StaleSessionError, distributed_search,
+                              kmeans_step_sharded, load_index, make_mesh,
+                              save_index)
 from repro_torch.core.pq import PQCodebook
 from repro_torch.gateway import Gateway, GatewayConfig
 
@@ -196,9 +196,6 @@ def test_shard_refusals(tidx, mesh4):
             k=10, nprobe=8, exec_mode="grouped", plan_reuse=True))
     with pytest.raises(ValueError, match="answers on cpu"):
         tidx.shard(mesh4).searcher(SearchParams(k=10), device="meta")
-    with pytest.raises(ValueError, match="stage must be"):
-        build_serve_step(nprobe=4, bigk=10, k=10, max_scan_local=8,
-                         stage="both")
 
 
 # ---------------------------------------------------------------------------

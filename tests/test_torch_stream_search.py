@@ -2,8 +2,9 @@
 (2 of 3).
 
 The delta scan (``delta_adc``, ``routed_delta_candidates``) on seeded
-inputs, ``streaming_search`` in the three exec modes fused off and on,
-exhaustive and routed; then the
+inputs, ``seil_search`` with a stream's delta and tombstones (the
+reference's ``streaming_search``) in the three exec modes fused off and
+on, exhaustive and routed; then the
 streaming tests of ``test_plan.py`` (clustered on a mutated stream, plan
 reuse across mutations and a capacity jump, the routed delta, the
 routing threshold and the cost guard), ``test_fused.py`` (fused against
@@ -28,10 +29,12 @@ from repro.core import build_index as j_build
 from repro.core.stream import search as jsearch
 from repro_torch import obs
 from repro_torch.convert import index_from_numpy
-from repro_torch.core import (RefineParams, SearchParams, StaleSessionError,
-                              StreamingIndex)
+from repro_torch.core import (DeltaInputs, RefineParams, SearchParams,
+                              StaleSessionError, StreamingIndex, seil_search)
+from repro_torch.core.engine import select_lists
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.stream import search as tsearch
+from repro_torch.kernels import ref
 
 SEIL = ("block_codes", "block_ids", "block_other", "owned", "refs",
         "refs_other", "misc")
@@ -113,7 +116,7 @@ def test_delta_adc_matches_reference(k):
     acc = np.zeros((5, 11), np.float32)
     for m in range(8):
         acc += np.take_along_axis(lut[:, m, :], rows[:, :, m].astype(int), 1)
-    np.testing.assert_array_equal(tsearch._adc_rows(t(lut), t(rows)).numpy(),
+    np.testing.assert_array_equal(ref._adc_rows(t(lut), t(rows)).numpy(),
                                   acc)
 
 
@@ -144,7 +147,7 @@ def test_routed_delta_candidates_match_reference(seed, signed):
     for r in range(b):
         rank_of[r, sel[r]] = np.arange(p)
     args = (lut, codes, ids, post, assigns, sel, rank_of)
-    got = tsearch.routed_delta_candidates(*(t(a) for a in args))
+    got = ref.routed_delta_candidates(*(t(a) for a in args))
     want = jsearch.routed_delta_candidates(*(jnp.asarray(a) for a in args))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **TOL)
     for g, w in zip(got[1:], want[1:]):
@@ -231,7 +234,7 @@ def test_delta_scan_topk_plain(case):
     post, sel = args[3], args[5]
     targs = [t(a) for a in args]
     dd, di, dco, walked = ops.delta_scan_topk(*targs, fetch=fetch)
-    plain = tsearch._routed_chunks(*targs, fetch)
+    plain = ref._routed_chunks(*targs, fetch)
     for got, want in zip((dd, di, dco), plain):
         assert torch.equal(got, want)
     rows = post[sel]                                     # (B, P, L)
@@ -267,24 +270,25 @@ def test_stable_top_orders_either_sign():
     ids = torch.arange(d.shape[1])[None]
     order = np.argsort((d + 0.0).numpy(), axis=1, kind="stable")
     for n in (1, 5, d.shape[1]):
-        dd, di = tsearch._stable_top(d, ids, n)
+        dd, di = ref._stable_top(d, ids, n)
         np.testing.assert_array_equal(di.numpy(), order[:, :n])
         assert torch.equal(dd, torch.gather(d, 1, di))
 
 
 def _direct(idx, st, q, mode, fused, route, bigk=100):
-    """One ``streaming_search`` call of either package on the mirrors of
-    stream ``st``, under the index's metric."""
+    """One call of either package's streaming pipeline on the mirrors of
+    stream ``st``, under the index's metric: the port's ``seil_search``
+    with the delta and tombstones, the reference's ``streaming_search``."""
     metric = idx.config.metric
     if isinstance(st, StreamingIndex):
         dv = st._device_state()
-        return tsearch.streaming_search(
-            idx.arrays, idx.centroids, idx.codebook, dv.vectors_full,
-            dv.delta_codes, dv.delta_ids, dv.delta_post, dv.delta_assigns,
-            dv.live_full, t(q), nprobe=8, bigk=bigk, k=10,
-            max_scan=idx.default_max_scan(8), metric=metric,
-            exec_mode=mode, query_tile=4, route_delta=route,
-            fused_topk=fused)
+        return seil_search(
+            idx.arrays, idx.centroids, idx.codebook, dv.vectors_full, t(q),
+            nprobe=8, bigk=bigk, k=10, max_scan=idx.default_max_scan(8),
+            metric=metric, exec_mode=mode, query_tile=4, route_delta=route,
+            fused_topk=fused, live=dv.live_full, delta=DeltaInputs(
+                dv.delta_codes, dv.delta_ids, dv.delta_post,
+                dv.delta_assigns))
     dv = st._device_state()
     return jsearch.streaming_search(
         idx.arrays, idx.centroids, idx.codebook, dv.vectors_full,
@@ -468,7 +472,7 @@ def test_traced_routed_delta_counters(routed_pairs, unit_data):
     assert_identical(ref, res)
     counters = trace.stage_summary()["stage.delta_scan"]["counters"]
     dv = tr._device_state()
-    sel = tsearch.select_lists(t(qs), tr.centroids, nprobe=8).sel
+    sel = select_lists(t(qs), tr.centroids, nprobe=8).sel
     rows = dv.delta_post[sel.long()]
     assert counters["kernel"] == 0
     assert counters["delta_walked"] == int((rows >= 0).sum())

@@ -5,8 +5,8 @@ the routed scan's kernel beside it, on one NVIDIA H100.
     python3 tools/delta_scan_chunks.py [--seed 0] [--budgets 28,27,26]
                                        [--fetch 200] [--loop]
 
-Times ``core/stream/search.py``'s delta scans (ADC over ascending m,
-then each query's stable top-fetch) at the churn cell's shapes, with
+Times the stream's delta scans (ADC over ascending m, then each query's
+stable top-fetch) at the churn cell's shapes, with
 ``chip_smoke.py::delta_inputs`` (uniform codes, uniform assignments
 over 4096 lists, 5% dead slots): the exhaustive scan
 (``exhaustive_delta_candidates``) at capacity 131,072, first holding its
@@ -14,9 +14,10 @@ ADC sums (``delta_adc``: ``F.embedding_bag``) bitwise against a loop of
 one gather and one add per m (``--loop`` times the scan with that loop
 in their place), and the routed scan at capacity 262,144 (nprobe 32,
 posting width 256): its kernel (``ops.delta_scan_topk``) beside the
-chunked plain version (``routed_delta_topk``, the CPU's path).  At B =
-1024 and 64, M 64, K 16, ``--fetch`` (the cell's finalize fetch, 200),
-with ``DELTA_CHUNK_BYTES`` (the plain versions' budget) set to each
+chunked plain version (``kernels/ref.py::routed_delta_topk``, the
+CPU's path).  At B = 1024 and 64, M 64, K 16, ``--fetch`` (the cell's
+finalize fetch, 200), with ``kernels/ref.py::DELTA_CHUNK_BYTES`` (the
+budget of both plain scans) set to each
 ``2**budget`` in turn.  Each time is the card's work alone (calls
 captured in one CUDA graph and replayed, as a session replays them);
 every budget's output, and the kernel's, must be bitwise the first
@@ -56,7 +57,7 @@ def main() -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     from chip_smoke import delta_inputs, graph_ms
     from repro_torch.core.stream import search
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -79,7 +80,7 @@ def main() -> int:
             args_ = delta_inputs(torch, dev, args.seed, b, cap=cap)
             if routed:
                 def plain():
-                    return search.routed_delta_topk(*args_, args.fetch)
+                    return ref.routed_delta_topk(*args_, args.fetch)
             else:
                 def plain():
                     return search.exhaustive_delta_candidates(
@@ -87,11 +88,11 @@ def main() -> int:
             first = None
             line = []
             for bud in budgets:
-                search.DELTA_CHUNK_BYTES = 2 ** bud
-                step = (search._rows_per_chunk(
-                    b, search._routed_bytes(args_[3], args_[1], args_[4],
-                                            32)) if routed
-                    else search._rows_per_chunk(b, 40 * cap))
+                ref.DELTA_CHUNK_BYTES = 2 ** bud
+                step = (ref._rows_per_chunk(
+                    b, ref._routed_bytes(args_[3], args_[1], args_[4],
+                                         32)) if routed
+                    else ref._rows_per_chunk(b, 40 * cap))
                 out = plain()
                 torch.cuda.synchronize()
                 if first is None:
